@@ -7,18 +7,26 @@ Phases (any mismatch or exception exits non-zero without the ok line):
   0. device facts: card name and power limit, torch, nvcc, GPU count;
   1. build both kernels from eth_lc_plonky2_tpu_torch/csrc with nvcc (sm_90a);
   2. each kernel against its plain PyTorch version on the card, bit for bit:
-     the NTT (forward, inverse, coset) at log n in 1..14, 16, 18, 21, and the
-     Poseidon sponge at L in {8, 16, 20, 184}, N in {1, 511, 512, 4097};
+     the NTT (forward, inverse, coset; the LDE reads its coefficients without
+     padding them) at log n in 1..14, 16, 18, 21, the Poseidon sponge at L in
+     {8, 16, 20, 184}, N in {1, 511, 512, 2049, 4097}, Merkle levels, and
+     whole trees of 2^4, 2^5, 2^11 and 2^12 leaves at cap heights 0 and 4
+     (the one-launch tail of a tree);
   3. commit_values on assets/dryrun/pre.npz must reproduce its stored
      coefficients, LDE and every Merkle level;
   4. one proof's three commitments at the flagship width (CircuitConfig
      num_wires=184 on a 2^18 domain, rate 2^3, cap height 4): wires and Z
      from values, the quotient from coefficients, with seeded data; launch
      counts, subset checks against the plain versions, Merkle paths
-     verified against the cap, and timings.
+     verified against the cap, timings, and a torch.profiler split by kernel
+     name whose launch counts must be the plan's (leaves, levels, tail, NTT
+     passes).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on the main path, its error against the plain
-version and its time beside the plain version's.
+version, and its time beside the plain version's and beside the least time
+the card could take (bound_ms: the larger of bytes over 3.35 TB/s and 32-bit
+integer multiply-adds, counted in the cheapest form known, over 16.75 T/s).
+No PyTorch call computes either function, so library_ms is null.
 
 It needs a CUDA device, and no JAX: the port imports neither jax nor the JAX
 package.
@@ -30,6 +38,7 @@ import argparse
 import importlib.metadata
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -51,8 +60,23 @@ NUM_QUOTIENT = 2 * (1 << RATE_BITS)  # challenges x quotient chunks
 
 NTT_LOGS = list(range(1, 15)) + [16, 18, 21]
 SPONGE_LS = (8, 16, 20, 184)
-SPONGE_NS = (1, 511, 512, 4097)
+SPONGE_NS = (1, 511, 512, 2049, 4097)
+TREE_LEAVES = (1 << 4, 1 << 5, 1 << 11, 1 << 12)
+TREE_CAPS = (0, 4)
 DEVICE = "cuda"
+
+# The card's peaks (NVIDIA H100 SXM data sheet): 3.35 TB/s of device memory,
+# and 67 TFLOP/s of float32 = 33.5 T multiply-adds/s on 128 lanes an SM, of
+# which 64 do 32-bit integer multiply-adds: 16.75 T/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_MADS_PER_S = 67e12 / 2 / 2
+# 32 x 32 multiply-adds of one permutation in the cheapest form known: 118
+# S-boxes of two squares (3 partial products of a 64 x 64 square) and two
+# general products (4); 8 dense layers as two length-6 correlations on four
+# 16-bit limbs (72 x 4 products, and 4 for the one non-zero diagonal entry);
+# the 22 sparse partial rounds (an 11 x 11 matrix, then 23 products of
+# 64 x 64 bits a round).
+MADS_PER_PERMUTATION = 118 * (2 * 3 + 2 * 4) + 8 * (72 * 4 + 4) + (121 + 22 * 23) * 4
 
 
 def fail(msg: str) -> None:
@@ -137,11 +161,13 @@ def phase1() -> None:
     from eth_lc_plonky2_tpu_torch.ops import kernels
 
     info = kernels.build()
-    log(f"[1] kernels {'built' if info['built'] else 'loaded'} in {info['seconds']:.1f} s: "
-        f"{os.path.relpath(info['path'], REPO)}")
+    paths = ", ".join(os.path.relpath(p, REPO) for p in info["paths"])
+    log(f"[1] kernels ready in {info['seconds']:.1f} s (built now: {info['built']}): {paths}")
     for line in info.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line:
             log(f"[1] ptxas: {line.strip()}")
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                fail(f"a kernel spills registers: {line.strip()}")
 
 
 def phase2(torch, chk: Checker, rng) -> None:
@@ -178,6 +204,21 @@ def phase2(torch, chk: Checker, rng) -> None:
                  pos._hash_plain(level.reshape(-1, 8)), f"level compress M={m}")
     torch.cuda.synchronize()
     log(f"[2] sponge == plain at L {SPONGE_LS} x N {SPONGE_NS}, and level compression")
+    from eth_lc_plonky2_tpu_torch.prover import merkle
+
+    for n in TREE_LEAVES:
+        leaves = gl.from_u64(rng.integers(0, gl.P, size=(n, 5), dtype=np.uint64), dev)
+        for cap in TREE_CAPS:
+            tree = merkle.build_merkle(leaves, cap)
+            want = pos._hash_plain(leaves)
+            if len(tree.levels) != n.bit_length() - cap:
+                fail(f"tree of {n} leaves, cap height {cap}: {len(tree.levels)} levels")
+            for k, level in enumerate(tree.levels):
+                chk.same("poseidon", level, want, f"tree of {n} leaves, cap {cap}, level {k}")
+                if k + 1 < len(tree.levels):
+                    want = pos._hash_plain(want.reshape(-1, 8))
+    torch.cuda.synchronize()
+    log(f"[2] trees of {TREE_LEAVES} leaves at cap heights {TREE_CAPS} == plain, level by level")
 
 
 def phase3(torch) -> None:
@@ -201,6 +242,113 @@ def phase3(torch) -> None:
         f"{num_levels} levels")
 
 
+def flagship_inputs(rng) -> tuple:
+    """Seeded wires and Z values and quotient coefficients on the card."""
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
+
+    n = 1 << LOG_N
+    return tuple(gl.from_u64(rng.integers(0, gl.P, size=(rows, n), dtype=np.uint64), DEVICE)
+                 for rows in (NUM_WIRES, NUM_Z, NUM_QUOTIENT))
+
+
+def commit_all(inputs) -> tuple:
+    """One proof's three commitments."""
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    wires_vals, z_vals, q_coeffs = inputs
+    return (prove.commit_field_values(wires_vals, RATE_BITS, CAP_HEIGHT),
+            prove.commit_field_values(z_vals, RATE_BITS, CAP_HEIGHT),
+            prove.commit_coeffs(q_coeffs, RATE_BITS, CAP_HEIGHT))
+
+
+def measure(torch, chk: Checker, rng, card: str, inputs) -> dict:
+    """The timings of phase 4: each commitment (host clock, median of 3), each
+    kernel beside its plain version at one main-path shape (CUDA events), and
+    the device time of one proof's commitments by kernel name (torch.profiler).
+
+    It calls only what the package has had since its first version, so
+    tools/torch_kernel_times.py can run it on an older checkout too.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, ntt, poseidon as pos
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    dev = DEVICE
+    n, n_lde = 1 << LOG_N, 1 << (LOG_N + RATE_BITS)
+    wires_vals, z_vals, q_coeffs = inputs
+    out = {"card": card}
+    caps = [b.cap for b in commit_all(inputs)]  # also the warm-up
+    out["caps_xor"] = int(np.bitwise_xor.reduce(np.concatenate(caps).ravel()))
+    times = {}
+    for tag, fn in (("wires", lambda: prove.commit_field_values(wires_vals, RATE_BITS, CAP_HEIGHT)),
+                    ("Z", lambda: prove.commit_field_values(z_vals, RATE_BITS, CAP_HEIGHT)),
+                    ("quotient", lambda: prove.commit_coeffs(q_coeffs, RATE_BITS, CAP_HEIGHT))):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        times[tag] = statistics.median(runs) * 1e3
+        log(f"[4] commit {tag}: median {times[tag]:.2f} ms of {len(runs)} "
+            f"({', '.join(f'{r * 1e3:.2f}' for r in runs)}) [{card}]")
+    out["commit_ms"] = times
+    out["commit_wall_ms"] = sum(times.values())
+    log(f"[4] one proof's three commitments: {out['commit_wall_ms']:.2f} ms [{card}]")
+
+    # Each kernel beside its plain version at one main-path shape.
+    chunk = prove._COMMIT_CHUNK
+    coeffs = gl.from_u64(rng.integers(0, gl.P, size=(chunk, n), dtype=np.uint64), dev)
+    lde_out = torch.empty((chunk, n_lde), dtype=torch.int64, device=dev)
+    out["ntt_ms"] = cuda_ms(lambda: ntt.coset_lde(coeffs, RATE_BITS, out=lde_out), 5)
+    out["ntt_plain_ms"] = cuda_ms(lambda: ntt.coset_lde_plain(coeffs, RATE_BITS, 7), 3)
+    chk.same("ntt", lde_out, ntt.coset_lde_plain(coeffs, RATE_BITS, 7), "timed coset_lde chunk")
+    scratch = torch.empty_like(coeffs)
+    out["intt_ms"] = cuda_ms(lambda: ntt.intt(coeffs, out=scratch), 5)
+    log(f"[4] ntt: coset_lde ({chunk}, 2^{LOG_N}) -> 2^{LOG_N + RATE_BITS}: kernel "
+        f"{out['ntt_ms']:.3f} ms, plain {out['ntt_plain_ms']:.3f} ms; intt ({chunk}, 2^{LOG_N}): "
+        f"kernel {out['intt_ms']:.3f} ms [{card}]")
+    del lde_out, scratch
+    level = gl.from_u64(rng.integers(0, gl.P, size=(n << 1, 4), dtype=np.uint64), dev)
+    out["level_ms"] = cuda_ms(lambda: pos.compress_level(level), 5)
+    out["level_plain_ms"] = cuda_ms(lambda: pos._hash_plain(level.reshape(-1, 8)), 3)
+    chk.same("poseidon", pos.compress_level(level), pos._hash_plain(level.reshape(-1, 8)),
+             "timed level compression")
+    log(f"[4] poseidon: Merkle level ({2 * n}, 4) -> ({n}, 4): kernel {out['level_ms']:.3f} ms, "
+        f"plain {out['level_plain_ms']:.3f} ms [{card}]")
+    wires_lde = torch.empty((NUM_WIRES, n_lde), dtype=torch.int64, device=dev)
+    out["leaves_ms"] = cuda_ms(lambda: pos.hash_no_pad(wires_lde.T), 3)
+    log(f"[4] poseidon: wires leaves ({NUM_WIRES}, 2^{LOG_N + RATE_BITS}): kernel "
+        f"{out['leaves_ms']:.3f} ms [{card}]")
+    del wires_lde, level
+
+    # Device time per proof by kernel name, and the idle share of the window.
+    for _ in range(2):  # the first profiled run pays for the tracer's start-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            commit_all(inputs)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type.name != "CPU" and ev.self_device_time_total > 0:
+            own = re.search(r"\w+_kernel\b", ev.key)  # this repo's kernels, without their namespace
+            by_name[own.group(0) if own else ev.key[:48]] = {
+                "ms": ev.self_device_time_total / 1e3, "launches": ev.count}
+    busy_ms = sum(v["ms"] for v in by_name.values())
+    for name, v in sorted(by_name.items(), key=lambda kv: -kv[1]["ms"]):
+        log(f"[4] profile, one proof's commitments: {name}: {v['ms']:.3f} ms in "
+            f"{v['launches']} launches [{card}]")
+    log(f"[4] profile: busy {busy_ms:.3f} ms of a {window_ms:.3f} ms window, idle share "
+        f"{1 - busy_ms / window_ms:.3f} [{card}]")
+    out["profile"] = {"by_kernel": by_name, "busy_ms": busy_ms, "window_ms": window_ms,
+                      "idle_share": 1 - busy_ms / window_ms}
+    return out
+
+
 def phase4(torch, chk: Checker, rng, card: str) -> dict:
     from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, kernels, ntt, poseidon as pos
     from eth_lc_plonky2_tpu_torch.prover import merkle, prove
@@ -208,22 +356,16 @@ def phase4(torch, chk: Checker, rng, card: str) -> dict:
     dev = DEVICE
     n = 1 << LOG_N
     t0 = time.perf_counter()
-    wires_vals = gl.from_u64(rng.integers(0, gl.P, size=(NUM_WIRES, n), dtype=np.uint64), dev)
-    z_vals = gl.from_u64(rng.integers(0, gl.P, size=(NUM_Z, n), dtype=np.uint64), dev)
-    q_coeffs = gl.from_u64(rng.integers(0, gl.P, size=(NUM_QUOTIENT, n), dtype=np.uint64), dev)
+    inputs = flagship_inputs(rng)
+    wires_vals, z_vals, q_coeffs = inputs
     torch.cuda.synchronize()
     log(f"[4] seeded data on the card in {time.perf_counter() - t0:.1f} s: wires "
         f"{tuple(wires_vals.shape)}, Z {tuple(z_vals.shape)}, quotient {tuple(q_coeffs.shape)}")
 
-    def commit_all():
-        return (prove.commit_field_values(wires_vals, RATE_BITS, CAP_HEIGHT),
-                prove.commit_field_values(z_vals, RATE_BITS, CAP_HEIGHT),
-                prove.commit_coeffs(q_coeffs, RATE_BITS, CAP_HEIGHT))
-
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    batches = commit_all()
+    batches = commit_all(inputs)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launched = dict(kernels.launches)
@@ -258,48 +400,62 @@ def phase4(torch, chk: Checker, rng, card: str) -> dict:
         "64 gathered paths per tree verify against the cap")
     del batches, wires, zs, quot
 
-    times = {}
-    for tag, fn in (("wires", lambda: prove.commit_field_values(wires_vals, RATE_BITS, CAP_HEIGHT)),
-                    ("Z", lambda: prove.commit_field_values(z_vals, RATE_BITS, CAP_HEIGHT)),
-                    ("quotient", lambda: prove.commit_coeffs(q_coeffs, RATE_BITS, CAP_HEIGHT))):
-        fn()  # warm-up
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            runs.append(time.perf_counter() - t0)
-        times[tag] = statistics.median(runs)
-        log(f"[4] commit {tag}: median {times[tag] * 1e3:.2f} ms of {len(runs)} "
-            f"({', '.join(f'{r * 1e3:.2f}' for r in runs)}) [{card}]")
-    log(f"[4] one proof's three commitments: {sum(times.values()) * 1e3:.2f} ms [{card}]")
+    res = measure(torch, chk, rng, card, inputs)
 
-    # Each kernel beside its plain version at one main-path shape.
+    # The profile must show every kernel of the path as often as the plan says:
+    # a tree is one leaf pass, one launch a level while a level has more than
+    # TAIL_MAX_PAIRS pairs, and one launch for the levels below; a chunk of
+    # polynomials is two NTT passes a transform.
     chunk = prove._COMMIT_CHUNK
+    big_levels = sum(1 for k in range(CAP_HEIGHT, LOG_N + RATE_BITS) if (1 << k) > pos.TAIL_MAX_PAIRS)
+    chunks = [-(-rows // chunk) for rows in (NUM_WIRES, NUM_Z, NUM_QUOTIENT)]
+    expected = {"sponge_kernel": 3, "merkle_level_kernel": 3 * big_levels, "merkle_tail_kernel": 3,
+                "ntt_pass_kernel": 2 * (2 * chunks[0] + 2 * chunks[1] + chunks[2])}
+    seen = {name: res["profile"]["by_kernel"].get(name, {}).get("launches", 0) for name in expected}
+    if seen != expected:
+        fail(f"the profile shows launches {seen}, the plan is {expected}")
+    if launched != {"ntt": expected["ntt_pass_kernel"],
+                    "poseidon": sum(expected.values()) - expected["ntt_pass_kernel"]}:
+        fail(f"the launch counts {launched} are not the plan's {expected}")
+    log(f"[4] launches by kernel name as planned: {expected}")
+
+    # The two passes of one chunk's LDE, each alone.
     coeffs = gl.from_u64(rng.integers(0, gl.P, size=(chunk, n), dtype=np.uint64), dev)
     lde_out = torch.empty((chunk, n_lde), dtype=torch.int64, device=dev)
-    ntt_ms = cuda_ms(lambda: ntt.coset_lde(coeffs, RATE_BITS, out=lde_out), 5)
-    ntt_plain_ms = cuda_ms(lambda: ntt.coset_lde_plain(coeffs, RATE_BITS, 7), 3)
-    chk.same("ntt", lde_out, ntt.coset_lde_plain(coeffs, RATE_BITS, 7), "timed coset_lde chunk")
-    log(f"[4] ntt: coset_lde ({chunk}, 2^{LOG_N}) -> 2^{LOG_N + RATE_BITS}: kernel "
-        f"{ntt_ms:.3f} ms, plain {ntt_plain_ms:.3f} ms [{card}]")
-    level = gl.from_u64(rng.integers(0, gl.P, size=(n << 1, 4), dtype=np.uint64), dev)
-    pos_ms = cuda_ms(lambda: pos.compress_level(level), 5)
-    pos_plain_ms = cuda_ms(lambda: pos._hash_plain(level.reshape(-1, 8)), 3)
-    chk.same("poseidon", pos.compress_level(level), pos._hash_plain(level.reshape(-1, 8)),
-             "timed level compression")
-    log(f"[4] poseidon: Merkle level ({2 * n}, 4) -> ({n}, 4): kernel {pos_ms:.3f} ms, "
-        f"plain {pos_plain_ms:.3f} ms [{card}]")
-    wires_lde = torch.empty((NUM_WIRES, n_lde), dtype=torch.int64, device=dev)
-    leaf_ms = cuda_ms(lambda: pos.hash_no_pad(wires_lde.T), 3)
-    log(f"[4] poseidon: wires leaves ({NUM_WIRES}, 2^{LOG_N + RATE_BITS}): kernel "
-        f"{leaf_ms:.3f} ms [{card}]")
-    del wires_lde
+    passes = ntt._passes(coeffs, lde_out, False, in_tab=ntt._powers_on(7, n, dev), log_pad=RATE_BITS)
+    pass_ms = [cuda_ms(lambda: kernels.ntt_pass(src, dst, **args), 5) for src, dst, args in passes]
+    log(f"[4] ntt: the passes of that coset_lde alone: columns {pass_ms[0]:.3f} ms, rows "
+        f"{pass_ms[1]:.3f} ms [{card}]")
+    del coeffs, lde_out, passes
+
+    # The least time the card could take (each input read once, each output
+    # written once; the multiply-adds the algorithm needs).
+    def bound(nbytes, mads):
+        by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, mads / PEAK_INT32_MADS_PER_S * 1e3
+        return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+    ntt_bound = bound((chunk * n + chunk * n_lde) * 8,
+                      chunk * (n_lde // 2) * (LOG_N + RATE_BITS) * 4)  # butterflies x (64 x 64 product)
+    level_bound = bound((2 * n * 4 + n * 4) * 8, n * MADS_PER_PERMUTATION)
+    leaf_bound = bound(NUM_WIRES * n_lde * 8 + n_lde * 32,
+                       n_lde * (NUM_WIRES // 8) * MADS_PER_PERMUTATION)
+    # one proof: the leaves' permutations and one a pair of every level
+    permutations = (n_lde * sum(-(-rows // 8) for rows in (NUM_WIRES, NUM_Z, NUM_QUOTIENT))
+                    + 3 * (n_lde - (1 << CAP_HEIGHT)))
+    proof_bound_ms = permutations * MADS_PER_PERMUTATION / PEAK_INT32_MADS_PER_S * 1e3
+    sponge_ms = sum(v["ms"] for name, v in res["profile"]["by_kernel"].items()
+                    if name != "ntt_pass_kernel" and name in expected)
+    log(f"[4] bounds ({MADS_PER_PERMUTATION} multiply-adds a permutation): ntt chunk "
+        f"{ntt_bound[0]:.4f} ms (by {ntt_bound[1]}), {ntt_bound[0] / res['ntt_ms']:.1%} of the "
+        f"kernel's time; level {level_bound[0]:.4f} ms (by {level_bound[1]}), "
+        f"{level_bound[0] / res['level_ms']:.1%}; wires leaves {leaf_bound[0]:.3f} ms (by "
+        f"{leaf_bound[1]}), {leaf_bound[0] / res['leaves_ms']:.1%}; the sponge of one proof "
+        f"({permutations} permutations) {proof_bound_ms:.3f} ms, "
+        f"{proof_bound_ms / sponge_ms:.1%} of {sponge_ms:.3f} ms")
     return {
         "launches": launched,
-        "ntt": (ntt_ms, ntt_plain_ms),
-        "poseidon": (pos_ms, pos_plain_ms),
+        "ntt": (res["ntt_ms"], res["ntt_plain_ms"], *ntt_bound),
+        "poseidon": (res["level_ms"], res["level_plain_ms"], *level_bound),
     }
 
 
@@ -322,12 +478,14 @@ def main() -> int:
         {"name": "ntt", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/ntt.cu",
          "replaces": "eth_lc_plonky2_tpu/ops/pallas/ntt_mxu.py:165",
          "launches": res["launches"]["ntt"], "max_abs_err": chk.err["ntt"],
-         "ms": res["ntt"][0], "plain_ms": res["ntt"][1]},
+         "ms": res["ntt"][0], "plain_ms": res["ntt"][1], "bound_ms": res["ntt"][2],
+         "bound_by": res["ntt"][3], "library_ms": None},
         {"name": "poseidon", "route": "cuda",
          "source": "eth_lc_plonky2_tpu_torch/csrc/poseidon.cu",
          "replaces": "eth_lc_plonky2_tpu/ops/pallas/poseidon_pallas.py:114",
          "launches": res["launches"]["poseidon"], "max_abs_err": chk.err["poseidon"],
-         "ms": res["poseidon"][0], "plain_ms": res["poseidon"][1]},
+         "ms": res["poseidon"][0], "plain_ms": res["poseidon"][1],
+         "bound_ms": res["poseidon"][2], "bound_by": res["poseidon"][3], "library_ms": None},
     ]}
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)

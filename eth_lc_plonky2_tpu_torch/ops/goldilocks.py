@@ -40,7 +40,12 @@ _MASK32 = 0xFFFF_FFFF
 
 
 def from_u64(a, device=None) -> torch.Tensor:
-    """numpy uint64 array (or ints) -> int64 field tensor (values reduced mod p)."""
+    """numpy uint64 array (or ints) -> int64 field tensor (values reduced mod p).
+
+    A conversion, not an entry point: the tensor is made on the host and
+    moved to ``device`` when one is named.  The entry points that take host
+    data (``commit_values``, ``build_merkle``) name the card by default.
+    """
     arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint64) % np.uint64(P))
     if arr.shape != np.shape(a):  # numpy returns a 0-d input as shape (1,)
         arr = arr.reshape(np.shape(a))

@@ -1,17 +1,18 @@
 """Build, bind and launch the port's hand-written CUDA kernels.
 
-The counterpart of the JAX package's ``ops/pallas/``.  ``csrc/*.cu`` are
-compiled with ``nvcc`` for ``sm_90a`` into one shared library with a plain
-C interface, at first use, into ``build/`` beside ``csrc/`` (gitignored);
-the file name carries a hash of the sources, so an edit rebuilds.  The
-library is loaded with ``ctypes``: every pointer and the stream are
-``c_void_p``, and each C entry point returns ``cudaGetLastError()`` after
-its launch, which the launcher here raises on.
+The counterpart of the JAX package's ``ops/pallas/``.  Each ``csrc/*.cu`` is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own with
+a plain C interface, at first use, into ``build/`` beside ``csrc/``
+(gitignored); the compilers run side by side, and a file name carries a
+hash of its source, so an edit rebuilds.  The libraries are loaded with
+``ctypes``: every pointer and the stream are ``c_void_p``, and each C entry
+point returns ``cudaGetLastError()`` after its launch, which the launcher
+here raises on.
 
 Each launcher counts its launches in ``launches`` (a plain integer per
-kernel, bumped only where the kernel is launched), so a run can show that
-the main path went through the kernels.  Nothing here imports or builds
-anything when the module is imported.
+kernel source, bumped only where a kernel is launched), so a run can show
+that the main path went through the kernels.  Nothing here imports or
+builds anything when the module is imported.
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ SOURCES = ("ntt.cu", "poseidon.cu")
 HEADERS = ("goldilocks.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+NTT_THREADS = 256
+POSEIDON_THREADS = 256  # csrc/poseidon.cu: __launch_bounds__(256, ...), the most it takes
 
 launches = {"ntt": 0, "poseidon": 0}
 build_info: dict = {}
@@ -60,44 +64,58 @@ def _nvcc() -> str:
     return path
 
 
-def _source_hash() -> str:
+def _source_hash(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in HEADERS + SOURCES:
+    for name in HEADERS + (source,):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    so = BUILD_DIR / f"libelp_kernels_{_source_hash()}.so"
+def _libraries() -> dict:
+    """Build what is missing (one nvcc per source, all started together) and
+    load both libraries; returns {source stem: CDLL}."""
     t0 = time.perf_counter()
-    built = False
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
-        build_info["ptxas"] = res.stderr
-        built = True
-    lib = ctypes.CDLL(str(so))
+    paths = {src: BUILD_DIR / f"libelp_{Path(src).stem}_{_source_hash(src)}.so" for src in SOURCES}
+    running = {}
+    for src, so in paths.items():
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / src)]
+            running[src] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.PIPE, text=True))
+    results = {src: (tmp, proc, *proc.communicate()) for src, (tmp, proc) in running.items()}
+    ptxas = []
+    for src, (tmp, proc, out, err) in results.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{out}\n{err}")
+        os.replace(tmp, paths[src])
+        ptxas.append(err)
+    libs = {Path(src).stem: ctypes.CDLL(str(so)) for src, so in paths.items()}
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.elp_ntt_pass.argtypes = [vp, vp, ll, ll, ll, ll, ll, ll, ll, ll, vp, i32, i32, i32,
-                                 i32, vp, ll, vp, ctypes.c_ulonglong, i32, i32, vp]
-    lib.elp_ntt_pass.restype = i32
-    lib.elp_poseidon_sponge.argtypes = [vp, ll, ll, ll, ll, vp, vp, ll, i32, vp]
-    lib.elp_poseidon_sponge.restype = i32
-    build_info.update(path=str(so), built=built, seconds=time.perf_counter() - t0)
-    return lib
+    signatures = {
+        "ntt": {"elp_ntt_pass": [vp, vp, ll, i32, ll, ll, ll, ll, ll, ll, vp, vp, vp, vp, vp,
+                                 ctypes.c_ulonglong, i32, i32, i32, i32, i32, vp]},
+        "poseidon": {"elp_poseidon_set_constants": [vp, ll, vp],
+                     "elp_poseidon_sponge": [vp, ll, ll, ll, ll, vp, i32, vp],
+                     "elp_merkle_level": [vp, ll, vp, i32, vp],
+                     "elp_merkle_tail": [vp, ll, i32, vp, i32, vp]},
+    }
+    for stem, functions in signatures.items():
+        for name, argtypes in functions.items():
+            fn = getattr(libs[stem], name)
+            fn.argtypes = argtypes
+            fn.restype = i32
+    build_info.update(paths=[str(so) for so in paths.values()], built=sorted(results),
+                      ptxas="".join(ptxas), seconds=time.perf_counter() - t0)
+    return libs
 
 
 def build() -> dict:
     """Build (if needed) and load the kernels; returns ``build_info``."""
-    _library()
+    _libraries()
     return build_info
 
 
@@ -115,38 +133,62 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
 
 
-def ntt_pass(src, dst, *, total, K, in_strides, out_strides, pw, log_n, log_m,
-             twiddle=False, in_tab=None, out_tab=None, scalar=None):
+def ntt_pass(src, dst, *, total, K, in_strides, out_strides, tw, log_m, log_pad=0,
+             step=None, in_tab=None, out_tab=None, scalar=None):
     """Launch one pass of ``csrc/ntt.cu`` (see its header for the addressing).
 
     ``in_strides`` / ``out_strides`` are (row, sub-transform, element) word
-    strides.  ``dst`` may be ``src``: each block reads all of its
-    sub-transforms before it writes, and blocks touch disjoint ones.
+    strides, ``tw`` the stage twiddles w_m^k (k < m/2), ``step`` the two step
+    twiddle tables of a four-step's column pass, ``log_pad`` the number of
+    leading stages that the input's zero tail turns into copies.  ``dst``
+    may be ``src``: each block reads all of its sub-transforms before it
+    writes, and blocks touch disjoint ones.
     """
-    for t, name in ((src, "src"), (dst, "dst"), (pw, "pw")):
-        _check(t, name)
-    for t, name in ((in_tab, "in_tab"), (out_tab, "out_tab")):
+    tensors = [(src, "src"), (dst, "dst"), (tw, "tw"), (in_tab, "in_tab"), (out_tab, "out_tab")]
+    if step is not None:
+        tensors += [(step[0], "step lo"), (step[1], "step hi")]
+    for t, name in tensors:
         if t is not None:
             _check(t, name)
-    if not 1 <= log_m <= 11:
-        raise ValueError(f"ntt pass length 2^{log_m} outside 2^1..2^11")
+    if (not 1 <= log_m <= 11 or not 0 <= log_pad <= log_m or K < 1 or K & (K - 1)
+            or tw.numel() < max(1, (1 << log_m) >> 1)):
+        raise ValueError(f"ntt pass: length 2^{log_m} (outside 2^1..2^11), padding 2^{log_pad}, "
+                         f"{K} sub-transforms a row (not a power of two) or {tw.numel()} twiddles")
     if total == 0:
         return
     log_c = max(2, 12 - log_m)  # >= 4 sub-transforms and >= 4096 words per block
-    threads = min(512, 1 << (log_m + log_c - 1))
-    err = _library().elp_ntt_pass(
-        src.data_ptr(), dst.data_ptr(), total, K, *in_strides, *out_strides,
-        pw.data_ptr(), log_n, log_m, log_c, int(twiddle),
-        None if in_tab is None else in_tab.data_ptr(),
-        0 if in_tab is None else in_tab.numel(),
-        None if out_tab is None else out_tab.data_ptr(),
-        0 if scalar is None else int(scalar), int(scalar is not None), threads, _stream(dst))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _libraries()["ntt"].elp_ntt_pass(
+        src.data_ptr(), dst.data_ptr(), total, K.bit_length() - 1, *in_strides, *out_strides, tw.data_ptr(),
+        *((None, None) if step is None else (step[0].data_ptr(), step[1].data_ptr())),
+        ptr(in_tab), ptr(out_tab), 0 if scalar is None else int(scalar), int(scalar is not None),
+        log_m, log_c, log_pad, NTT_THREADS, _stream(dst))
     launches["ntt"] += 1
     _raise_on(err, "ntt")
 
 
+@functools.lru_cache(maxsize=None)
+def _poseidon_constants_on(device_index: int, consts: bytes) -> None:
+    """Fill the sponge's __constant__ tables on this card, once a process."""
+    with torch.cuda.device(device_index):
+        err = _libraries()["poseidon"].elp_poseidon_set_constants(
+            consts, len(consts), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "poseidon constants")
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
 def poseidon_sponge(x: torch.Tensor, consts: bytes) -> torch.Tensor:
-    """Launch ``csrc/poseidon.cu`` on an (N, L) view of any strides -> (N, 4)."""
+    """Launch ``csrc/poseidon.cu`` on an (N, L) view of any strides -> (N, 4).
+
+    A contiguous (N, 8) input is one Merkle level and runs
+    ``merkle_level_kernel``; anything else runs ``sponge_kernel``.
+    """
     _check(x, "x")
     if x.dim() != 2 or min(x.stride()) < 0:
         raise ValueError(f"poseidon_sponge: expected a 2-D view, got {tuple(x.shape)}")
@@ -154,10 +196,31 @@ def poseidon_sponge(x: torch.Tensor, consts: bytes) -> torch.Tensor:
     out = torch.empty((n, 4), dtype=torch.int64, device=x.device)
     if n == 0:
         return out
-    buf = ctypes.create_string_buffer(consts, len(consts))
-    err = _library().elp_poseidon_sponge(
-        x.data_ptr(), length, n, x.stride(1), x.stride(0), out.data_ptr(),
-        ctypes.cast(buf, ctypes.c_void_p), len(consts), 128, _stream(x))
+    _poseidon_constants_on(_device_index(x), consts)
+    lib = _libraries()["poseidon"]
+    if length == 8 and x.is_contiguous() and x.data_ptr() % 16 == 0:
+        err = lib.elp_merkle_level(x.data_ptr(), n, out.data_ptr(), POSEIDON_THREADS, _stream(x))
+    else:
+        err = lib.elp_poseidon_sponge(x.data_ptr(), length, n, x.stride(1), x.stride(0),
+                                      out.data_ptr(), POSEIDON_THREADS, _stream(x))
     launches["poseidon"] += 1
     _raise_on(err, "poseidon")
     return out
+
+
+def merkle_tail(level: torch.Tensor, num_levels: int, consts: bytes) -> list:
+    """Launch ``merkle_tail_kernel``: (2M, 4) digests -> the next ``num_levels``
+    levels [(M, 4), (M/2, 4), ...], views of one buffer, in ONE launch."""
+    _check(level, "level")
+    pairs = level.shape[0] // 2
+    if (num_levels < 1 or level.dim() != 2 or level.shape[1] != 4 or not level.is_contiguous()
+            or level.data_ptr() % 16 or pairs >> (num_levels - 1) < 1 or pairs & (pairs - 1)):
+        raise ValueError(f"merkle_tail: cannot compress {tuple(level.shape)} {num_levels} times")
+    sizes = [pairs >> k for k in range(num_levels)]
+    buf = torch.empty((sum(sizes), 4), dtype=torch.int64, device=level.device)
+    _poseidon_constants_on(_device_index(level), consts)
+    err = _libraries()["poseidon"].elp_merkle_tail(
+        level.data_ptr(), pairs, num_levels, buf.data_ptr(), POSEIDON_THREADS, _stream(level))
+    launches["poseidon"] += 1
+    _raise_on(err, "poseidon")
+    return list(buf.split(sizes))

@@ -8,9 +8,14 @@ A CUDA tensor runs the hand-written kernel ``csrc/ntt.cu`` (through
 ``kernels.ntt_pass``): one pass for n <= 2^11, otherwise a four-step of two
 passes (columns with the step twiddle, then rows that store natural order).
 The coset scale shift^i, shift^-i and the 1/n scale are applied inside the
-passes, so no plain field op runs on a CUDA tensor.  A CPU tensor runs the
+passes, and the LDE's zero padding is neither stored nor loaded: the first
+pass reads the n coefficients and is told how many stages only copy.  So no
+plain field op, fill or copy runs on a CUDA tensor.  A CPU tensor runs the
 plain PyTorch version below (bit-reversal permutation, then log n
 decimation-in-time stages), which the tests hold against the JAX package.
+
+``_passes`` plans the launches; ``ntt_pass_plain`` is the plain version of
+one launch, so the tests run the very plan the card gets on the CPU.
 """
 
 from __future__ import annotations
@@ -46,11 +51,6 @@ def _root(log_n: int, inverse: bool) -> int:
 @functools.lru_cache(maxsize=None)
 def _powers_on(base: int, n: int, device: str) -> torch.Tensor:
     return gl.powers(base, n).to(device)
-
-
-def _twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
-    """w^e for e < n, w the primitive n-th root (inverted for the inverse NTT)."""
-    return _powers_on(_root(log_n, inverse), 1 << log_n, str(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,34 +105,111 @@ def coset_intt_plain(evals: torch.Tensor, shift: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _ntt_kernel(x: torch.Tensor, out: torch.Tensor, inverse: bool,
-                in_tab=None, out_tab=None) -> None:
-    """(B, n) contiguous CUDA tensors; ``out`` may be ``x`` (in place)."""
-    b, n = x.shape
-    log_n = _log2(n)
+STEP_BITS = 11  # csrc/ntt.cu: step twiddle w_n^e = hi[e >> 11] * lo[e & 2047]
+
+
+def _step_tables(log_n: int, inverse: bool, device) -> tuple:
+    """(lo, hi): w_n^b for b < 2^11 and w_n^(a * 2^11) for a < n >> 11."""
+    w = _root(log_n, inverse)
+    lo = _powers_on(w, min(1 << log_n, 1 << STEP_BITS), str(device))
+    hi = _powers_on(pow(w, 1 << STEP_BITS, gl.P), max(1, (1 << log_n) >> STEP_BITS), str(device))
+    return lo, hi
+
+
+def _stage_twiddles(log_m: int, inverse: bool, device) -> torch.Tensor:
+    """w_m^k for k < max(1, m/2)."""
+    return _powers_on(_root(log_m, inverse), max(1, (1 << log_m) >> 1), str(device))
+
+
+def _passes(x: torch.Tensor, out: torch.Tensor, inverse: bool, in_tab=None, out_tab=None,
+            log_pad: int = 0) -> list:
+    """The launches that transform (B, n >> log_pad) ``x``, read as length-n
+    rows zero beyond their end, into (B, n) ``out``: a list of
+    (src, dst, keyword arguments of ``kernels.ntt_pass``).  ``out`` may be
+    ``x`` when log_pad is 0."""
+    b, n_in = x.shape
+    log_in = _log2(n_in)
+    log_n = log_in + log_pad
+    n = 1 << log_n
     if log_n > MAX_LOG_N:
         raise ValueError(f"NTT length 2^{log_n} above 2^{MAX_LOG_N}")
-    if n == 1:
+    dev = x.device
+    scalar = gl.h_inv(n) if inverse else None
+    if log_n <= 11:
+        return [(x, out, dict(total=b, K=1, in_strides=(n_in, 0, 1), out_strides=(n, 0, 1),
+                              tw=_stage_twiddles(log_n, inverse, dev), log_m=log_n,
+                              log_pad=log_pad, in_tab=in_tab, out_tab=out_tab, scalar=scalar))]
+    # n = n1 * n2, input index i2 + n2*i1: it is zero from i1 = n_in / n2 on,
+    # so n2 must not exceed n_in.
+    log2 = min(log_n // 2, log_in)
+    log1 = log_n - log2
+    if log1 > 11:
+        raise ValueError(f"cannot pad 2^{log_in} coefficients to 2^{log_n} in two passes")
+    n1, n2 = 1 << log1, 1 << log2
+    tmp = torch.empty((b, n), dtype=torch.int64, device=dev)
+    return [
+        # columns: x[i2 + n2*i1] over i1, times w^(i2*j1) -> tmp[j1*n2 + i2]
+        (x, tmp, dict(total=b * n2, K=n2, in_strides=(n_in, 1, n2), out_strides=(n, 1, n2),
+                      tw=_stage_twiddles(log1, inverse, dev), log_m=log1, log_pad=log_pad,
+                      step=_step_tables(log_n, inverse, dev), in_tab=in_tab)),
+        # rows: tmp[j1*n2 + i2] over i2 -> out[j1 + n1*j2] (natural order)
+        (tmp, out, dict(total=b * n1, K=n1, in_strides=(n, n2, 1), out_strides=(n, 1, n1),
+                        tw=_stage_twiddles(log2, inverse, dev), log_m=log2,
+                        out_tab=out_tab, scalar=scalar)),
+    ]
+
+
+def ntt_pass_plain(src, dst, *, total, K, in_strides, out_strides, tw, log_m, log_pad=0,
+                   step=None, in_tab=None, out_tab=None, scalar=None) -> None:
+    """What one launch of ``csrc/ntt.cu`` computes, on plain tensor ops:
+    ``total`` sub-transforms of length 2^log_m, sub-transform s = b*K + k
+    reading element i at b*in_b + k*in_k + i*in_i and writing output j at
+    b*out_b + k*out_k + j*out_j (see the kernel's header)."""
+    m = 1 << log_m
+    head = m >> log_pad
+    sub = torch.arange(total)
+    b, k = sub // K, sub % K
+    flat_in, flat_out = src.reshape(-1), dst.reshape(-1)
+    pos_in = k[:, None] * in_strides[1] + torch.arange(head)[None, :] * in_strides[2]
+    vals = flat_in[b[:, None] * in_strides[0] + pos_in]
+    if in_tab is not None:
+        vals = gl.mul(vals, in_tab[pos_in])
+    # decimation in time: element i lands on the 2^log_pad slots from
+    # bitrev(i) on (what the first log_pad stages would make of a zero tail),
+    # and the butterflies start at stage log_pad
+    slots = (_bitrev(log_m)[:head, None] + torch.arange(1 << log_pad)[None, :]).reshape(-1)
+    res = torch.empty((total, m), dtype=torch.int64)
+    res[:, slots] = vals.repeat_interleave(1 << log_pad, dim=1)
+    for lh in range(log_pad, log_m):
+        h = 1 << lh
+        res = res.reshape(total, m // (2 * h), 2, h)
+        u = res[:, :, 0, :]
+        v = gl.mul(res[:, :, 1, :], tw[torch.arange(h) << (log_m - lh - 1)])
+        res = torch.stack([gl.add(u, v), gl.sub(u, v)], dim=2).reshape(total, m)
+    j = torch.arange(m)
+    if step is not None:
+        e = k[:, None] * j[None, :]
+        lo, hi = step
+        res = gl.mul(res, gl.mul(lo[e & ((1 << STEP_BITS) - 1)], hi[e >> STEP_BITS]))
+    pos_out = k[:, None] * out_strides[1] + j[None, :] * out_strides[2]
+    if out_tab is not None:
+        res = gl.mul(res, out_tab[pos_out])
+    if scalar is not None:
+        res = gl.mul(res, gl.from_u64(scalar))
+    flat_out[b[:, None] * out_strides[0] + pos_out] = res
+
+
+def _ntt_kernel(x: torch.Tensor, out: torch.Tensor, inverse: bool,
+                in_tab=None, out_tab=None, log_pad: int = 0, launch=None) -> None:
+    """(B, n >> log_pad) -> (B, n) contiguous tensors; ``launch`` runs one
+    pass (``kernels.ntt_pass`` unless a test hands in the plain version)."""
+    launch = launch or kernels.ntt_pass
+    if x.shape[1] << log_pad == 1:
         if out.data_ptr() != x.data_ptr():
             out.copy_(x)
         return
-    pw = _twiddles(log_n, inverse, x.device)
-    scalar = gl.h_inv(n) if inverse else None
-    if log_n <= 11:
-        kernels.ntt_pass(x, out, total=b, K=1, in_strides=(n, 0, 1), out_strides=(n, 0, 1),
-                         pw=pw, log_n=log_n, log_m=log_n, in_tab=in_tab, out_tab=out_tab,
-                         scalar=scalar)
-        return
-    log1 = (log_n + 1) // 2
-    log2 = log_n - log1
-    n1, n2 = 1 << log1, 1 << log2
-    tmp = torch.empty_like(x)
-    # columns: x[i2 + n2*i1] over i1, times w^(i2*j1) -> tmp[j1*n2 + i2]
-    kernels.ntt_pass(x, tmp, total=b * n2, K=n2, in_strides=(n, 1, n2), out_strides=(n, 1, n2),
-                     pw=pw, log_n=log_n, log_m=log1, twiddle=True, in_tab=in_tab)
-    # rows: tmp[j1*n2 + i2] over i2 -> out[j1 + n1*j2] (natural order)
-    kernels.ntt_pass(tmp, out, total=b * n1, K=n1, in_strides=(n, n2, 1), out_strides=(n, 1, n1),
-                     pw=pw, log_n=log_n, log_m=log2, out_tab=out_tab, scalar=scalar)
+    for src, dst, args in _passes(x, out, inverse, in_tab, out_tab, log_pad):
+        launch(src, dst, **args)
 
 
 def _as_rows(f: torch.Tensor) -> torch.Tensor:
@@ -176,9 +253,9 @@ def coset_lde(coeffs: torch.Tensor, rate_bits: int, shift: int = gl.MULTIPLICATI
     """Evaluate degree-<n polynomials on shift*H' with |H'| = n*2^rate_bits.
 
     out[j] = f(shift * W^j) in natural order, W the primitive
-    (n*2^rate_bits)-th root.  On the card the zero padding is an
-    allocation plus a copy, and shift^i is applied inside the first pass;
-    ``out`` (shape (..., n << rate_bits)) is then transformed in place.
+    (n*2^rate_bits)-th root.  On the card the first pass reads the n
+    coefficients, scales them by shift^i and skips the stages that the
+    zero padding turns into copies; ``out`` has shape (..., n << rate_bits).
     """
     n = coeffs.shape[-1]
     big_shape = coeffs.shape[:-1] + (n << rate_bits,)
@@ -188,9 +265,8 @@ def coset_lde(coeffs: torch.Tensor, rate_bits: int, shift: int = gl.MULTIPLICATI
     x = _as_rows(coeffs)
     dst = _out_rows(None if out is None else out.view(x.shape[0], -1),
                     (x.shape[0], n << rate_bits), x)
-    dst[:, :n].copy_(x)
-    dst[:, n:].zero_()
-    _ntt_kernel(dst, dst, inverse=False, in_tab=_powers_on(shift, n, str(x.device)))
+    _ntt_kernel(x, dst, inverse=False, in_tab=_powers_on(shift, n, str(x.device)),
+                log_pad=rate_bits)
     return dst.view(big_shape) if out is None else out
 
 

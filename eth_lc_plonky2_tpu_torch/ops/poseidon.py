@@ -18,6 +18,7 @@ runs the plain PyTorch version below, channel-first (12, N).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -91,13 +92,138 @@ def round_constants() -> np.ndarray:
     return np.array(out, dtype=np.uint64)
 
 
+def mds_matrix() -> list:
+    """The dense MDS matrix as Python integers: out[r] = sum_i M[r][i] * state[i]."""
+    m = [[0] * WIDTH for _ in range(WIDTH)]
+    for r in range(WIDTH):
+        for i in range(WIDTH):
+            m[r][(r + i) % WIDTH] += MDS_CIRC[i]
+        m[r][r] += MDS_DIAG[r]
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Sparse form of the partial rounds (Python integers mod p)
+# ---------------------------------------------------------------------------
+
+
+def _mat_mul(a, b):
+    return [[sum(x * y for x, y in zip(row, col)) % P for col in zip(*b)] for row in a]
+
+
+def _mat_vec(a, v):
+    return [sum(x * y for x, y in zip(row, v)) % P for row in a]
+
+
+def _mat_inv(a):
+    """Inverse of a square matrix mod p by Gauss-Jordan elimination."""
+    n = len(a)
+    aug = [[x % P for x in row] + [int(i == j) for j in range(n)] for i, row in enumerate(a)]
+    for col in range(n):
+        piv = next(r for r in range(col, n) if aug[r][col])
+        aug[col], aug[piv] = aug[piv], aug[col]
+        scale = pow(aug[col][col], P - 2, P)
+        aug[col] = [x * scale % P for x in aug[col]]
+        for r in range(n):
+            if r != col and aug[r][col]:
+                f = aug[r][col]
+                aug[r] = [(x - f * y) % P for x, y in zip(aug[r], aug[col])]
+    return [row[n:] for row in aug]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparsePartialRounds:
+    """The 22 partial rounds in the sparse form of the Poseidon paper's
+    appendix B, as plonky2's prover runs them.  With s the state after the
+    first four full rounds:
+
+        s += first_constants;  s[1:] = init_matrix @ s[1:]
+        for r in range(22):
+            s[0] = sbox(s[0]) + scalars[r]
+            s[0], s[1:] = (m00 * s[0] + w_hat[r] . s[1:]), s[1:] + v[r] * s[0]
+
+    (both right-hand sides of the last line read the s[0] of the line
+    above).  It is the same permutation as 22 rounds of add-constants,
+    S-box on s[0], dense MDS.
+    """
+
+    first_constants: tuple  # 12
+    init_matrix: tuple  # 11 x 11
+    scalars: tuple  # 22, the last is 0
+    m00: int
+    w_hat: tuple  # 22 x 11
+    v: tuple  # 22 x 11
+
+
+@functools.lru_cache(maxsize=None)
+def sparse_partial_rounds() -> SparsePartialRounds:
+    """Derive the sparse tables from MDS_CIRC, MDS_DIAG and round_constants().
+
+    Constants: a vector added before round r+1's S-box equals M^-1 of it
+    added before round r's MDS; its word 0 stays there as a scalar, the
+    other eleven commute with the S-box (which only touches word 0) and
+    join round r's constants.  Folding from the last partial round back
+    leaves one vector before the first round and one scalar after each
+    S-box.
+    Matrices: M = [[m00, w], [v, Mh]] factors as [[m00, w Mh^-1], [v, I]]
+    times diag(1, Mh); diag(1, Mh) commutes with the scalar add and the
+    S-box before it, so it joins the previous round's matrix.  Folding
+    back leaves one diag(1, init_matrix) before the first partial round.
+    """
+    half = N_FULL_ROUNDS // 2
+    rc = [[int(c) for c in row] for row in round_constants().reshape(N_ROUNDS, WIDTH)]
+    rc = rc[half : half + N_PARTIAL_ROUNDS]
+    m = mds_matrix()
+    m_inv = _mat_inv(m)
+    scalars = [0] * N_PARTIAL_ROUNDS
+    vec = rc[-1]
+    for r in range(N_PARTIAL_ROUNDS - 2, -1, -1):
+        u = _mat_vec(m_inv, vec)
+        scalars[r] = u[0]
+        vec = [rc[r][0]] + [(c + x) % P for c, x in zip(rc[r][1:], u[1:])]
+    first = vec
+    w_hat, v = [None] * N_PARTIAL_ROUNDS, [None] * N_PARTIAL_ROUNDS
+    cur = m
+    for r in range(N_PARTIAL_ROUNDS - 1, -1, -1):
+        m_hat = [row[1:] for row in cur[1:]]
+        w_hat[r] = _mat_mul([cur[0][1:]], _mat_inv(m_hat))[0]
+        v[r] = [row[0] for row in cur[1:]]
+        lift = [[int(i == j) for j in range(WIDTH)] for i in range(WIDTH)]
+        for i in range(WIDTH - 1):
+            lift[i + 1][1:] = m_hat[i]
+        cur = _mat_mul(lift, m)
+    freeze = lambda rows: tuple(tuple(row) for row in rows)  # noqa: E731
+    return SparsePartialRounds(first_constants=tuple(first), init_matrix=freeze(m_hat),
+                               scalars=tuple(scalars), m00=m[0][0], w_hat=freeze(w_hat),
+                               v=freeze(v))
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_constants() -> bytes:
-    """The sponge kernel's parameter image: round constants (u64), then
-    MDS_CIRC and MDS_DIAG (u32), in ``csrc/poseidon.cu``'s struct order."""
-    return (round_constants().tobytes()
-            + np.asarray(MDS_CIRC, dtype=np.uint32).tobytes()
-            + np.asarray(MDS_DIAG, dtype=np.uint32).tobytes())
+    """The sponge kernel's constant image, in ``csrc/poseidon.cu``'s struct
+    order: u64 round constants of the 8 full rounds, then the sparse
+    partial-round tables (first constants, 11 x 11 initial matrix, 22
+    scalars, 22 x 12 rows [m00, w_hat], 22 x 11 columns v), then as 32-bit
+    words the sums MDS_CIRC[i] + MDS_CIRC[i + 6] and differences MDS_CIRC[i] -
+    MDS_CIRC[i + 6] (the kernel's split of the circulant layer), MDS_DIAG[0]
+    and a zero (the kernel takes the rest of the diagonal to be zero)."""
+    if any(MDS_DIAG[1:]):
+        raise ValueError("csrc/poseidon.cu takes MDS_DIAG[1:] to be zero")
+    half = N_FULL_ROUNDS // 2
+    rc = round_constants().reshape(N_ROUNDS, WIDTH)
+    sp = sparse_partial_rounds()
+    words = [int(c) for c in np.concatenate([rc[:half], rc[half + N_PARTIAL_ROUNDS:]]).ravel()]
+    words += sp.first_constants
+    words += [x for row in sp.init_matrix for x in row]
+    words += sp.scalars
+    words += [x for row in sp.w_hat for x in (sp.m00, *row)]
+    words += [x for row in sp.v for x in row]
+    half_row = WIDTH // 2
+    return (np.asarray(words, dtype=np.uint64).tobytes()
+            + np.asarray([MDS_CIRC[i] + MDS_CIRC[i + half_row] for i in range(half_row)]
+                         + [MDS_CIRC[i] - MDS_CIRC[i + half_row] for i in range(half_row)],
+                         dtype=np.int32).tobytes()
+            + np.asarray([MDS_DIAG[0], 0], dtype=np.uint32).tobytes())
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,12 +234,7 @@ def _rc_on(device: str) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _mds_on(device: str) -> torch.Tensor:
     """(12, 12, 1) int64 MDS matrix: out[r] = sum_i M[r, i] * state[i]."""
-    m = np.zeros((WIDTH, WIDTH), dtype=np.int64)
-    for r in range(WIDTH):
-        for i in range(WIDTH):
-            m[r, (r + i) % WIDTH] += MDS_CIRC[i]
-        m[r, r] += MDS_DIAG[r]
-    return torch.from_numpy(m)[:, :, None].to(device)
+    return torch.tensor(mds_matrix(), dtype=torch.int64)[:, :, None].to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -150,20 +271,62 @@ def _permute_cf(st: torch.Tensor) -> torch.Tensor:
     return st
 
 
-def permute(state: torch.Tensor) -> torch.Tensor:
-    """Poseidon permutation of a (..., 12) state batch (plain version)."""
+@functools.lru_cache(maxsize=None)
+def _sparse_on(device: str):
+    """The sparse tables as field tensors: first (12, 1), init (11, 11, 1),
+    scalars (22,), rows (22, 12, 1) = [m00, w_hat], cols (22, 11, 1) = v."""
+    sp = sparse_partial_rounds()
+    col = lambda x: gl.from_u64(np.asarray(x, dtype=np.uint64), device)  # noqa: E731
+    rows = [(sp.m00, *row) for row in sp.w_hat]
+    return (col(sp.first_constants)[:, None], col(sp.init_matrix)[:, :, None], col(sp.scalars),
+            col(rows)[:, :, None], col(sp.v)[:, :, None])
+
+
+def _dot(rows, st):
+    """sum_i rows[..., i, 1] * st[i, N] over the field, term by term."""
+    acc = gl.mul(rows[..., 0, :], st[0])
+    for i in range(1, st.shape[0]):
+        acc = gl.add(acc, gl.mul(rows[..., i, :], st[i]))
+    return acc
+
+
+def _permute_sparse_cf(st: torch.Tensor) -> torch.Tensor:
+    """The permutation with the partial rounds in sparse form: the arithmetic
+    of ``csrc/poseidon.cu``, on plain tensor ops.  Equal to ``_permute_cf``."""
+    rc = _rc_on(str(st.device))
+    first, init, scalars, rows, cols = _sparse_on(str(st.device))
+    half = N_FULL_ROUNDS // 2
+    for r in range(half):
+        st = _mds_cf(_sbox(gl.add(st, rc[r][:, None])))
+    st = gl.add(st, first)
+    st = torch.cat([st[:1], _dot(init, st[1:])], 0)
+    for r in range(N_PARTIAL_ROUNDS):
+        s0 = gl.add(_sbox(st[0]), scalars[r])
+        st = torch.cat([_dot(rows[r], torch.cat([s0[None], st[1:]], 0))[None],
+                        gl.add(st[1:], gl.mul(cols[r], s0[None]))], 0)
+    for r in range(half + N_PARTIAL_ROUNDS, N_ROUNDS):
+        st = _mds_cf(_sbox(gl.add(st, rc[r][:, None])))
+    return st
+
+
+def permute(state: torch.Tensor, sparse: bool = False) -> torch.Tensor:
+    """Poseidon permutation of a (..., 12) state batch (plain version).
+
+    ``sparse`` runs the partial rounds on the sparse tables the CUDA kernel
+    uses; the result is the same.
+    """
     batch = state.shape[:-1]
     st = state.reshape(-1, WIDTH).T
-    return _permute_cf(st).T.reshape(*batch, WIDTH)
+    return (_permute_sparse_cf if sparse else _permute_cf)(st).T.reshape(*batch, WIDTH)
 
 
-def _hash_plain(x: torch.Tensor) -> torch.Tensor:
+def _hash_plain(x: torch.Tensor, permute_cf=_permute_cf) -> torch.Tensor:
     """(N, L) -> (N, 4): overwrite-mode sponge, rate 8, no padding."""
     n, length = x.shape
     st = torch.zeros((WIDTH, n), dtype=torch.int64, device=x.device)
     for start in range(0, length, SPONGE_RATE):
         chunk = x[:, start : start + SPONGE_RATE].T
-        st = _permute_cf(torch.cat([chunk, st[chunk.shape[0]:]], 0))
+        st = permute_cf(torch.cat([chunk, st[chunk.shape[0]:]], 0))
     return st[:DIGEST_LEN].T.contiguous()
 
 
@@ -202,3 +365,20 @@ def compress_level(level: torch.Tensor) -> torch.Tensor:
     the sponge reads the level directly.
     """
     return hash_no_pad(level.reshape(-1, 2 * DIGEST_LEN))
+
+
+# A level of at most this many pairs, and every level above it, is left to
+# ``compress_tail``: one block of the card runs them in one launch.
+TAIL_MAX_PAIRS = 256
+
+
+def compress_tail(level: torch.Tensor, num_levels: int) -> list:
+    """The next ``num_levels`` Merkle levels above ``level`` (2M, 4), as a list
+    [(M, 4), (M/2, 4), ...].  On the card they come from one launch."""
+    if on_card(level):
+        return kernels.merkle_tail(level, num_levels, kernel_constants())
+    out = []
+    for _ in range(num_levels):
+        level = compress_level(level)
+        out.append(level)
+    return out

@@ -43,10 +43,15 @@ class MerkleTree:
 
 
 def _levels_core(digests: torch.Tensor, cap_height: int) -> list:
-    """Digest row (N, 4) -> all levels down to the cap."""
+    """Digest row (N, 4) -> all levels down to the cap: one launch a level
+    while the levels are large, then one launch for all the small ones."""
     levels = [digests]
-    while levels[-1].shape[0] > (1 << cap_height):
-        levels.append(pos.compress_level(levels[-1]))
+    while (n := levels[-1].shape[0]) > (1 << cap_height):
+        if n // 2 <= pos.TAIL_MAX_PAIRS:
+            left = (n.bit_length() - 1) - cap_height
+            levels.extend(pos.compress_tail(levels[-1], left))
+        else:
+            levels.append(pos.compress_level(levels[-1]))
     return levels
 
 
@@ -55,10 +60,15 @@ def tree_from_digests(leaves, digests, cap_height: int, leaf_axis: int = 0) -> M
                       cap_height=cap_height, leaf_axis=leaf_axis)
 
 
-def build_merkle(leaves, cap_height: int) -> MerkleTree:
-    """leaves: (N, L) uint64 host array or int64 tensor; N a power of two."""
+def build_merkle(leaves, cap_height: int, device="cuda") -> MerkleTree:
+    """leaves: (N, L) uint64 host array or int64 tensor; N a power of two.
+
+    A host array goes to ``device`` first: the card by default (the call
+    raises where there is none), the plain versions with ``device="cpu"``.
+    A tensor is hashed where it lies.
+    """
     if isinstance(leaves, np.ndarray):
-        leaves = gl.from_u64(leaves)
+        leaves = gl.from_u64(leaves, device)
     n = leaves.shape[0]
     if n & (n - 1) or n < (1 << cap_height):
         raise ValueError(f"{n} leaves cannot form a tree with cap height {cap_height}")

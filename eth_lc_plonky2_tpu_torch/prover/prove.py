@@ -81,8 +81,12 @@ def commit_field_values(values: torch.Tensor, rate_bits: int, cap_height: int) -
 
 
 def commit_values(values_u64: np.ndarray, rate_bits: int, cap_height: int,
-                  device=None) -> CommitmentBatch:
-    """values: (num_polys, n) uint64 host array on the subgroup H."""
+                  device="cuda") -> CommitmentBatch:
+    """values: (num_polys, n) uint64 host array on the subgroup H.
+
+    The values go to the card and are committed there; without a card the
+    default call raises.  ``device="cpu"`` asks for the plain versions.
+    """
     return commit_field_values(gl.from_u64(values_u64, device), rate_bits, cap_height)
 
 

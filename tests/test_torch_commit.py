@@ -30,7 +30,7 @@ def pre():
 @pytest.fixture(scope="module")
 def batches(pre):
     """The same preprocessed values committed by the port and by the JAX package."""
-    ours = prove.commit_values(pre["pre_values"], 3, 6)
+    ours = prove.commit_values(pre["pre_values"], 3, 6, device="cpu")
     ref = jprove.commit_values(pre["pre_values"], 3, 6)
     return ours, ref
 
@@ -38,7 +38,7 @@ def batches(pre):
 def test_entry_cap_matches_commit_forward():
     fn, (lo, hi) = graft.entry()
     want = jgl.to_u64(fn(lo, hi))  # (16, 4) cap of the 32 x 1024 input
-    got = prove.commit_values(jgl.to_u64((lo, hi)), graft.RATE_BITS, 4).cap
+    got = prove.commit_values(jgl.to_u64((lo, hi)), graft.RATE_BITS, 4, device="cpu").cap
     assert np.array_equal(got, want)
 
 
@@ -84,12 +84,26 @@ def test_paths_verify_on_both_verifiers(batches):
 
 def test_build_merkle_matches_jax():
     leaves = np.random.default_rng(5).integers(0, gl.P, size=(64, 4), dtype=np.uint64)
-    ours = merkle.build_merkle(leaves, 2)
+    ours = merkle.build_merkle(leaves, 2, device="cpu")
     ref = jmerkle.build_merkle(leaves, 2)
     assert len(ours.levels) == len(ref.levels) == 5
     assert np.array_equal(ours.cap, ref.cap)
     rows, paths = merkle.gather_rows_and_paths(ours, [0, 63, 17])
     assert merkle.verify_merkle_batch(rows, [0, 63, 17], paths, ours.cap)
+
+
+@pytest.mark.parametrize("entry", ["commit_values", "build_merkle"])
+def test_host_data_goes_to_the_card_by_default(entry):
+    """Without ``device="cpu"`` the entry points ask for the card; a machine
+    without one raises and never carries on with the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: tests/test_torch_cuda.py checks the default there")
+    vals = np.random.default_rng(6).integers(0, gl.P, size=(8, 16), dtype=np.uint64)
+    call = {"commit_values": lambda **kw: prove.commit_values(vals, 1, 0, **kw),
+            "build_merkle": lambda **kw: merkle.build_merkle(vals, 0, **kw)}[entry]
+    with pytest.raises((RuntimeError, AssertionError)):
+        call()
+    assert call(device="cpu").cap.shape == (1, 4)
 
 
 def test_convert_round_trips_a_jax_commitment_batch(batches):

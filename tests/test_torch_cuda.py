@@ -12,7 +12,7 @@ import torch
 
 from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
 from eth_lc_plonky2_tpu_torch.ops import kernels, ntt, poseidon as pos
-from eth_lc_plonky2_tpu_torch.prover import prove
+from eth_lc_plonky2_tpu_torch.prover import merkle, prove
 
 pytestmark = pytest.mark.cuda
 
@@ -38,12 +38,13 @@ def test_ntt_kernel_matches_plain(dev, log_n):
     assert torch.equal(ntt.ntt(t), ntt.ntt_plain(t))
     assert torch.equal(ntt.intt(t), ntt.ntt_plain(t, inverse=True))
     assert torch.equal(ntt.coset_lde(t, 3), ntt.coset_lde_plain(t, 3, 7))
+    assert torch.equal(ntt.coset_lde(t, 1), ntt.coset_lde_plain(t, 1, 7))
     assert torch.equal(ntt.coset_intt(t, 0), ntt.coset_intt_plain(t, 7))
     assert kernels.launches["ntt"] > before
 
 
 @pytest.mark.parametrize("length", [4, 8, 20, 184])
-@pytest.mark.parametrize("n", [1, 513])
+@pytest.mark.parametrize("n", [1, 513, 2049])
 def test_sponge_kernel_matches_plain(dev, length, n):
     t = gl.from_u64(_rand((length, n), length + n), dev)
     before = kernels.launches["poseidon"]
@@ -53,9 +54,28 @@ def test_sponge_kernel_matches_plain(dev, length, n):
     assert kernels.launches["poseidon"] == before + 2
 
 
+@pytest.mark.parametrize("cap_height", [0, 4])
+@pytest.mark.parametrize("n", [16, 32, 2048, 4096])
+def test_tree_with_one_launch_tail_matches_cpu(dev, n, cap_height):
+    leaves = _rand((n, 5), n + cap_height)
+    before = kernels.launches["poseidon"]
+    card = merkle.build_merkle(leaves, cap_height)
+    host = merkle.build_merkle(leaves, cap_height, device="cpu")
+    assert len(card.levels) == len(host.levels)
+    for a, b in zip(card.levels, host.levels):
+        assert torch.equal(a.cpu(), b)
+    # one launch for the leaves, one a large level, one for all the small ones
+    large = sum(1 for lv in host.levels[1:] if lv.shape[0] > pos.TAIL_MAX_PAIRS)
+    assert kernels.launches["poseidon"] == before + 1 + large + (len(host.levels) > 1 + large)
+
+
 def test_commitment_on_card_matches_cpu(dev):
     vals = _rand((20, 1 << 12), 9)
-    card = prove.commit_values(vals, 3, 4, device=dev)
-    host = prove.commit_values(vals, 3, 4)
+    card = prove.commit_values(vals, 3, 4)  # the card is the default
+    host = prove.commit_values(vals, 3, 4, device="cpu")
+    assert card.lde.device.type == dev and host.lde.device.type == "cpu"
     assert torch.equal(card.lde.cpu(), host.lde)
     assert np.array_equal(card.cap, host.cap)
+    tree = merkle.build_merkle(vals[:16, :8].copy(), 2)
+    assert tree.levels[0].device.type == dev
+    assert np.array_equal(tree.cap, merkle.build_merkle(vals[:16, :8].copy(), 2, device="cpu").cap)

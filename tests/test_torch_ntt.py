@@ -67,5 +67,54 @@ def test_launcher_refuses_cpu_tensors():
     before = dict(kernels.launches)
     with pytest.raises(ValueError):
         kernels.ntt_pass(x, x, total=2, K=1, in_strides=(8, 0, 1), out_strides=(8, 0, 1),
-                         pw=x[0], log_n=3, log_m=3)
+                         tw=x[0], log_m=3)
     assert kernels.launches == before
+
+
+def _planned(x, out, **kw):
+    """Run the launches ``ops/ntt.py`` plans for the card through the plain
+    version of one launch: the same strides, tables and padding counts."""
+    ntt._ntt_kernel(x, out, launch=ntt.ntt_pass_plain, **kw)
+    return out
+
+
+@pytest.mark.parametrize("log_n", list(range(3, 15)))
+def test_fused_padding_plan_matches_coset_lde_plain(log_n):
+    """The LDE as the card runs it: the first pass reads only the n
+    coefficients (scaled by shift^i), skips the stages the zero padding turns
+    into copies, and nothing is zero filled or copied."""
+    x = gl.from_u64(_values(log_n))
+    n = 1 << log_n
+    out = torch.full((3, n << 3), -1, dtype=torch.int64)
+    passes = ntt._passes(x, out, False, in_tab=ntt._powers_on(7, n, "cpu"), log_pad=3)
+    assert len(passes) == (1 if log_n + 3 <= 11 else 2)
+    assert passes[0][0] is x and passes[0][2]["log_pad"] == 3
+    assert passes[0][2]["in_strides"][0] == n  # rows of n words, not 8n
+    got = _planned(x, out, inverse=False, in_tab=ntt._powers_on(7, n, "cpu"), log_pad=3)
+    assert torch.equal(got, ntt.coset_lde_plain(x, 3, 7))
+
+
+@pytest.mark.parametrize("log_n", [1, 5, 11, 12, 13, 14])
+@pytest.mark.parametrize("name", ["ntt", "intt", "coset_intt", "coset_lde_rate1"])
+def test_planned_passes_match_plain(name, log_n):
+    x = gl.from_u64(_values(log_n))
+    n = 1 << log_n
+    if name == "ntt":
+        got, want = _planned(x, torch.empty_like(x), inverse=False), ntt.ntt_plain(x)
+    elif name == "intt":
+        got, want = _planned(x, torch.empty_like(x), inverse=True), ntt.ntt_plain(x, inverse=True)
+    elif name == "coset_intt":
+        got = _planned(x, torch.empty_like(x), inverse=True,
+                       out_tab=ntt._powers_on(gl.h_inv(7), n, "cpu"))
+        want = ntt.coset_intt_plain(x, 7)
+    else:
+        got = _planned(x, torch.empty((3, 2 * n), dtype=torch.int64), inverse=False,
+                       in_tab=ntt._powers_on(7, n, "cpu"), log_pad=1)
+        want = ntt.coset_lde_plain(x, 1, 7)
+    assert torch.equal(got, want)
+
+
+def test_plan_refuses_what_two_passes_cannot_pad():
+    x = torch.zeros(1, 2, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        ntt._passes(x, torch.zeros(1, 1 << 13, dtype=torch.int64), False, log_pad=12)
