@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's polynomial commitment on one GPU, and check it.
+"""Drive the PyTorch/CUDA port's prover on one GPU, and check it.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any mismatch or exception exits non-zero without the ok line):
   0. device facts: card name and power limit, torch, nvcc, GPU count;
-  1. build both kernels from eth_lc_plonky2_tpu_torch/csrc with nvcc (sm_90a);
+  1. build the three kernel sources of eth_lc_plonky2_tpu_torch/csrc with
+     nvcc (sm_90a), side by side;
   2. each kernel against its plain PyTorch version on the card, bit for bit:
      the NTT (forward, inverse, coset; the LDE reads its coefficients without
      padding them) at log n in 1..14, 16, 18, 21, the Poseidon sponge at L in
-     {8, 16, 20, 184}, N in {1, 511, 512, 2049, 4097}, Merkle levels, and
+     {2, 4, 8, 16, 20, 184}, N in {1, 511, 512, 2049, 4097}, Merkle levels, and
      whole trees of 2^4, 2^5, 2^11 and 2^12 leaves at cap heights 0 and 4
-     (the one-launch tail of a tree);
+     (the one-launch tail of a tree); the shapes that only a whole proof has
+     (the grind's sponge of (2^19, 2) and its first witness, FRI's layer tree
+     of 2^20 pair leaves, coset_intt of (2, 2^21) and (2, 2^8)); the field kernel's add, sub, mul and inv
+     in every broadcast form at sizes 1, 1023 and 2^21, on edge and seeded
+     words, and inv(x) * x == 1;
   3. commit_values on assets/dryrun/pre.npz must reproduce its stored
      coefficients, LDE and every Merkle level;
   4. one proof's three commitments at the flagship width (CircuitConfig
@@ -20,13 +25,30 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      counts, subset checks against the plain versions, Merkle paths
      verified against the cap, timings, and a torch.profiler split by kernel
      name whose launch counts must be the plan's (leaves, levels, tail, NTT
-     passes).
+     passes);
+  5. the dryrun circuit (16 wires, 2^7 rows; gates arith, const, noop), built
+     with the port's builder: preprocess on the card must give the cap stored
+     in assets/dryrun/pre.npz, and prove() must give assets/dryrun/ref_proof.json
+     key by key; the same proof on the plain versions on the card is equal;
+  6. a whole proof at the flagship's width: CircuitConfig(num_wires=184) with
+     the defaults (80 routed wires, 6 constants, 2 challenges, permutation
+     chunk 8, rate 2^3, cap height 4, 16 PoW bits, 28 queries, final polynomial
+     2^5), 2^18 rows of which 166,704 are used, gates arith (20 ops a row),
+     basesum2, const and noop, public inputs, and copy constraints on 79 of
+     the 80 routed columns.  The tables and a satisfying witness are written
+     directly with numpy from --seed.  preprocess, a first prove (launch counts
+     and peak memory), a warm-up, three timed proves, the phases' times, a
+     torch.profiler split by kernel name with the idle share, and the checks:
+     the final polynomial's degree (inside fri_prove), every query's Merkle
+     paths against their caps, the PoW witness, the public inputs.  The same
+     circuit at 2^12 rows is proved on the kernels and on the plain versions,
+     both on the card, and the two proofs must be equal.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on the main path, its error against the plain
 version, and its time beside the plain version's and beside the least time
 the card could take (bound_ms: the larger of bytes over 3.35 TB/s and 32-bit
 integer multiply-adds, counted in the cheapest form known, over 16.75 T/s).
-No PyTorch call computes either function, so library_ms is null.
+No PyTorch call computes any of the three functions, so library_ms is null.
 
 It needs a CUDA device, and no JAX: the port imports neither jax nor the JAX
 package.
@@ -43,6 +65,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -59,11 +82,15 @@ NUM_Z = 2 * (80 // 8)  # challenges x permutation chunks
 NUM_QUOTIENT = 2 * (1 << RATE_BITS)  # challenges x quotient chunks
 
 NTT_LOGS = list(range(1, 15)) + [16, 18, 21]
-SPONGE_LS = (8, 16, 20, 184)
+SPONGE_LS = (2, 4, 8, 16, 20, 184)
 SPONGE_NS = (1, 511, 512, 2049, 4097)
 TREE_LEAVES = (1 << 4, 1 << 5, 1 << 11, 1 << 12)
 TREE_CAPS = (0, 4)
 DEVICE = "cuda"
+# csrc/field.cu launches of one steady prove of phase 6's circuit: one an eager
+# field op that gives a non-empty result (mul_small by 0 or 1 launches none).
+# A change in the number of eager ops shows here.
+STEADY_FIELD_LAUNCHES = 3189
 
 # The card's peaks (NVIDIA H100 SXM data sheet): 3.35 TB/s of device memory,
 # and 67 TFLOP/s of float32 = 33.5 T multiply-adds/s on 128 lanes an SM, of
@@ -111,7 +138,7 @@ class Checker:
     """Collects each kernel's largest error against its plain version."""
 
     def __init__(self):
-        self.err = {"ntt": 0.0, "poseidon": 0.0}
+        self.err = {"ntt": 0.0, "poseidon": 0.0, "field": 0.0}
 
     def same(self, kernel: str, got, want, what: str) -> None:
         e = u64_err(got, want)
@@ -219,6 +246,53 @@ def phase2(torch, chk: Checker, rng) -> None:
                     want = pos._hash_plain(want.reshape(-1, 8))
     torch.cuda.synchronize()
     log(f"[2] trees of {TREE_LEAVES} leaves at cap heights {TREE_CAPS} == plain, level by level")
+    check_proof_shapes(torch, chk, rng)
+    check_field_kernel(torch, chk, rng)
+
+
+def check_proof_shapes(torch, chk: Checker, rng) -> None:
+    """The shapes that only a whole proof gives the two older kernels, each
+    against its plain version: the grind's sponge (L = 2, 2^19 rows), FRI's
+    first layer tree (leaves of L = 4 from 2^20 pairs, cap height 4), the
+    quotient's coset_intt of (2, 2^21) and the final polynomial's of (2, 2^8)
+    on its own coset."""
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, ntt, poseidon as pos
+    from eth_lc_plonky2_tpu_torch.prover import fri
+
+    dev = DEVICE
+    n_lde = 1 << (LOG_N + RATE_BITS)
+    batch = 1 << 19  # grind: 1 << min(20, 16 PoW bits + 3)
+    c_f = gl.from_u64(rng.integers(0, gl.P, dtype=np.uint64), dev)
+    ws = torch.arange(batch, 2 * batch, dtype=torch.int64, device=dev)
+    rows = torch.stack([c_f.expand(batch), ws], dim=1)
+    digests = pos._hash_plain(rows)
+    chk.same("poseidon", pos.hash_no_pad(rows), digests, f"grind sponge L=2 N={batch}")
+    thr_hi = 1 << 22  # 10 bits: this batch holds hits, and the first must be found
+    ok = ((digests[:, 0] >> 32) & 0xFFFF_FFFF) < thr_hi
+    found, idx = fri._grind_core(c_f, ws, thr_hi)
+    if not bool(found) or int(idx) != int(torch.nonzero(ok)[0, 0]):
+        fail(f"grind: the kernel's first witness {int(idx)} is not the plain version's")
+    g = gl.from_u64(rng.integers(0, gl.P, size=(2, n_lde), dtype=np.uint64), dev)
+    leaves, levels = fri._layer_tree_core(g[0], g[1], fri.layer_cap_height(n_lde // 2))
+    if leaves.shape != (n_lde // 2, 4) or len(levels) != LOG_N + RATE_BITS - 1 - 4 + 1:
+        fail(f"layer tree: leaves {tuple(leaves.shape)}, {len(levels)} levels")
+    want = pos._hash_plain(leaves)
+    for k, level in enumerate(levels):
+        chk.same("poseidon", level, want, f"layer tree of 2^{LOG_N + RATE_BITS - 1} pairs, level {k}")
+        if k + 1 < len(levels):
+            want = pos._hash_plain(want.reshape(-1, 8))
+    del leaves, levels, want, digests, rows
+    chk.same("ntt", ntt.coset_intt(g, RATE_BITS), ntt.coset_intt_plain(g, 7),
+             f"coset_intt (2, 2^{LOG_N + RATE_BITS})")
+    final_size = 1 << (5 + RATE_BITS)  # final polynomial 2^5 at rate 2^3
+    shift = pow(7, n_lde // final_size, gl.P)  # the coset after the folds
+    small = g[:, :final_size].contiguous()
+    chk.same("ntt", ntt.coset_intt(small, 0, shift), ntt.coset_intt_plain(small, shift),
+             f"coset_intt (2, 2^8) on the coset of 7^{n_lde // final_size}")
+    torch.cuda.synchronize()
+    log(f"[2] a proof's own shapes == plain: grind sponge (2^19, 2) and its first witness, "
+        f"layer tree of 2^{LOG_N + RATE_BITS - 1} pairs ({LOG_N + RATE_BITS - 4} levels), "
+        f"coset_intt (2, 2^{LOG_N + RATE_BITS}) and (2, 2^8)")
 
 
 def phase3(torch) -> None:
@@ -372,9 +446,9 @@ def phase4(torch, chk: Checker, rng, card: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[4] three commitments (first run) in {first_s:.3f} s, launches {launched}, "
         f"peak memory {peak_gb:.2f} GB")
-    for name, count in launched.items():
-        if count <= 0:
-            fail(f"the main path never launched the {name} kernel")
+    for name in ("ntt", "poseidon"):
+        if launched[name] <= 0:
+            fail(f"the commitments never launched the {name} kernel")
 
     wires, zs, quot = batches
     if not torch.equal(ntt.ntt_plain(wires.coeffs[:4]), wires_vals[:4]):
@@ -414,8 +488,8 @@ def phase4(torch, chk: Checker, rng, card: str) -> dict:
     seen = {name: res["profile"]["by_kernel"].get(name, {}).get("launches", 0) for name in expected}
     if seen != expected:
         fail(f"the profile shows launches {seen}, the plan is {expected}")
-    if launched != {"ntt": expected["ntt_pass_kernel"],
-                    "poseidon": sum(expected.values()) - expected["ntt_pass_kernel"]}:
+    if (launched["ntt"], launched["poseidon"]) != (
+            expected["ntt_pass_kernel"], sum(expected.values()) - expected["ntt_pass_kernel"]):
         fail(f"the launch counts {launched} are not the plan's {expected}")
     log(f"[4] launches by kernel name as planned: {expected}")
 
@@ -459,6 +533,600 @@ def phase4(torch, chk: Checker, rng, card: str) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# The field kernel against the plain ops (phase 2)
+# ---------------------------------------------------------------------------
+
+FIELD_SIZES = (1, 1023, 1 << 21)
+
+
+def field_edge_words() -> np.ndarray:
+    """Words at the edges of the arithmetic: 0, 1, p - 1, around 2^32, 2^63,
+    and pairs whose sum or product wraps 2^64 or lands on p."""
+    p = 0xFFFF_FFFF_0000_0001
+    return np.array([0, 1, 2, p - 1, p - 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1, 1 << 63,
+                     (1 << 63) - 1, (1 << 63) + 1, p >> 1, (p >> 1) + 1, 0xFFFF_FFFF_0000_0000,
+                     0xFFFF_FFFE_FFFF_FFFF, 7], dtype=np.uint64)
+
+
+def check_field_kernel(torch, chk: Checker, rng) -> None:
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
+
+    dev = DEVICE
+    ops = (("add", gl.add, gl.add_plain), ("sub", gl.sub, gl.sub_plain),
+           ("mul", gl.mul, gl.mul_plain))
+    edge = field_edge_words()
+    ea = gl.from_u64(np.repeat(edge, len(edge)), dev)
+    eb = gl.from_u64(np.tile(edge, len(edge)), dev)
+    for name, kernel, plain in ops:  # every pair of edge words
+        chk.same("field", kernel(ea, eb), plain(ea, eb), f"field {name}, edge words")
+    for n in FIELD_SIZES:
+        rows = 8 if n > 1023 else 6
+        x = rng.integers(0, gl.P, size=(rows, n), dtype=np.uint64)
+        y = rng.integers(0, gl.P, size=(rows, n), dtype=np.uint64)
+        x.reshape(-1)[: len(edge)] = edge[: x.size]
+        y.reshape(-1)[: len(edge)] = edge[::-1][: y.size]
+        a, b = gl.from_u64(x, dev), gl.from_u64(y, dev)
+        forms = {
+            "same shape": (a, b),
+            "scalar": (a, b[0, 0]),
+            "scalar first": (a[0, 0], b),
+            "row (1, n)": (a, b[:1]),
+            "column (r, 1)": (a, b[:, :1]),
+            "row against column": (a[:1], b[:, :1]),
+            "1-D row": (a, b[1]),
+            "strided columns": (a[:, ::2], b[:, ::2]),
+            "strided rows": (a[::2], b[1::2]),
+            "3-D (2, r/2, n) by (r/2, 1)": (a[: rows & ~1].reshape(2, rows // 2, n), b[: rows // 2, :1]),
+            "column (n, 1) of a narrow array": (a.T[:, :1], b.T[:, 1:2]),
+        }
+        for name, kernel, plain in ops:
+            for form, (u, v) in forms.items():
+                chk.same("field", kernel(u, v), plain(u, v), f"field {name}, {form}, n={n}")
+        chk.same("field", gl.square(a), gl.mul_plain(a, a), f"field square, n={n}")
+        chk.same("field", gl.neg(a), gl.sub_plain(torch.zeros_like(a), a), f"field neg, n={n}")
+        sub = a[:, : min(n, 1 << 14)]  # the plain inverse is 127 products of 35 passes
+        inv = gl.inv(sub)
+        chk.same("field", inv, gl.inv_plain(sub), f"field inv, n={n}")
+        nonzero = sub != 0
+        if not torch.equal(gl.mul(inv, sub), nonzero.to(torch.int64)):
+            fail(f"field inv: inv(x) * x != 1, n={n}")
+        full_inv = gl.inv(a)
+        if not torch.equal(gl.mul_plain(full_inv, a), (a != 0).to(torch.int64)):
+            fail(f"field inv: inv(x) * x != 1 over the whole ({rows}, {n}) array")
+        torch.cuda.synchronize()
+    log(f"[2] field add, sub, mul == plain on all pairs of {len(edge)} edge words and at sizes "
+        f"{FIELD_SIZES} in {len(forms)} broadcast forms; square, neg, inv == plain; inv(x) * x == 1")
+
+
+# ---------------------------------------------------------------------------
+# Circuits (phases 5 and 6)
+# ---------------------------------------------------------------------------
+
+
+def dryrun_circuit():
+    """The dryrun circuit of the JAX package's multi-chip entry (16 wires, all
+    routed, 2^7 rows; gates arith, const, noop; an inverse-trick gadget), built
+    with the port's builder, and its witness for x = 3."""
+    from eth_lc_plonky2_tpu_torch.circuit.builder import CircuitBuilder
+    from eth_lc_plonky2_tpu_torch.prover.config import CircuitConfig, FriConfig
+
+    cfg = CircuitConfig(
+        num_wires=16, num_routed_wires=16, num_constants=2, permutation_chunk_size=2,
+        fri=FriConfig(cap_height=6, proof_of_work_bits=8, num_query_rounds=8, final_poly_bits=6))
+    b = CircuitBuilder(cfg)
+    x = b.add_virtual_target()
+    acc = x
+    while len(b.rows) < 110:
+        acc = b.mul_add(acc, x, x)
+    eq = b.is_equal(acc, b.constant(12345))
+    b.assert_zero(eq)
+    b.register_public_input(acc)
+    data = b.build()
+    w = data.new_witness()
+    w.set(x, 3)
+    w.generate()
+    return data, w
+
+
+FLAGSHIP_ROWS_USED = 166_704  # of 2^18: the full light-client circuit's count
+
+
+def flagship_circuit(log_n: int, seed: int):
+    """A circuit of the flagship's shape and a witness that satisfies it, written
+    directly as tables (3.3 M builder calls in Python would take minutes).
+
+    CircuitConfig(num_wires=184) with its defaults; rows_used = 166,704 scaled
+    to 2^log_n rows: one const row, two noop rows (public inputs), an eighth of
+    the rest basesum2 rows (two 32-bit decompositions each), the others arith
+    rows of 20 ops out = c0 * a * b + c1 * c with per-row constants.  Copy
+    constraints, all classes of two slots: b of op k is a of op k + 1, out of
+    op k is c of op k + 1 (same row), a of op 0 and b of op 19 are shared by
+    each pair of neighbouring arith rows, two noop wires copy two const wires: sigma
+    differs from the identity on 79 of the 80 routed columns.  Wires 80 to 183
+    are free advice: seeded words.  Returns (CircuitData, Witness).
+    """
+    from eth_lc_plonky2_tpu_torch.circuit import gates as G
+    from eth_lc_plonky2_tpu_torch.circuit.builder import CircuitData, Target
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, host_field as hf
+    from eth_lc_plonky2_tpu_torch.prover.config import CircuitConfig
+
+    cfg = CircuitConfig(num_wires=NUM_WIRES)
+    nw, nr, nc = cfg.num_wires, cfg.num_routed_wires, cfg.num_constants
+    n = 1 << log_n
+    used = (FLAGSHIP_ROWS_USED << log_n) >> LOG_N
+    rng = np.random.default_rng(seed)
+    num_ops = 20
+    gates = [G.ArithmeticGate(num_ops), G.BaseSum2Gate(), G.ConstantGate(nc), G.NoopGate()]
+    gate_names = [g.name for g in gates]  # sorted, as CircuitBuilder.build() orders them
+    const_row, noop_rows = 0, np.array([1, 2])
+    num_bs = (used - 3) // 8
+    bs_rows = np.arange(3, 3 + num_bs)
+    arith_rows = np.arange(3 + num_bs, used)
+    arith_rows = arith_rows[: len(arith_rows) & ~1]  # whole pairs; a last odd row stays a pad row
+    used = int(arith_rows[-1]) + 1
+
+    selectors = np.zeros((len(gates), n), dtype=np.uint64)
+    selectors[0, arith_rows] = 1
+    selectors[1, bs_rows] = 1
+    selectors[2, const_row] = 1
+    selectors[3, noop_rows] = 1
+    constants = np.zeros((nc, n), dtype=np.uint64)
+    constants[:2, arith_rows] = rng.integers(0, gl.P, size=(2, len(arith_rows)), dtype=np.uint64)
+    constants[:, const_row] = rng.integers(0, gl.P, size=nc, dtype=np.uint64)
+
+    # the witness matrix, rows x wires
+    wit = np.zeros((n, nw), dtype=np.uint64)
+    wit[:used, nr:] = rng.integers(0, gl.P, size=(used, nw - nr), dtype=np.uint64)
+    wit[const_row, :nc] = constants[:, const_row]
+    wit[const_row, nc:nr] = rng.integers(0, gl.P, size=nr - nc, dtype=np.uint64)
+    wit[noop_rows, :nr] = rng.integers(0, gl.P, size=(2, nr), dtype=np.uint64)
+    wit[noop_rows, 2] = constants[:2, const_row]  # copies of const wires 0 and 1
+    values = rng.integers(0, 1 << 32, size=(num_bs, 2), dtype=np.uint64)
+    for slot in range(2):
+        wit[bs_rows, 33 * slot] = values[:, slot]
+        wit[bs_rows[:, None], 33 * slot + 1 + np.arange(32)[None, :]] = (
+            (values[:, slot, None] >> np.arange(32, dtype=np.uint64)[None, :]) & np.uint64(1))
+    wit[bs_rows, 66:nr] = rng.integers(0, gl.P, size=(num_bs, nr - 66), dtype=np.uint64)
+    ra = len(arith_rows)
+    a0 = np.repeat(rng.integers(0, gl.P, size=ra // 2, dtype=np.uint64), 2)
+    b = rng.integers(0, gl.P, size=(ra, num_ops), dtype=np.uint64)
+    b[:, -1] = np.repeat(b[0::2, -1], 2)
+    c0, c1 = constants[0, arith_rows], constants[1, arith_rows]
+    a, c = a0, rng.integers(0, gl.P, size=ra, dtype=np.uint64)
+    for k in range(num_ops):
+        out = hf.add(hf.mul(c0, hf.mul(a, b[:, k])), hf.mul(c1, c))
+        wit[arith_rows, 4 * k : 4 * k + 4] = np.stack([a, b[:, k], c, out], axis=1)
+        a, c = b[:, k], out
+
+    # copy classes of two slots each: (row, col) <-> (row2, col2)
+    pairs = []
+    for k in range(num_ops - 1):
+        pairs.append((arith_rows, 4 * k + 1, arith_rows, 4 * k + 4))  # b_k = a_{k+1}
+        pairs.append((arith_rows, 4 * k + 3, arith_rows, 4 * k + 6))  # out_k = c_{k+1}
+    for col in (0, 4 * num_ops - 3):  # a of op 0 and b of the last op, of a pair of rows
+        pairs.append((arith_rows[0::2], col, arith_rows[1::2], col))
+    for i in range(2):
+        pairs.append((np.array([const_row]), i, noop_rows[i : i + 1], 2))
+    omega_pows = hf.powers(gl.primitive_root_of_unity(log_n), n)
+    k_shifts = hf.powers(gl.MULTIPLICATIVE_GENERATOR, nr)
+    sigma = hf.mul(k_shifts[:, None], omega_pows[None, :])
+    rep = np.arange(n * nw, dtype=np.int64)
+    for r1, col1, r2, col2 in pairs:
+        if not np.array_equal(wit[r1, col1], wit[r2, col2]):
+            fail(f"flagship circuit: columns {col1} and {col2} do not hold equal copies")
+        sigma[col1, r1] = hf.mul(k_shifts[col2], omega_pows[r2])
+        sigma[col2, r2] = hf.mul(k_shifts[col1], omega_pows[r1])
+        first, second = r1 * nw + col1, r2 * nw + col2
+        rep[np.maximum(first, second)] = np.minimum(first, second)
+    identity = hf.mul(k_shifts[:, None], omega_pows[None, :])
+    moved = int((sigma != identity).any(axis=1).sum())
+    if moved < nr - 1:
+        fail(f"flagship circuit: sigma differs from the identity on {moved} columns only")
+
+    data = CircuitData(
+        config=cfg, log_n=log_n, num_rows_used=used, gate_names=gate_names, gates=gates,
+        selectors=selectors, constants=constants, sigma=sigma, rep=rep, generators=[],
+        public_input_targets=[Target(int(noop_rows[0]), 0), Target(int(noop_rows[1]), 1)],
+        k_shifts=k_shifts)
+    witness = data.new_witness()
+    witness.values = wit.reshape(-1)
+    witness.known[:] = True
+    return data, witness
+
+
+def proof_dict(proof) -> dict:
+    from eth_lc_plonky2_tpu_torch.prover import serialize
+
+    return serialize.proof_to_dict(proof, include_indices=True)
+
+
+def first_difference(got, want, path="proof"):
+    """The path of the first field in which two proof dicts differ, or None."""
+    if type(got) is not type(want):
+        return path
+    if isinstance(want, dict):
+        if list(got) != list(want):
+            return f"{path} (keys)"
+        for key in want:
+            if (where := first_difference(got[key], want[key], f"{path}.{key}")):
+                return where
+        return None
+    if isinstance(want, list):
+        if len(got) != len(want):
+            return f"{path} (length)"
+        for i, (g, w) in enumerate(zip(got, want)):
+            if (where := first_difference(g, w, f"{path}[{i}]")):
+                return where
+        return None
+    return None if got == want else path
+
+
+def prove_kernels_and_plain(torch, pd, witness, what: str) -> dict:
+    """Prove once on the kernels and once on the plain versions, both on the
+    card; the two proofs must be equal.  Returns the proof's dict."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    before = dict(kernels.launches)
+    on_kernels = proof_dict(prove.prove(pd, witness))
+    if min(kernels.launches[k] - before[k] for k in before) <= 0:
+        fail(f"{what}: the proof on the kernels missed a kernel: {kernels.launches} after {before}")
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    # The package takes a CUDA tensor to its kernels and nowhere else; only
+    # here, for this comparison, is its test of the device replaced, so that
+    # every wrapper runs its plain version on the card.
+    with mock.patch.object(kernels, "on_card", lambda t: False):
+        # the per-circuit tables too are made by the plain versions
+        plain_pd = prove.ProverData(data=pd.data, pre_values=pd.pre_values,
+                                    pre_batch=pd.pre_batch, dev=pd.dev)
+        on_plain = proof_dict(prove.prove(plain_pd, witness))
+    torch.cuda.synchronize()
+    if kernels.launches != before:
+        fail(f"{what}: the plain proof launched a kernel: {kernels.launches} after {before}")
+    if (where := first_difference(on_kernels, on_plain)):
+        fail(f"{what}: the proofs on the kernels and on the plain versions differ at {where}")
+    log(f"{what}: the proof on the kernels == the proof on the plain versions on the card "
+        f"(plain: {time.perf_counter() - t0:.1f} s)")
+    return on_kernels
+
+
+def phase5(torch) -> None:
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    data, witness = dryrun_circuit()
+    pd, vk = prove.preprocess(data)  # the card is the default
+    z = np.load(os.path.join(REPO, "assets", "dryrun", "pre.npz"))
+    if not np.array_equal(vk.pre_cap, z[f"level_{int(z['num_levels'][0]) - 1}"]):
+        fail("dryrun circuit: the preprocessed cap differs from assets/dryrun/pre.npz")
+    if pd.device.type != "cuda":
+        fail(f"dryrun circuit: preprocess left its data on {pd.device}")
+    got = prove_kernels_and_plain(torch, pd, witness, "[5] dryrun circuit")
+    with open(os.path.join(REPO, "assets", "dryrun", "ref_proof.json")) as f:
+        want = json.load(f)
+    if (where := first_difference(got, want)):
+        fail(f"dryrun circuit: the proof differs from assets/dryrun/ref_proof.json at {where}")
+    from eth_lc_plonky2_tpu_torch.prover import serialize
+
+    check_proof(data, vk, serialize.proof_from_dict(got), witness, "[5] dryrun circuit")
+    log(f"[5] dryrun circuit ({data.config.num_wires} wires, 2^{data.log_n} rows): pre_cap == "
+        "pre.npz, and the proof made on the card == assets/dryrun/ref_proof.json key by key")
+
+
+def tree_launches(num_leaves: int, cap_height: int) -> int:
+    """Sponge launches of one tree: the leaves, a launch a large level, and
+    one for all the small levels."""
+    from eth_lc_plonky2_tpu_torch.ops import poseidon as pos
+
+    count, n = 1, num_leaves
+    while n > (1 << cap_height):
+        count += 1
+        if n // 2 <= pos.TAIL_MAX_PAIRS:
+            break
+        n //= 2
+    return count
+
+
+def check_identity_at_zeta(data, proof, betas, gammas, alphas, zeta, what: str) -> None:
+    """The opened values must satisfy, for each challenge set, sum_i alpha^i *
+    term_i(zeta) == Z_H(zeta) * sum_k zeta^(n k) * q_k(zeta): permutation terms,
+    public inputs, then the selector-weighted gate constraints.  This is what
+    shows that the witness satisfied the circuit and that the quotient is the
+    right one: the quotient is interpolated over the whole LDE domain, so FRI's
+    degree check passes for any witness."""
+    from eth_lc_plonky2_tpu_torch.circuit.algebra import HostExtAlgebra
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, goldilocks_ext as ge
+
+    cfg = data.config
+    n, m, cs, rate = data.n, cfg.num_permutation_chunks, cfg.permutation_chunk_size, cfg.rate_bits
+    num_sel, num_con = len(data.gate_names), cfg.num_constants
+    openings = proof.openings.values
+    ext = lambda row: (int(row[0]), int(row[1]))  # noqa: E731
+    p_open, z_open, z_next_open, q_open = (openings[k] for k in (("P", 0), ("Z", 0), ("Z", 1), ("Q", 0)))
+    A = HostExtAlgebra()
+
+    def wires(col, offset=0):
+        return ext(openings[("W", offset)][col])
+
+    def consts(i):
+        return ext(p_open[num_sel + i])
+
+    gate_slots = [A.zero()] * max((g.num_constraints for g in data.gates), default=0)
+    for gi, g in enumerate(data.gates):
+        for k, cval in enumerate(g.eval(A, wires, consts)):
+            gate_slots[k] = A.add(gate_slots[k], A.mul(ext(p_open[gi]), cval))
+    zeta_n = ge.h_pow(zeta, n)
+    zh = ge.h_sub(zeta_n, (1, 0))
+    n_inv = gl.h_inv(n)
+    omega = gl.primitive_root_of_unity(data.log_n)
+    l0 = ge.h_mul(zh, ge.h_mul(ge.h_inv(ge.h_sub(zeta, (1, 0))), (n_inv, 0)))
+    pi_terms = []
+    for (r, c), piv in zip(data.public_input_targets, proof.public_inputs):
+        wr = pow(omega, r, gl.P)
+        lr = ge.h_mul(zh, ge.h_mul(ge.h_inv(ge.h_sub(zeta, (wr, 0))), ((wr * n_inv) % gl.P, 0)))
+        pi_terms.append(ge.h_mul(lr, ge.h_sub(wires(c), (int(piv) % gl.P, 0))))
+    for j in range(cfg.num_challenges):
+        chain = [ext(z_open[j * m + k]) for k in range(m)] + [ext(z_next_open[j * m])]
+        terms = [ge.h_mul(l0, ge.h_sub(chain[0], (1, 0)))]
+        for k in range(m):
+            acc_n = acc_d = (1, 0)
+            for c in range(k * cs, (k + 1) * cs):
+                idv = ge.h_mul((int(data.k_shifts[c]), 0), zeta)
+                sig = ext(p_open[num_sel + num_con + c])
+                acc_n = ge.h_mul(acc_n, ge.h_add(ge.h_add(wires(c), ge.h_mul((betas[j], 0), idv)),
+                                                 (gammas[j], 0)))
+                acc_d = ge.h_mul(acc_d, ge.h_add(ge.h_add(wires(c), ge.h_mul((betas[j], 0), sig)),
+                                                 (gammas[j], 0)))
+            terms.append(ge.h_sub(ge.h_mul(chain[k + 1], acc_d), ge.h_mul(chain[k], acc_n)))
+        combined = (0, 0)
+        for t in reversed(terms + pi_terms + gate_slots):
+            combined = ge.h_add(ge.h_mul(combined, (alphas[j], 0)), t)
+        tq, zpow = (0, 0), (1, 0)
+        for k in range(1 << rate):
+            tq = ge.h_add(tq, ge.h_mul(zpow, ext(q_open[(j << rate) + k])))
+            zpow = ge.h_mul(zpow, zeta_n)
+        if combined != ge.h_mul(zh, tq):
+            fail(f"{what}: the constraint identity fails at zeta (challenge set {j})")
+
+
+def check_proof(data, vk, proof, witness, what: str) -> None:
+    """What a run can check of a proof before the verifier is ported: the
+    constraint identity at zeta, every query's Merkle paths against their
+    caps, the PoW witness, the query indices, the public inputs."""
+    from eth_lc_plonky2_tpu_torch.prover import fri, merkle, prove
+    from eth_lc_plonky2_tpu_torch.prover.transcript import Challenger
+
+    fp = proof.fri_proof
+    cfg = data.config
+    n_lde = data.n << cfg.rate_bits
+    idx = np.array(fp.query_indices, dtype=np.int64)
+    caps = {"P": vk.pre_cap, "W": proof.wires_cap, "Z": proof.zs_cap, "Q": proof.quotient_cap}
+    for tag, cap in caps.items():
+        rows = np.stack([qp.batch_leaves[tag] for qp in fp.query_proofs])
+        paths = np.stack([np.stack(qp.batch_paths[tag]) for qp in fp.query_proofs])
+        if paths.shape[1:] != (data.log_n + cfg.rate_bits - cfg.cap_height, 4):
+            fail(f"{what}: {tag} paths of shape {paths.shape}")
+        if not merkle.verify_merkle_batch(rows, idx, paths, cap):
+            fail(f"{what}: a {tag} query path does not verify against its cap")
+    cur, size = idx, n_lde
+    for layer, cap in enumerate(fp.layer_caps):
+        size //= 2
+        cur = cur % size
+        rows = np.stack([qp.layer_leaves[layer] for qp in fp.query_proofs])
+        paths = np.stack([np.asarray(qp.layer_paths[layer], dtype=np.uint64).reshape(-1, 4)
+                          for qp in fp.query_proofs])
+        if not merkle.verify_merkle_batch(rows, cur, paths, cap):
+            fail(f"{what}: a FRI layer {layer} query path does not verify against its cap")
+    # replay the transcript up to the PoW challenge
+    ch = Challenger()
+    ch.observe_cap(vk.pre_cap)
+    ch.observe_many([int(v) for v in proof.public_inputs])
+    ch.observe_cap(proof.wires_cap)
+    betas_gammas = ch.challenges(2 * cfg.num_challenges)
+    ch.observe_cap(proof.zs_cap)
+    alphas = ch.challenges(cfg.num_challenges)
+    ch.observe_cap(proof.quotient_cap)
+    zeta = ch.challenge_ext()
+    check_identity_at_zeta(data, proof, betas_gammas[0::2], betas_gammas[1::2], alphas, zeta, what)
+    for spec in prove.opening_point_specs(data):
+        for row in proof.openings.values[spec]:
+            ch.observe_ext(row)
+    ch.challenge_ext()
+    for cap in fp.layer_caps:
+        ch.observe_cap(cap)
+        ch.challenge_ext()
+    for coeff in fp.final_poly:
+        ch.observe_ext(coeff)
+    if not fri.verify_pow(ch.challenge(), fp.pow_witness, cfg.fri.proof_of_work_bits):
+        fail(f"{what}: the PoW witness {fp.pow_witness} does not verify")
+    ch.observe(fp.pow_witness)
+    if [ch.challenge() % n_lde for _ in range(cfg.fri.num_query_rounds)] != list(fp.query_indices):
+        fail(f"{what}: the query indices are not the transcript's")
+    want_pi = [witness.get(t) for t in data.public_input_targets]
+    if [int(v) for v in proof.public_inputs] != want_pi or not want_pi:
+        fail(f"{what}: public inputs {proof.public_inputs} are not the witness's {want_pi}")
+    if len(fp.layer_caps) != max(0, data.log_n - cfg.fri.final_poly_bits):
+        fail(f"{what}: {len(fp.layer_caps)} FRI layers")
+    log(f"{what}: the constraint identity holds at zeta for {cfg.num_challenges} challenge sets; "
+        f"{len(idx)} queries x (4 batch trees + {len(fp.layer_caps)} FRI layers) verify "
+        f"against their caps; PoW witness {fp.pow_witness} and the query indices are the "
+        f"transcript's; public inputs == the witness's")
+
+
+def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+    from eth_lc_plonky2_tpu_torch.prover.profiler import Profiler
+
+    # the same circuit at 2^12 rows: kernels against plain versions, whole proofs
+    small, small_w = flagship_circuit(12, seed)
+    small_pd, small_vk = prove.preprocess(small)
+    prove_kernels_and_plain(torch, small_pd, small_w, "[6] flagship shape at 2^12 rows")
+    check_proof(small, small_vk, prove.prove(small_pd, small_w), small_w, "[6] 2^12 rows")
+    del small_pd
+
+    t0 = time.perf_counter()
+    data, witness = flagship_circuit(LOG_N, seed)
+    cfg = data.config
+    log(f"[6] circuit tables and witness in {time.perf_counter() - t0:.1f} s: {cfg.num_wires} wires, "
+        f"2^{data.log_n} rows, {data.num_rows_used} used, gates {data.gate_names}, "
+        f"{len(data.public_input_targets)} public inputs")
+    t0 = time.perf_counter()
+    pd, vk = prove.preprocess(data)
+    torch.cuda.synchronize()
+    log(f"[6] preprocess ({pd.pre_values.shape[0]} polys) in {time.perf_counter() - t0:.3f} s")
+
+    # the main path: one proof, counts set to 0 just before and read just after
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    proof = prove.prove(pd, witness)
+    torch.cuda.synchronize()
+    launched = dict(kernels.launches)
+    first_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[6] first prove (makes the per-circuit tables) in {first_s:.3f} s, launches {launched}, "
+        f"peak memory {peak_gb:.2f} GB [{card}]")
+    for name, count in launched.items():
+        if count <= 0:
+            fail(f"the main path never launched the {name} kernel")
+    check_proof(data, vk, proof, witness, "[6] 2^18 rows")
+
+    prove.prove(pd, witness)  # warm-up: every table is cached now
+    runs, phases, proofs = [], [], []
+    for _ in range(3):
+        prof = Profiler(enabled=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proofs.append(prove.prove(pd, witness, prof=prof))
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        phases.append(prof.times)
+    prove_ms = statistics.median(runs) * 1e3
+    log(f"[6] prove: median {prove_ms:.2f} ms of {len(runs)} "
+        f"({', '.join(f'{r * 1e3:.2f}' for r in runs)}), each phase ending in a synchronize "
+        f"[{card}]")
+    runs_free = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prove.prove(pd, witness, prof=Profiler(enabled=False))
+        torch.cuda.synchronize()
+        runs_free.append(time.perf_counter() - t0)
+    log(f"[6] prove without the phase marks: median {statistics.median(runs_free) * 1e3:.2f} ms of "
+        f"{len(runs_free)} ({', '.join(f'{r * 1e3:.2f}' for r in runs_free)}) [{card}]")
+    want = proof_dict(proof)
+    for p in proofs:
+        if (where := first_difference(proof_dict(p), want)):
+            fail(f"two proofs of one witness differ at {where}")
+    phase_ms = {name: statistics.median(ph[name] for ph in phases) * 1e3 for name in phases[0]}
+    for name, ms in sorted(phase_ms.items(), key=lambda kv: -kv[1]):
+        log(f"[6] phase {name}: {ms:.3f} ms (median of {len(phases)}) [{card}]")
+
+    # a steady-state prove with the count of launches, and the peak memory
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    prove.prove(pd, witness)
+    torch.cuda.synchronize()
+    steady = dict(kernels.launches)
+    steady_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_lde = data.n << cfg.rate_bits
+    commit_chunks = [-(-rows // prove._COMMIT_CHUNK) for rows in (NUM_WIRES, NUM_Z, NUM_QUOTIENT)]
+    plan_ntt = (2 * (2 * commit_chunks[0] + 2 * commit_chunks[1] + commit_chunks[2])
+                + 2   # the quotients' coset_intt at 2^21: a four-step
+                + 1)  # FRI's final polynomial at 2^8: one pass
+    grind_batch = 1 << min(20, cfg.fri.proof_of_work_bits + 3)
+    layers = data.log_n - cfg.fri.final_poly_bits
+    plan_sponge = (3 * tree_launches(n_lde, cfg.cap_height)
+                   + sum(tree_launches(n_lde >> (k + 1), 4) for k in range(layers))
+                   + proof.fri_proof.pow_witness // grind_batch + 1)
+    plan = {"ntt": plan_ntt, "poseidon": plan_sponge, "field": STEADY_FIELD_LAUNCHES}
+    if steady != plan:
+        fail(f"a steady prove launched {steady}, the plan is {plan}")
+    log(f"[6] a steady prove launches {steady} (as planned: three commitments, "
+        f"the quotient's and the final polynomial's inverse transforms; three trees, {layers} "
+        f"FRI layer trees, the grind; the eager field ops of this circuit), peak memory {steady_peak_gb:.2f} GB [{card}]")
+
+    # Device time by kernel name, and the idle share of the window.  A trace
+    # that starts cold can lose the first device records after a long host
+    # phase (the witness upload and the first NTT passes went missing in one
+    # trace of three), so each trace has a warm-up prove that is traced and
+    # discarded before the active one.  A trace whose launches are not the
+    # wrappers' counts is incomplete: it is taken again, at most three times,
+    # and the profile's line says how many were discarded.
+    by_source = {"ntt_pass_kernel": "ntt", "sponge_kernel": "poseidon",
+                 "merkle_level_kernel": "poseidon", "merkle_tail_kernel": "poseidon",
+                 "field_binary_kernel": "field", "field_inv_kernel": "field"}
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as tprof:
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prove.prove(pd, witness, prof=Profiler(enabled=False))
+                torch.cuda.synchronize()
+                window_ms = (time.perf_counter() - t0) * 1e3
+                tprof.step()
+        by_name = {}
+        for ev in tprof.key_averages():
+            if (ev.device_type.name != "CPU" and ev.self_device_time_total > 0
+                    and not ev.key.startswith("ProfilerStep")):  # the step's own span is no work
+                own = re.search(r"\w+_kernel\b", ev.key)
+                name = own.group(0) if own else ev.key[:48]
+                entry = by_name.setdefault(name, {"ms": 0.0, "launches": 0})
+                entry["ms"] += ev.self_device_time_total / 1e3
+                entry["launches"] += ev.count
+        seen = dict.fromkeys(steady, 0)
+        for name, source in by_source.items():
+            seen[source] += by_name.get(name, {}).get("launches", 0)
+        if seen == steady:
+            break
+        log(f"[6] trace {attempt + 1} shows launches {seen}, the wrappers counted {steady}")
+    else:
+        fail(f"three traces in a row lost records: {seen} against {steady}")
+    busy_ms = sum(v["ms"] for v in by_name.values())
+    for name, v in sorted(by_name.items(), key=lambda kv: -kv[1]["ms"]):
+        log(f"[6] profile, one prove: {name}: {v['ms']:.3f} ms in {v['launches']} launches [{card}]")
+    log(f"[6] profile: busy {busy_ms:.3f} ms of a {window_ms:.3f} ms window, idle share "
+        f"{1 - busy_ms / window_ms:.3f}, one trace's reading, {attempt} incomplete traces "
+        f"discarded before it [{card}]")
+    inv_plan = cfg.num_challenges + 1  # a (m, n) batch a challenge set, and the G kernel's norms
+    if by_name.get("field_inv_kernel", {}).get("launches", 0) != inv_plan:
+        fail(f"the profile shows {by_name.get('field_inv_kernel')} inversions, the plan is {inv_plan}")
+    log(f"[6] the profile's launches by kernel source == the wrappers' counts {steady}; "
+        f"{inv_plan} batched inversions as planned")
+
+    # the field kernel beside its plain version at a main-path shape: one
+    # permutation chunk (8, 2^21) times another
+    a = gl.from_u64(rng.integers(0, gl.P, size=(8, n_lde), dtype=np.uint64), DEVICE)
+    b = gl.from_u64(rng.integers(0, gl.P, size=(8, n_lde), dtype=np.uint64), DEVICE)
+    field_ms = cuda_ms(lambda: gl.mul(a, b), 9)
+    field_plain_ms = cuda_ms(lambda: gl.mul_plain(a, b), 3)
+    chk.same("field", gl.mul(a, b), gl.mul_plain(a, b), "timed field mul")
+    add_ms = cuda_ms(lambda: gl.add(a, b), 9)
+    row_ms = cuda_ms(lambda: gl.mul(a, b[0]), 9)
+    inv_in = a[:5]  # the G kernel's norms: (5, 2^21)
+    inv_ms = cuda_ms(lambda: gl.inv(inv_in), 5)
+    nbytes = 3 * a.numel() * 8
+    # a 64 x 64 product is 4 multiply-adds of 32 x 32 bits, its reduction one more
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = a.numel() * 5 / PEAK_INT32_MADS_PER_S * 1e3
+    field_bound = (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations")
+    inv_bound_ms = max(2 * inv_in.numel() * 8 / PEAK_BYTES_PER_S,
+                       inv_in.numel() * 72 * 5 / PEAK_INT32_MADS_PER_S) * 1e3
+    log(f"[6] field: mul (8, 2^21) x (8, 2^21): kernel {field_ms:.3f} ms, plain "
+        f"{field_plain_ms:.3f} ms, bound {field_bound[0]:.4f} ms by {field_bound[1]} "
+        f"({field_bound[0] / field_ms:.1%} of the kernel's time); add {add_ms:.3f} ms; mul by a "
+        f"row (2^21,) {row_ms:.3f} ms; inv (5, 2^21) {inv_ms:.3f} ms against a bound of "
+        f"{inv_bound_ms:.4f} ms by operations (72 products a word) [{card}]")
+    return {"launches": launched, "prove_ms": prove_ms, "phase_ms": phase_ms,
+            "field": (field_ms, field_plain_ms, *field_bound)}
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -474,6 +1142,9 @@ def main() -> int:
     phase2(torch, chk, rng)
     phase3(torch)
     res = phase4(torch, chk, rng, card)
+    phase5(torch)
+    whole = phase6(torch, chk, rng, card, args.seed)
+    res["launches"] = whole["launches"]  # the main path is the whole proof at the flagship's width
     kernels_line = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/ntt.cu",
          "replaces": "eth_lc_plonky2_tpu/ops/pallas/ntt_mxu.py:165",
@@ -486,6 +1157,11 @@ def main() -> int:
          "launches": res["launches"]["poseidon"], "max_abs_err": chk.err["poseidon"],
          "ms": res["poseidon"][0], "plain_ms": res["poseidon"][1],
          "bound_ms": res["poseidon"][2], "bound_by": res["poseidon"][3], "library_ms": None},
+        {"name": "field", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/field.cu",
+         "replaces": "eth_lc_plonky2_tpu/ops/goldilocks.py:143-301 (XLA-fused, no Pallas kernel)",
+         "launches": whole["launches"]["field"], "max_abs_err": chk.err["field"],
+         "ms": whole["field"][0], "plain_ms": whole["field"][1], "bound_ms": whole["field"][2],
+         "bound_by": whole["field"][3], "library_ms": None},
     ]}
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)

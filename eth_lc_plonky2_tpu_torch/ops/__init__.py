@@ -1,1 +1,1 @@
-"""Field, NTT and Poseidon ops, and the kernel launchers."""
+"""Field, extension field, NTT and Poseidon ops, and the kernel launchers."""

@@ -14,9 +14,13 @@ are handled explicitly:
 * ``<`` is signed, so unsigned compares flip the sign bit first (``_ult``);
 * ``torch.uint64`` has no add/sub/shift/compare on the CPU, so it is not used.
 
-These ops are the plain versions: the CPU tests use them, and
-``chip_smoke.py`` holds the CUDA kernels against them on the card.  The
-kernels' own field arithmetic is ``csrc/goldilocks.cuh``.
+``add``, ``sub``, ``mul``, ``square``, ``neg``, ``mul_small`` and ``inv``
+launch the hand-written ``csrc/field.cu`` for a CUDA tensor (XLA fuses these
+ops for the JAX package; eager PyTorch would run some 35 launches a
+multiplication) and run the ``*_plain`` tensor ops for a CPU tensor.  The
+CPU tests use the plain versions, and ``chip_smoke.py`` holds the CUDA
+kernels against them on the card.  The kernels' own field arithmetic is
+``csrc/goldilocks.cuh``.
 """
 
 from __future__ import annotations
@@ -104,32 +108,113 @@ def _reduce128(lo, hi):
 
 
 # ---------------------------------------------------------------------------
-# Field ops (inputs and outputs canonical)
+# Construction
 # ---------------------------------------------------------------------------
 
 
-def add(a, b):
+def zeros(shape, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.int64, device=device)
+
+
+def ones(shape, device) -> torch.Tensor:
+    return torch.ones(shape, dtype=torch.int64, device=device)
+
+
+def full(shape, value: int, device) -> torch.Tensor:
+    value %= P
+    return torch.full(shape, value - (1 << 64) if value >> 63 else value,
+                      dtype=torch.int64, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Plain field ops (inputs and outputs canonical): what a CPU tensor runs, and
+# what ``csrc/field.cu`` is held against on the card
+# ---------------------------------------------------------------------------
+
+
+def add_plain(a, b):
     s = a + b
     over = _ult(s, a) | ~_ult(s, _P_I64)
     return torch.where(over, s - _P_I64, s)  # s - p wraps to s + EPSILON on carry
 
 
-def sub(a, b):
+def sub_plain(a, b):
     d = a - b
     return torch.where(_ult(a, b), d + _P_I64, d)
 
 
-def neg(a):
-    return torch.where(a == 0, a, _P_I64 - a)
-
-
-def mul(a, b):
+def mul_plain(a, b):
     lo, hi = _mul64_wide(a, b)
     return _reduce128(lo, hi)
 
 
+def square_plain(a):
+    return mul_plain(a, a)
+
+
+def pow_const_plain(a, e: int):
+    """a ** e for a fixed Python-int exponent (square and multiply)."""
+    result = torch.ones_like(a)
+    base = a
+    while e > 0:
+        if e & 1:
+            result = mul_plain(result, base)
+        e >>= 1
+        if e:
+            base = mul_plain(base, base)
+    return result
+
+
+def inv_plain(a):
+    return pow_const_plain(a, P - 2)
+
+
+# ---------------------------------------------------------------------------
+# Field ops.  A CUDA tensor launches ``csrc/field.cu`` (operands broadcast
+# through their strides, one load and one store an element); a CPU tensor
+# runs the plain version above.  Three cases launch nothing on either
+# device, so a plan of ``field`` launches leaves them out: an empty result,
+# ``mul_small(a, 0)`` (a zero tensor) and ``mul_small(a, 1)`` (``a`` itself).
+# ---------------------------------------------------------------------------
+
+
+def _binary(op: str, plain, a, b):
+    from . import kernels
+
+    if kernels.on_card(a) or kernels.on_card(b):
+        return kernels.field_binary(op, a, b)
+    return plain(a, b)
+
+
+def add(a, b):
+    return _binary("add", add_plain, a, b)
+
+
+def sub(a, b):
+    return _binary("sub", sub_plain, a, b)
+
+
+def mul(a, b):
+    return _binary("mul", mul_plain, a, b)
+
+
 def square(a):
     return mul(a, a)
+
+
+def neg(a):
+    return sub(torch.zeros((), dtype=torch.int64, device=a.device), a)
+
+
+def mul_small(a, k: int):
+    """a * k for a small constant 0 <= k < 2^16."""
+    if not 0 <= k < (1 << 16):
+        raise ValueError(f"mul_small: {k} is not below 2^16")
+    if k == 0:
+        return torch.zeros_like(a)
+    if k == 1:
+        return a
+    return mul(a, torch.full((), k, dtype=torch.int64, device=a.device))
 
 
 def pow_const(a, e: int):
@@ -146,13 +231,39 @@ def pow_const(a, e: int):
 
 
 def inv(a):
-    """Multiplicative inverse via Fermat, a^(p-2); a must be nonzero."""
-    return pow_const(a, P - 2)
+    """Multiplicative inverse via Fermat, a^(p-2); inv(0) = 0."""
+    from . import kernels
+
+    if kernels.on_card(a):
+        return kernels.field_inv(a)
+    return inv_plain(a)
+
+
+def eq(a, b):
+    """Elementwise equality (boolean tensor): valid because canonical."""
+    return a == b
+
+
+def select(cond, a, b):
+    """Elementwise where(cond, a, b) for field tensors."""
+    return torch.where(cond, a, b)
 
 
 # ---------------------------------------------------------------------------
 # Host-side scalars and tables
 # ---------------------------------------------------------------------------
+
+
+def h_mul(a: int, b: int) -> int:
+    return (a * b) % P
+
+
+def h_add(a: int, b: int) -> int:
+    return (a + b) % P
+
+
+def h_pow(a: int, e: int) -> int:
+    return pow(a, e, P)
 
 
 def h_inv(a: int) -> int:
@@ -169,16 +280,17 @@ def primitive_root_of_unity(n_log: int) -> int:
     return base
 
 
-def powers(base: int, n: int) -> torch.Tensor:
-    """[1, base, ..., base^(n-1)] as a CPU field tensor, by log-doubling."""
-    out = torch.ones(n, dtype=torch.int64)
+def powers(base: int, n: int, device) -> torch.Tensor:
+    """[1, base, ..., base^(n-1)] as a field tensor made on ``device``, by
+    log-doubling (about log2 n multiplications of growing blocks)."""
+    out = torch.ones(n, dtype=torch.int64, device=device)
     if n <= 1:
         return out
-    out[1] = from_u64(base % P)
+    out[1] = from_u64(base % P, device)
     filled = 2
     while filled < n:
         take = min(filled, n - filled)
-        step = from_u64(pow(base, filled, P))  # base^filled
+        step = from_u64(pow(base, filled, P), device)  # base^filled
         out[filled : filled + take] = mul(out[:take], step)
         filled += take
     return out

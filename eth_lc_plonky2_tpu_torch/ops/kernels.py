@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -31,15 +32,17 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("ntt.cu", "poseidon.cu")
+SOURCES = ("ntt.cu", "poseidon.cu", "field.cu")
 HEADERS = ("goldilocks.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 NTT_THREADS = 256
 POSEIDON_THREADS = 256  # csrc/poseidon.cu: __launch_bounds__(256, ...), the most it takes
+FIELD_THREADS = 256  # csrc/field.cu: __launch_bounds__(256)
+FIELD_OPS = {"add": 0, "sub": 1, "mul": 2}  # csrc/field.cu: OP_ADD, OP_SUB, OP_MUL
 
-launches = {"ntt": 0, "poseidon": 0}
+launches = {"ntt": 0, "poseidon": 0, "field": 0}
 build_info: dict = {}
 
 
@@ -75,7 +78,7 @@ def _source_hash(source: str) -> str:
 @functools.lru_cache(maxsize=None)
 def _libraries() -> dict:
     """Build what is missing (one nvcc per source, all started together) and
-    load both libraries; returns {source stem: CDLL}."""
+    load the libraries; returns {source stem: CDLL}."""
     t0 = time.perf_counter()
     paths = {src: BUILD_DIR / f"libelp_{Path(src).stem}_{_source_hash(src)}.so" for src in SOURCES}
     running = {}
@@ -102,6 +105,8 @@ def _libraries() -> dict:
                      "elp_poseidon_sponge": [vp, ll, ll, ll, ll, vp, i32, vp],
                      "elp_merkle_level": [vp, ll, vp, i32, vp],
                      "elp_merkle_tail": [vp, ll, i32, vp, i32, vp]},
+        "field": {"elp_field_binary": [i32, vp, ll, ll, vp, ll, ll, vp, ll, ll, i32, vp],
+                  "elp_field_inv": [vp, vp, ll, i32, vp]},
     }
     for stem, functions in signatures.items():
         for name, argtypes in functions.items():
@@ -224,3 +229,76 @@ def merkle_tail(level: torch.Tensor, num_levels: int, consts: bytes) -> list:
     launches["poseidon"] += 1
     _raise_on(err, "poseidon")
     return list(buf.split(sizes))
+
+
+def _rows_cols(t: torch.Tensor, shape: tuple):
+    """``t`` broadcast to ``shape`` and read as (rows, cols) = (prod(shape[:-1]),
+    shape[-1]): (tensor that owns the words, row stride, column stride).  The
+    leading axes must collapse into one stride; a view that does not (rare:
+    a slice across two leading axes) is copied first."""
+    e = t.expand(shape)
+    if len(shape) == 0:
+        return e, 0, 0
+    cols_stride = e.stride(-1) if shape[-1] > 1 else 0
+    lead = [(n, st) for n, st in zip(shape[:-1], e.stride()[:-1]) if n > 1]
+    if not lead:
+        return e, 0, cols_stride
+    for (_, outer), (n, inner) in zip(lead, lead[1:]):
+        if outer != inner * n:
+            e = e.contiguous()
+            return e, shape[-1], 1
+    return e, lead[-1][1], cols_stride
+
+
+def field_binary_plan(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """How one launch of ``field_binary_kernel`` addresses a (op) b: (shape of
+    the result, the two tensors that own the words, rows, cols, a's row and
+    column stride, b's).  Element (r, c) of the contiguous (rows, cols) result
+    reads word r * stride_r + c * stride_c of each operand's storage."""
+    shape = tuple(torch.broadcast_shapes(a.shape, b.shape))
+    ea, a_r, a_c = _rows_cols(a, shape)
+    eb, b_r, b_c = _rows_cols(b, shape)
+    if min(a_r, a_c, b_r, b_c) < 0:
+        raise ValueError("field op: negative strides")
+    cols = shape[-1] if shape else 1
+    rows = math.prod(shape) // max(cols, 1)
+    if cols == 1:  # a column: run along it
+        rows, cols, a_r, a_c, b_r, b_c = 1, rows, 0, a_r, 0, b_r
+    elif rows > 1 and {(a_r, a_c), (b_r, b_c)} <= {(cols, 1), (0, 0)}:
+        # contiguous or scalar operands: one long row, so a narrow last axis
+        # does not leave most of a block's threads without work
+        rows, cols, a_r, b_r = 1, rows * cols, 0, 0
+    return shape, ea, eb, rows, cols, a_r, a_c, b_r, b_c
+
+
+def field_binary(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/field.cu``: a (op) b over the broadcast of the two shapes,
+    op one of add, sub, mul; operands are read through their strides."""
+    _check(a, "a")
+    _check(b, "b")
+    if a.device != b.device:
+        raise ValueError(f"field {op}: operands on {a.device} and {b.device}")
+    shape, ea, eb, rows, cols, a_r, a_c, b_r, b_c = field_binary_plan(a, b)
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    if out.numel() == 0:
+        return out
+    err = _libraries()["field"].elp_field_binary(
+        FIELD_OPS[op], ea.data_ptr(), a_r, a_c, eb.data_ptr(), b_r, b_c, out.data_ptr(),
+        rows, cols, FIELD_THREADS, _stream(out))
+    launches["field"] += 1
+    _raise_on(err, f"field {op}")
+    return out
+
+
+def field_inv(a: torch.Tensor) -> torch.Tensor:
+    """Launch ``field_inv_kernel``: a^(p-2) elementwise (0 stays 0)."""
+    _check(a, "a")
+    x = a.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    err = _libraries()["field"].elp_field_inv(x.data_ptr(), out.data_ptr(), x.numel(),
+                                              FIELD_THREADS, _stream(x))
+    launches["field"] += 1
+    _raise_on(err, "field inv")
+    return out

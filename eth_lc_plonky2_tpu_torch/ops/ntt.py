@@ -26,7 +26,6 @@ import torch
 
 from . import goldilocks as gl
 from . import kernels
-from .kernels import on_card
 
 MAX_LOG_N = 22  # two passes of at most 2^11
 
@@ -50,7 +49,7 @@ def _root(log_n: int, inverse: bool) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _powers_on(base: int, n: int, device: str) -> torch.Tensor:
-    return gl.powers(base, n).to(device)
+    return gl.powers(base, n, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,23 +80,23 @@ def ntt_plain(f: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         a = a.reshape(*batch, n // (2 * h), 2, h)
         tw = pw[torch.arange(h, device=f.device) << (log_n - lh - 1)]
         u = a[..., 0, :]
-        v = gl.mul(a[..., 1, :], tw)
-        a = torch.stack([gl.add(u, v), gl.sub(u, v)], dim=-2).reshape(*batch, n)
+        v = gl.mul_plain(a[..., 1, :], tw)
+        a = torch.stack([gl.add_plain(u, v), gl.sub_plain(u, v)], dim=-2).reshape(*batch, n)
     if inverse:
-        a = gl.mul(a, gl.from_u64(gl.h_inv(n), f.device))
+        a = gl.mul_plain(a, gl.from_u64(gl.h_inv(n), f.device))
     return a
 
 
 def coset_lde_plain(coeffs: torch.Tensor, rate_bits: int, shift: int) -> torch.Tensor:
     n = coeffs.shape[-1]
-    scaled = gl.mul(coeffs, _powers_on(shift, n, str(coeffs.device)))
+    scaled = gl.mul_plain(coeffs, _powers_on(shift, n, str(coeffs.device)))
     padded = torch.nn.functional.pad(scaled, (0, (n << rate_bits) - n))
     return ntt_plain(padded)
 
 
 def coset_intt_plain(evals: torch.Tensor, shift: int) -> torch.Tensor:
     n = evals.shape[-1]
-    return gl.mul(ntt_plain(evals, inverse=True), _powers_on(gl.h_inv(shift), n, str(evals.device)))
+    return gl.mul_plain(ntt_plain(evals, inverse=True), _powers_on(gl.h_inv(shift), n, str(evals.device)))
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +172,7 @@ def ntt_pass_plain(src, dst, *, total, K, in_strides, out_strides, tw, log_m, lo
     pos_in = k[:, None] * in_strides[1] + torch.arange(head)[None, :] * in_strides[2]
     vals = flat_in[b[:, None] * in_strides[0] + pos_in]
     if in_tab is not None:
-        vals = gl.mul(vals, in_tab[pos_in])
+        vals = gl.mul_plain(vals, in_tab[pos_in])
     # decimation in time: element i lands on the 2^log_pad slots from
     # bitrev(i) on (what the first log_pad stages would make of a zero tail),
     # and the butterflies start at stage log_pad
@@ -184,18 +183,18 @@ def ntt_pass_plain(src, dst, *, total, K, in_strides, out_strides, tw, log_m, lo
         h = 1 << lh
         res = res.reshape(total, m // (2 * h), 2, h)
         u = res[:, :, 0, :]
-        v = gl.mul(res[:, :, 1, :], tw[torch.arange(h) << (log_m - lh - 1)])
-        res = torch.stack([gl.add(u, v), gl.sub(u, v)], dim=2).reshape(total, m)
+        v = gl.mul_plain(res[:, :, 1, :], tw[torch.arange(h) << (log_m - lh - 1)])
+        res = torch.stack([gl.add_plain(u, v), gl.sub_plain(u, v)], dim=2).reshape(total, m)
     j = torch.arange(m)
     if step is not None:
         e = k[:, None] * j[None, :]
         lo, hi = step
-        res = gl.mul(res, gl.mul(lo[e & ((1 << STEP_BITS) - 1)], hi[e >> STEP_BITS]))
+        res = gl.mul_plain(res, gl.mul_plain(lo[e & ((1 << STEP_BITS) - 1)], hi[e >> STEP_BITS]))
     pos_out = k[:, None] * out_strides[1] + j[None, :] * out_strides[2]
     if out_tab is not None:
-        res = gl.mul(res, out_tab[pos_out])
+        res = gl.mul_plain(res, out_tab[pos_out])
     if scalar is not None:
-        res = gl.mul(res, gl.from_u64(scalar))
+        res = gl.mul_plain(res, gl.from_u64(scalar))
     flat_out[b[:, None] * out_strides[0] + pos_out] = res
 
 
@@ -235,7 +234,7 @@ def ntt(f: torch.Tensor, inverse: bool = False, out: torch.Tensor | None = None)
     Forward: out[j] = sum_i f[i] * w^(i*j), w the primitive n-th root.
     ``out`` (same shape, contiguous) receives the result; it may be ``f``.
     """
-    if not on_card(f):
+    if not kernels.on_card(f):
         res = ntt_plain(f, inverse)
         return res if out is None else out.copy_(res)
     x = _as_rows(f)
@@ -259,7 +258,7 @@ def coset_lde(coeffs: torch.Tensor, rate_bits: int, shift: int = gl.MULTIPLICATI
     """
     n = coeffs.shape[-1]
     big_shape = coeffs.shape[:-1] + (n << rate_bits,)
-    if not on_card(coeffs):
+    if not kernels.on_card(coeffs):
         res = coset_lde_plain(coeffs, rate_bits, shift)
         return res if out is None else out.copy_(res)
     x = _as_rows(coeffs)
@@ -275,9 +274,66 @@ def coset_intt(evals: torch.Tensor, rate_bits: int, shift: int = gl.MULTIPLICATI
     """Inverse of coset_lde restricted to the first n = len(evals) coefficients."""
     del rate_bits  # as in the JAX package, n is the evaluation count
     n = evals.shape[-1]
-    if not on_card(evals):
+    if not kernels.on_card(evals):
         return coset_intt_plain(evals, shift)
     x = _as_rows(evals)
     dst = torch.empty_like(x)
     _ntt_kernel(x, dst, inverse=True, out_tab=_powers_on(gl.h_inv(shift), n, str(x.device)))
     return dst.view(evals.shape)
+
+
+# ---------------------------------------------------------------------------
+# Powers, rolls and reductions (the quotient's, the openings' and FRI's tools)
+# ---------------------------------------------------------------------------
+
+
+def powers_device(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[1, x, ..., x^(n-1)] for a shape-() field tensor x, by log-doubling on
+    x's device."""
+    out = torch.stack([torch.ones_like(x), x])
+    if n == 1:
+        return out[:1]
+    while (k := out.shape[0]) < n:
+        take = min(k, n - k)
+        factor = gl.mul(out[k - 1], out[1])  # x^k
+        out = torch.cat([out, gl.mul(out[:take], factor)])
+    return out[:n]
+
+
+def roll_lde(arr: torch.Tensor, offset: int, rate_bits: int) -> torch.Tensor:
+    """Wire value at row r + offset over the LDE domain (natural order): the
+    one next-row helper, shared by the quotient and every gate that reads a
+    neighbouring row."""
+    if offset == 0:
+        return arr
+    return torch.roll(arr, -(offset << rate_bits), dims=-1)
+
+
+def _fold_axis(f: torch.Tensor, axis: int, op) -> torch.Tensor:
+    """Reduce ``axis`` with the associative, commutative and exact ``op`` by
+    folding its upper half onto its lower half (contiguous halves, so a fold
+    of the leading axis runs over two flat blocks); any tree gives the same
+    field element."""
+    n = f.shape[axis]
+    while n > 1:
+        h = n // 2
+        folded = op(f.narrow(axis, 0, h), f.narrow(axis, h, h))
+        f = folded if n == 2 * h else torch.cat([folded, f.narrow(axis, 2 * h, 1)], dim=axis)
+        n = f.shape[axis]
+    return f.select(axis, 0)
+
+
+def sum_field(f: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Field sum along an axis (a sum over an empty axis is not defined)."""
+    return _fold_axis(f, axis, gl.add)
+
+
+def prod_field(f: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Field product along an axis."""
+    return _fold_axis(f, axis, gl.mul)
+
+
+def eval_poly(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Evaluate polynomials (coefficients on the last axis) at the shape-()
+    field tensor x: powers of x by log-doubling, then a field dot product."""
+    return sum_field(gl.mul(coeffs, powers_device(x, coeffs.shape[-1])), axis=-1)

@@ -26,7 +26,6 @@ import torch
 
 from . import goldilocks as gl
 from . import kernels
-from .kernels import on_card
 
 P = gl.P
 
@@ -243,9 +242,9 @@ def _mds_on(device: str) -> torch.Tensor:
 
 
 def _sbox(x):
-    x2 = gl.square(x)
-    x3 = gl.mul(x2, x)
-    return gl.mul(gl.square(x3), x)
+    x2 = gl.square_plain(x)
+    x3 = gl.mul_plain(x2, x)
+    return gl.mul_plain(gl.square_plain(x3), x)
 
 
 def _mds_cf(st):
@@ -262,7 +261,7 @@ def _permute_cf(st: torch.Tensor) -> torch.Tensor:
     rc = _rc_on(str(st.device))
     half = N_FULL_ROUNDS // 2
     for r in range(N_ROUNDS):
-        st = gl.add(st, rc[r][:, None])
+        st = gl.add_plain(st, rc[r][:, None])
         if half <= r < half + N_PARTIAL_ROUNDS:
             st = torch.cat([_sbox(st[:1]), st[1:]], 0)
         else:
@@ -284,9 +283,9 @@ def _sparse_on(device: str):
 
 def _dot(rows, st):
     """sum_i rows[..., i, 1] * st[i, N] over the field, term by term."""
-    acc = gl.mul(rows[..., 0, :], st[0])
+    acc = gl.mul_plain(rows[..., 0, :], st[0])
     for i in range(1, st.shape[0]):
-        acc = gl.add(acc, gl.mul(rows[..., i, :], st[i]))
+        acc = gl.add_plain(acc, gl.mul_plain(rows[..., i, :], st[i]))
     return acc
 
 
@@ -297,15 +296,15 @@ def _permute_sparse_cf(st: torch.Tensor) -> torch.Tensor:
     first, init, scalars, rows, cols = _sparse_on(str(st.device))
     half = N_FULL_ROUNDS // 2
     for r in range(half):
-        st = _mds_cf(_sbox(gl.add(st, rc[r][:, None])))
-    st = gl.add(st, first)
+        st = _mds_cf(_sbox(gl.add_plain(st, rc[r][:, None])))
+    st = gl.add_plain(st, first)
     st = torch.cat([st[:1], _dot(init, st[1:])], 0)
     for r in range(N_PARTIAL_ROUNDS):
-        s0 = gl.add(_sbox(st[0]), scalars[r])
+        s0 = gl.add_plain(_sbox(st[0]), scalars[r])
         st = torch.cat([_dot(rows[r], torch.cat([s0[None], st[1:]], 0))[None],
-                        gl.add(st[1:], gl.mul(cols[r], s0[None]))], 0)
+                        gl.add_plain(st[1:], gl.mul_plain(cols[r], s0[None]))], 0)
     for r in range(half + N_PARTIAL_ROUNDS, N_ROUNDS):
-        st = _mds_cf(_sbox(gl.add(st, rc[r][:, None])))
+        st = _mds_cf(_sbox(gl.add_plain(st, rc[r][:, None])))
     return st
 
 
@@ -343,7 +342,7 @@ def hash_no_pad(inputs: torch.Tensor) -> torch.Tensor:
     """
     batch, length = inputs.shape[:-1], inputs.shape[-1]
     x = inputs if inputs.dim() == 2 else inputs.reshape(-1, length)
-    if on_card(x):
+    if kernels.on_card(x):
         out = kernels.poseidon_sponge(x, kernel_constants())
     else:
         out = _hash_plain(x)
@@ -375,10 +374,51 @@ TAIL_MAX_PAIRS = 256
 def compress_tail(level: torch.Tensor, num_levels: int) -> list:
     """The next ``num_levels`` Merkle levels above ``level`` (2M, 4), as a list
     [(M, 4), (M/2, 4), ...].  On the card they come from one launch."""
-    if on_card(level):
+    if kernels.on_card(level):
         return kernels.merkle_tail(level, num_levels, kernel_constants())
     out = []
     for _ in range(num_levels):
         level = compress_level(level)
         out.append(level)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Host mirrors on Python integers (the transcript and the PoW check)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _host_tables() -> tuple:
+    """(round constants, MDS rows) as tuples of Python integers."""
+    return (tuple(int(c) for c in round_constants()), tuple(tuple(row) for row in mds_matrix()))
+
+
+def permute_host(state64: list) -> list:
+    """The permutation of one width-12 state, on Python integers."""
+    rc, m = _host_tables()
+    s = [x % P for x in state64]
+    half = N_FULL_ROUNDS // 2
+    for r in range(N_ROUNDS):
+        s = [(x + rc[r * WIDTH + i]) % P for i, x in enumerate(s)]
+        if half <= r < half + N_PARTIAL_ROUNDS:
+            s[0] = pow(s[0], 7, P)
+        else:
+            s = [pow(x, 7, P) for x in s]
+        s = [sum(c * x for c, x in zip(row, s)) % P for row in m]
+    return s
+
+
+def hash_no_pad_host(inputs: list) -> list:
+    """Host mirror of hash_no_pad (one input vector) -> 4-element digest."""
+    state = [0] * WIDTH
+    for start in range(0, len(inputs), SPONGE_RATE):
+        chunk = inputs[start : start + SPONGE_RATE]
+        state[: len(chunk)] = [x % P for x in chunk]
+        state = permute_host(state)
+    return state[:DIGEST_LEN]
+
+
+def compress_host(left: list, right: list) -> list:
+    """Host mirror of compress (two 4-element digests)."""
+    return permute_host(list(left) + list(right) + [0] * (WIDTH - 2 * DIGEST_LEN))[:DIGEST_LEN]

@@ -1,1 +1,1 @@
-"""The prover's commitment: Merkle trees and commitment batches."""
+"""The prover: commitments, prove(), FRI, the transcript and the proof's JSON form."""

@@ -126,3 +126,21 @@ def verify_merkle_batch(leaf_rows, indices, paths, cap) -> bool:
         digest = pos.compress(left, right)
         idx = idx >> 1
     return bool((digest == cap_t[idx]).all())
+
+
+def merkle_path(tree: MerkleTree, index: int) -> list:
+    """One index's host path, as a list of (4,) uint64 digests."""
+    _, paths = gather_rows_and_paths(tree, np.array([index], dtype=np.int64))
+    return list(gl.to_u64(paths)[0])
+
+
+def verify_merkle(leaf_values, index: int, path, cap) -> bool:
+    """Host check of one path on Python integers: ``leaf_values`` is the full
+    leaf row."""
+    digest = pos.hash_no_pad_host([int(v) for v in leaf_values])
+    idx = index
+    for sib in path:
+        sib = [int(v) for v in sib]
+        digest = pos.compress_host(sib, digest) if idx & 1 else pos.compress_host(digest, sib)
+        idx >>= 1
+    return digest == [int(v) for v in np.asarray(cap)[idx]]

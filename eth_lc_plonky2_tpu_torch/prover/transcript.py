@@ -1,0 +1,75 @@
+"""Fiat-Shamir transcript: Poseidon duplex challenger.
+
+Port of ``eth_lc_plonky2_tpu/prover/transcript.py``, the role of plonky2's
+`Challenger` in the prover (Fiat-Shamir -> beta, gamma; alpha; zeta):
+absorbs commitments/openings, squeezes field challenges.  Host-side
+scalar code (a transcript is a few dozen permutations); the duplex
+rule is this framework's own fixed spec:
+
+  * observe(x): push x to the input buffer; clear pending outputs
+  * squeeze: while input pending (or no outputs), absorb chunks of 8
+    by overwriting state[0..len(chunk)], permute, set outputs =
+    state[0..8] consumed left-to-right.
+"""
+
+from __future__ import annotations
+
+from ..ops import poseidon as pos
+from ..ops import goldilocks as gl
+
+P = gl.P
+
+
+class Challenger:
+    def __init__(self):
+        self.state = [0] * pos.WIDTH
+        self.input_buffer: list[int] = []
+        self.output_buffer: list[int] = []
+
+    # -- observe ---------------------------------------------------------
+
+    def observe(self, x: int):
+        self.output_buffer.clear()
+        self.input_buffer.append(int(x) % P)
+
+    def observe_many(self, xs):
+        for x in xs:
+            self.observe(x)
+
+    def observe_digest(self, digest4):
+        self.observe_many(digest4)
+
+    def observe_cap(self, cap):
+        """cap: iterable of 4-element digests."""
+        for d in cap:
+            self.observe_digest(d)
+
+    def observe_ext(self, x_ext):
+        self.observe(x_ext[0])
+        self.observe(x_ext[1])
+
+    # -- squeeze ---------------------------------------------------------
+
+    def _duplex(self):
+        if self.input_buffer:
+            for start in range(0, len(self.input_buffer), pos.SPONGE_RATE):
+                chunk = self.input_buffer[start : start + pos.SPONGE_RATE]
+                self.state[: len(chunk)] = chunk
+                self.state = pos.permute_host(self.state)
+            self.input_buffer.clear()
+        else:
+            self.state = pos.permute_host(self.state)
+        self.output_buffer = list(self.state[: pos.SPONGE_RATE])
+
+    def challenge(self) -> int:
+        if self.input_buffer or not self.output_buffer:
+            self._duplex()
+        return self.output_buffer.pop(0)
+
+    def challenges(self, n: int) -> list[int]:
+        return [self.challenge() for _ in range(n)]
+
+    def challenge_ext(self) -> tuple[int, int]:
+        a = self.challenge()
+        b = self.challenge()
+        return (a, b)

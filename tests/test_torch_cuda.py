@@ -79,3 +79,67 @@ def test_commitment_on_card_matches_cpu(dev):
     tree = merkle.build_merkle(vals[:16, :8].copy(), 2)
     assert tree.levels[0].device.type == dev
     assert np.array_equal(tree.cap, merkle.build_merkle(vals[:16, :8].copy(), 2, device="cpu").cap)
+
+
+FIELD_OPS = {"add": (gl.add, gl.add_plain), "sub": (gl.sub, gl.sub_plain),
+             "mul": (gl.mul, gl.mul_plain)}
+
+
+@pytest.mark.parametrize("op", sorted(FIELD_OPS))
+@pytest.mark.parametrize("n", [1, 1023, 1 << 16])
+def test_field_kernel_matches_plain(dev, op, n):
+    kernel, plain = FIELD_OPS[op]
+    a = gl.from_u64(_rand((6, n), n), dev)
+    b = gl.from_u64(_rand((6, n), n + 1), dev)
+    before = kernels.launches["field"]
+    pairs = [(a, b), (a, b[2, 0]), (a[0, 0], b), (a, b[:1]), (a, b[:, :1]), (a[:1], b[:, :1]),
+             (a, b[3]), (a[:, ::2], b[:, ::2]), (a[::2], b[1::2]),
+             (a.reshape(2, 3, n), b[:3, :1]), (a.T[:, :1], b.T[:, 1:2])]
+    launched = 0
+    for u, v in pairs:
+        out = kernel(u, v)
+        assert torch.equal(out, plain(u, v))
+        launched += out.numel() > 0  # an empty result (n = 1, odd columns) needs no launch
+    assert kernels.launches["field"] == before + launched
+
+
+def test_field_inverse_and_edge_words(dev):
+    p = gl.P
+    edge = np.array([0, 1, 2, p - 1, p - 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1, 1 << 63,
+                     (1 << 63) - 1, p >> 1, (p >> 1) + 1, 0xFFFF_FFFF_0000_0000], dtype=np.uint64)
+    ea = gl.from_u64(np.repeat(edge, len(edge)), dev)
+    eb = gl.from_u64(np.tile(edge, len(edge)), dev)
+    for kernel, plain in FIELD_OPS.values():
+        assert torch.equal(kernel(ea, eb), plain(ea, eb))
+    x = gl.from_u64(np.concatenate([edge, _rand((4096,), 3)]), dev)
+    inv = gl.inv(x)
+    assert torch.equal(inv, gl.inv_plain(x))
+    assert torch.equal(gl.mul(inv, x), (x != 0).to(torch.int64))
+    assert torch.equal(gl.neg(x), gl.sub_plain(torch.zeros_like(x), x))
+    assert torch.equal(gl.mul_small(x, 7), gl.mul_plain(x, torch.full_like(x, 7)))
+    with pytest.raises(ValueError):
+        gl.mul(x, x.cpu())  # a CUDA tensor never falls back to the plain version
+
+
+def test_dryrun_proof_on_card_matches_reference(dev):
+    import json
+    import os
+
+    import chip_smoke
+
+    data, witness = chip_smoke.dryrun_circuit()
+    pd, vk = prove.preprocess(data)  # the card is the default
+    assert pd.device.type == dev
+    before = dict(kernels.launches)
+    got = chip_smoke.proof_dict(prove.prove(pd, witness))
+    assert all(kernels.launches[k] > before[k] for k in before)
+    with open(os.path.join(chip_smoke.REPO, "assets", "dryrun", "ref_proof.json")) as f:
+        assert chip_smoke.first_difference(got, json.load(f)) is None
+    from unittest import mock
+
+    before = dict(kernels.launches)
+    with mock.patch.object(kernels, "on_card", lambda t: False):  # plain versions on the card
+        plain_pd = prove.ProverData(data=data, pre_values=pd.pre_values, pre_batch=pd.pre_batch,
+                                    dev=pd.dev)
+        assert chip_smoke.proof_dict(prove.prove(plain_pd, witness)) == got
+    assert kernels.launches == before
