@@ -5,7 +5,7 @@
 
 Phases (any mismatch or exception exits non-zero without the ok line):
   0. device facts: card name and power limit, torch, nvcc, GPU count;
-  1. build the three kernel sources of eth_lc_plonky2_tpu_torch/csrc with
+  1. build the four kernel sources of eth_lc_plonky2_tpu_torch/csrc with
      nvcc (sm_90a), side by side;
   2. each kernel against its plain PyTorch version on the card, bit for bit:
      the NTT (forward, inverse, coset; the LDE reads its coefficients without
@@ -38,17 +38,36 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      the 80 routed columns.  The tables and a satisfying witness are written
      directly with numpy from --seed.  preprocess, a first prove (launch counts
      and peak memory), a warm-up, three timed proves, the phases' times, a
-     torch.profiler split by kernel name with the idle share, and the checks:
-     the final polynomial's degree (inside fri_prove), every query's Merkle
-     paths against their caps, the PoW witness, the public inputs.  The same
-     circuit at 2^12 rows is proved on the kernels and on the plain versions,
-     both on the card, and the two proofs must be equal.
+     torch.profiler split by kernel name with the idle share, and the port's
+     verifier on the proof (every challenge re-derived, the constraint identity
+     at zeta, all Merkle paths, FRI's folds, the final polynomial, the PoW).
+     The same circuit at 2^12 rows is proved on the kernels and on the plain
+     versions, both on the card, and the two proofs must be equal;
+  7. a light-client-shaped circuit built with the port's own CircuitBuilder at the
+     same widths: the SHA-256 Merkle root of 1,024 seeded leaves (1,023
+     two-to-one hashes, 139,128 SHA-256 segment rows and their feed-forward
+     adds), the root as public inputs, and a chain of 16,000 Poseidon
+     permutation rows: about 166,300 of 2^18 rows, neighbour-row offsets down
+     to -16 and so 12 opening points.  Each gate kernel of csrc/gates.cu is
+     held against the generic eval loop on the plain ops (random field words,
+     edge words, n_lde 2^7, 2^12, 2^15) and, at (184, 2^21), against the
+     generic loop on the plain ops and on csrc/field.cu, with its time and
+     bound; the
+     circuit family at 2^12 rows is proved on the kernels and on the plain
+     versions; the 2^18-row proof is made, timed, traced and verified as in
+     phase 6, its public inputs must be hashlib's root and the host's Poseidon
+     chain, proofs from a forged SHA-256 bit wire and from a forged Poseidon
+     s-box output must be rejected, the launches must be the plan's (one of
+     csrc/gates.cu a gate), and the quotient phase is timed once more with the
+     gates on the generic loop (the proof must not change).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on the main path, its error against the plain
 version, and its time beside the plain version's and beside the least time
 the card could take (bound_ms: the larger of bytes over 3.35 TB/s and 32-bit
 integer multiply-adds, counted in the cheapest form known, over 16.75 T/s).
-No PyTorch call computes any of the three functions, so library_ms is null.
+The launches are phase 7's first prove; the gates entry adds up its two
+kernels (one launch each a proof) and lists each under by_kernel.  No PyTorch
+call computes any of these functions, so library_ms is null.
 
 It needs a CUDA device, and no JAX: the port imports neither jax nor the JAX
 package.
@@ -138,7 +157,7 @@ class Checker:
     """Collects each kernel's largest error against its plain version."""
 
     def __init__(self):
-        self.err = {"ntt": 0.0, "poseidon": 0.0, "field": 0.0}
+        self.err = {"ntt": 0.0, "poseidon": 0.0, "field": 0.0, "gates": 0.0}
 
     def same(self, kernel: str, got, want, what: str) -> None:
         e = u64_err(got, want)
@@ -762,15 +781,16 @@ def first_difference(got, want, path="proof"):
     return None if got == want else path
 
 
-def prove_kernels_and_plain(torch, pd, witness, what: str) -> dict:
-    """Prove once on the kernels and once on the plain versions, both on the
-    card; the two proofs must be equal.  Returns the proof's dict."""
+def prove_kernels_and_plain(torch, pd, witness, what: str, sources: tuple) -> dict:
+    """Prove once on the kernels (each of ``sources`` must launch) and once on
+    the plain versions, both on the card; the two proofs must be equal.
+    Returns the proof's dict."""
     from eth_lc_plonky2_tpu_torch.ops import kernels
     from eth_lc_plonky2_tpu_torch.prover import prove
 
     before = dict(kernels.launches)
     on_kernels = proof_dict(prove.prove(pd, witness))
-    if min(kernels.launches[k] - before[k] for k in before) <= 0:
+    if min(kernels.launches[k] - before[k] for k in sources) <= 0:
         fail(f"{what}: the proof on the kernels missed a kernel: {kernels.launches} after {before}")
     before = dict(kernels.launches)
     t0 = time.perf_counter()
@@ -802,7 +822,8 @@ def phase5(torch) -> None:
         fail("dryrun circuit: the preprocessed cap differs from assets/dryrun/pre.npz")
     if pd.device.type != "cuda":
         fail(f"dryrun circuit: preprocess left its data on {pd.device}")
-    got = prove_kernels_and_plain(torch, pd, witness, "[5] dryrun circuit")
+    got = prove_kernels_and_plain(torch, pd, witness, "[5] dryrun circuit",
+                                  ("ntt", "poseidon", "field"))
     with open(os.path.join(REPO, "assets", "dryrun", "ref_proof.json")) as f:
         want = json.load(f)
     if (where := first_difference(got, want)):
@@ -828,172 +849,64 @@ def tree_launches(num_leaves: int, cap_height: int) -> int:
     return count
 
 
-def check_identity_at_zeta(data, proof, betas, gammas, alphas, zeta, what: str) -> None:
-    """The opened values must satisfy, for each challenge set, sum_i alpha^i *
-    term_i(zeta) == Z_H(zeta) * sum_k zeta^(n k) * q_k(zeta): permutation terms,
-    public inputs, then the selector-weighted gate constraints.  This is what
-    shows that the witness satisfied the circuit and that the quotient is the
-    right one: the quotient is interpolated over the whole LDE domain, so FRI's
-    degree check passes for any witness."""
-    from eth_lc_plonky2_tpu_torch.circuit.algebra import HostExtAlgebra
-    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, goldilocks_ext as ge
-
-    cfg = data.config
-    n, m, cs, rate = data.n, cfg.num_permutation_chunks, cfg.permutation_chunk_size, cfg.rate_bits
-    num_sel, num_con = len(data.gate_names), cfg.num_constants
-    openings = proof.openings.values
-    ext = lambda row: (int(row[0]), int(row[1]))  # noqa: E731
-    p_open, z_open, z_next_open, q_open = (openings[k] for k in (("P", 0), ("Z", 0), ("Z", 1), ("Q", 0)))
-    A = HostExtAlgebra()
-
-    def wires(col, offset=0):
-        return ext(openings[("W", offset)][col])
-
-    def consts(i):
-        return ext(p_open[num_sel + i])
-
-    gate_slots = [A.zero()] * max((g.num_constraints for g in data.gates), default=0)
-    for gi, g in enumerate(data.gates):
-        for k, cval in enumerate(g.eval(A, wires, consts)):
-            gate_slots[k] = A.add(gate_slots[k], A.mul(ext(p_open[gi]), cval))
-    zeta_n = ge.h_pow(zeta, n)
-    zh = ge.h_sub(zeta_n, (1, 0))
-    n_inv = gl.h_inv(n)
-    omega = gl.primitive_root_of_unity(data.log_n)
-    l0 = ge.h_mul(zh, ge.h_mul(ge.h_inv(ge.h_sub(zeta, (1, 0))), (n_inv, 0)))
-    pi_terms = []
-    for (r, c), piv in zip(data.public_input_targets, proof.public_inputs):
-        wr = pow(omega, r, gl.P)
-        lr = ge.h_mul(zh, ge.h_mul(ge.h_inv(ge.h_sub(zeta, (wr, 0))), ((wr * n_inv) % gl.P, 0)))
-        pi_terms.append(ge.h_mul(lr, ge.h_sub(wires(c), (int(piv) % gl.P, 0))))
-    for j in range(cfg.num_challenges):
-        chain = [ext(z_open[j * m + k]) for k in range(m)] + [ext(z_next_open[j * m])]
-        terms = [ge.h_mul(l0, ge.h_sub(chain[0], (1, 0)))]
-        for k in range(m):
-            acc_n = acc_d = (1, 0)
-            for c in range(k * cs, (k + 1) * cs):
-                idv = ge.h_mul((int(data.k_shifts[c]), 0), zeta)
-                sig = ext(p_open[num_sel + num_con + c])
-                acc_n = ge.h_mul(acc_n, ge.h_add(ge.h_add(wires(c), ge.h_mul((betas[j], 0), idv)),
-                                                 (gammas[j], 0)))
-                acc_d = ge.h_mul(acc_d, ge.h_add(ge.h_add(wires(c), ge.h_mul((betas[j], 0), sig)),
-                                                 (gammas[j], 0)))
-            terms.append(ge.h_sub(ge.h_mul(chain[k + 1], acc_d), ge.h_mul(chain[k], acc_n)))
-        combined = (0, 0)
-        for t in reversed(terms + pi_terms + gate_slots):
-            combined = ge.h_add(ge.h_mul(combined, (alphas[j], 0)), t)
-        tq, zpow = (0, 0), (1, 0)
-        for k in range(1 << rate):
-            tq = ge.h_add(tq, ge.h_mul(zpow, ext(q_open[(j << rate) + k])))
-            zpow = ge.h_mul(zpow, zeta_n)
-        if combined != ge.h_mul(zh, tq):
-            fail(f"{what}: the constraint identity fails at zeta (challenge set {j})")
-
-
 def check_proof(data, vk, proof, witness, what: str) -> None:
-    """What a run can check of a proof before the verifier is ported: the
-    constraint identity at zeta, every query's Merkle paths against their
-    caps, the PoW witness, the query indices, the public inputs."""
-    from eth_lc_plonky2_tpu_torch.prover import fri, merkle, prove
-    from eth_lc_plonky2_tpu_torch.prover.transcript import Challenger
+    """The port's verifier must accept the proof (every challenge re-derived,
+    the constraint identity at zeta, every query's Merkle paths, FRI's folds,
+    the final polynomial, the PoW), and the public inputs must be the
+    witness's."""
+    from eth_lc_plonky2_tpu_torch.prover.verify import VerificationError, verify
 
-    fp = proof.fri_proof
-    cfg = data.config
-    n_lde = data.n << cfg.rate_bits
-    idx = np.array(fp.query_indices, dtype=np.int64)
-    caps = {"P": vk.pre_cap, "W": proof.wires_cap, "Z": proof.zs_cap, "Q": proof.quotient_cap}
-    for tag, cap in caps.items():
-        rows = np.stack([qp.batch_leaves[tag] for qp in fp.query_proofs])
-        paths = np.stack([np.stack(qp.batch_paths[tag]) for qp in fp.query_proofs])
-        if paths.shape[1:] != (data.log_n + cfg.rate_bits - cfg.cap_height, 4):
-            fail(f"{what}: {tag} paths of shape {paths.shape}")
-        if not merkle.verify_merkle_batch(rows, idx, paths, cap):
-            fail(f"{what}: a {tag} query path does not verify against its cap")
-    cur, size = idx, n_lde
-    for layer, cap in enumerate(fp.layer_caps):
-        size //= 2
-        cur = cur % size
-        rows = np.stack([qp.layer_leaves[layer] for qp in fp.query_proofs])
-        paths = np.stack([np.asarray(qp.layer_paths[layer], dtype=np.uint64).reshape(-1, 4)
-                          for qp in fp.query_proofs])
-        if not merkle.verify_merkle_batch(rows, cur, paths, cap):
-            fail(f"{what}: a FRI layer {layer} query path does not verify against its cap")
-    # replay the transcript up to the PoW challenge
-    ch = Challenger()
-    ch.observe_cap(vk.pre_cap)
-    ch.observe_many([int(v) for v in proof.public_inputs])
-    ch.observe_cap(proof.wires_cap)
-    betas_gammas = ch.challenges(2 * cfg.num_challenges)
-    ch.observe_cap(proof.zs_cap)
-    alphas = ch.challenges(cfg.num_challenges)
-    ch.observe_cap(proof.quotient_cap)
-    zeta = ch.challenge_ext()
-    check_identity_at_zeta(data, proof, betas_gammas[0::2], betas_gammas[1::2], alphas, zeta, what)
-    for spec in prove.opening_point_specs(data):
-        for row in proof.openings.values[spec]:
-            ch.observe_ext(row)
-    ch.challenge_ext()
-    for cap in fp.layer_caps:
-        ch.observe_cap(cap)
-        ch.challenge_ext()
-    for coeff in fp.final_poly:
-        ch.observe_ext(coeff)
-    if not fri.verify_pow(ch.challenge(), fp.pow_witness, cfg.fri.proof_of_work_bits):
-        fail(f"{what}: the PoW witness {fp.pow_witness} does not verify")
-    ch.observe(fp.pow_witness)
-    if [ch.challenge() % n_lde for _ in range(cfg.fri.num_query_rounds)] != list(fp.query_indices):
-        fail(f"{what}: the query indices are not the transcript's")
+    t0 = time.perf_counter()
+    try:
+        verify(data, vk, proof)
+    except VerificationError as e:
+        fail(f"{what}: the verifier rejects the proof: {e}")
     want_pi = [witness.get(t) for t in data.public_input_targets]
     if [int(v) for v in proof.public_inputs] != want_pi or not want_pi:
         fail(f"{what}: public inputs {proof.public_inputs} are not the witness's {want_pi}")
-    if len(fp.layer_caps) != max(0, data.log_n - cfg.fri.final_poly_bits):
-        fail(f"{what}: {len(fp.layer_caps)} FRI layers")
-    log(f"{what}: the constraint identity holds at zeta for {cfg.num_challenges} challenge sets; "
-        f"{len(idx)} queries x (4 batch trees + {len(fp.layer_caps)} FRI layers) verify "
-        f"against their caps; PoW witness {fp.pow_witness} and the query indices are the "
-        f"transcript's; public inputs == the witness's")
+    fp = proof.fri_proof
+    log(f"{what}: verify() accepts the proof in {time.perf_counter() - t0:.2f} s on the host "
+        f"({len(fp.query_indices)} queries x (4 batch trees + {len(fp.layer_caps)} FRI layers), "
+        f"{len(proof.openings.values)} opening points, PoW witness {fp.pow_witness}); public "
+        f"inputs == the witness's")
 
 
-def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
+BY_SOURCE = {"ntt_pass_kernel": "ntt", "sponge_kernel": "poseidon",
+             "merkle_level_kernel": "poseidon", "merkle_tail_kernel": "poseidon",
+             "field_binary_kernel": "field", "field_inv_kernel": "field",
+             "sha_gate_quotient_kernel": "gates", "poseidon_gate_quotient_kernel": "gates"}
+
+
+def launch_plan(data, pow_witness: int, field: int, gates: int) -> dict:
+    """The launches of one steady prove at this script's widths (184 wires, 20 Z
+    and 16 quotient polynomials): three commitments, the quotients' inverse
+    transform (a four-step at 2^21) and the final polynomial's (one pass);
+    three trees, a tree a FRI layer, a grind batch up to the witness; the
+    circuit's eager field ops and its gates' own kernels."""
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    cfg = data.config
+    n_lde = data.n << cfg.rate_bits
+    chunks = [-(-rows // prove._COMMIT_CHUNK) for rows in (NUM_WIRES, NUM_Z, NUM_QUOTIENT)]
+    plan_ntt = 2 * (2 * chunks[0] + 2 * chunks[1] + chunks[2]) + 2 + 1
+    grind_batch = 1 << min(20, cfg.fri.proof_of_work_bits + 3)
+    layers = data.log_n - cfg.fri.final_poly_bits
+    plan_sponge = (3 * tree_launches(n_lde, cfg.cap_height)
+                   + sum(tree_launches(n_lde >> (k + 1), 4) for k in range(layers))
+                   + pow_witness // grind_batch + 1)
+    return {"ntt": plan_ntt, "poseidon": plan_sponge, "field": field, "gates": gates}
+
+
+def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_plan: int,
+                  gates_plan: int, free_runs: int) -> dict:
+    """A warm-up, three timed proves with the phase marks (and ``free_runs``
+    without), a steady prove whose launches must be the plan's, and a scheduled
+    trace split by kernel name whose launches must be the wrappers' counts."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, kernels
+    from eth_lc_plonky2_tpu_torch.ops import kernels
     from eth_lc_plonky2_tpu_torch.prover import prove
     from eth_lc_plonky2_tpu_torch.prover.profiler import Profiler
-
-    # the same circuit at 2^12 rows: kernels against plain versions, whole proofs
-    small, small_w = flagship_circuit(12, seed)
-    small_pd, small_vk = prove.preprocess(small)
-    prove_kernels_and_plain(torch, small_pd, small_w, "[6] flagship shape at 2^12 rows")
-    check_proof(small, small_vk, prove.prove(small_pd, small_w), small_w, "[6] 2^12 rows")
-    del small_pd
-
-    t0 = time.perf_counter()
-    data, witness = flagship_circuit(LOG_N, seed)
-    cfg = data.config
-    log(f"[6] circuit tables and witness in {time.perf_counter() - t0:.1f} s: {cfg.num_wires} wires, "
-        f"2^{data.log_n} rows, {data.num_rows_used} used, gates {data.gate_names}, "
-        f"{len(data.public_input_targets)} public inputs")
-    t0 = time.perf_counter()
-    pd, vk = prove.preprocess(data)
-    torch.cuda.synchronize()
-    log(f"[6] preprocess ({pd.pre_values.shape[0]} polys) in {time.perf_counter() - t0:.3f} s")
-
-    # the main path: one proof, counts set to 0 just before and read just after
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    proof = prove.prove(pd, witness)
-    torch.cuda.synchronize()
-    launched = dict(kernels.launches)
-    first_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[6] first prove (makes the per-circuit tables) in {first_s:.3f} s, launches {launched}, "
-        f"peak memory {peak_gb:.2f} GB [{card}]")
-    for name, count in launched.items():
-        if count <= 0:
-            fail(f"the main path never launched the {name} kernel")
-    check_proof(data, vk, proof, witness, "[6] 2^18 rows")
 
     prove.prove(pd, witness)  # warm-up: every table is cached now
     runs, phases, proofs = [], [], []
@@ -1006,25 +919,26 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
         runs.append(time.perf_counter() - t0)
         phases.append(prof.times)
     prove_ms = statistics.median(runs) * 1e3
-    log(f"[6] prove: median {prove_ms:.2f} ms of {len(runs)} "
+    log(f"{tag} prove: median {prove_ms:.2f} ms of {len(runs)} "
         f"({', '.join(f'{r * 1e3:.2f}' for r in runs)}), each phase ending in a synchronize "
         f"[{card}]")
     runs_free = []
-    for _ in range(3):
+    for _ in range(free_runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         prove.prove(pd, witness, prof=Profiler(enabled=False))
         torch.cuda.synchronize()
         runs_free.append(time.perf_counter() - t0)
-    log(f"[6] prove without the phase marks: median {statistics.median(runs_free) * 1e3:.2f} ms of "
-        f"{len(runs_free)} ({', '.join(f'{r * 1e3:.2f}' for r in runs_free)}) [{card}]")
-    want = proof_dict(proof)
+    if runs_free:
+        log(f"{tag} prove without the phase marks: median {statistics.median(runs_free) * 1e3:.2f} "
+            f"ms of {len(runs_free)} ({', '.join(f'{r * 1e3:.2f}' for r in runs_free)}) [{card}]")
+    want = proof_dict(first_proof)
     for p in proofs:
         if (where := first_difference(proof_dict(p), want)):
             fail(f"two proofs of one witness differ at {where}")
     phase_ms = {name: statistics.median(ph[name] for ph in phases) * 1e3 for name in phases[0]}
     for name, ms in sorted(phase_ms.items(), key=lambda kv: -kv[1]):
-        log(f"[6] phase {name}: {ms:.3f} ms (median of {len(phases)}) [{card}]")
+        log(f"{tag} phase {name}: {ms:.3f} ms (median of {len(phases)}) [{card}]")
 
     # a steady-state prove with the count of launches, and the peak memory
     torch.cuda.reset_peak_memory_stats()
@@ -1033,22 +947,14 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     torch.cuda.synchronize()
     steady = dict(kernels.launches)
     steady_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_lde = data.n << cfg.rate_bits
-    commit_chunks = [-(-rows // prove._COMMIT_CHUNK) for rows in (NUM_WIRES, NUM_Z, NUM_QUOTIENT)]
-    plan_ntt = (2 * (2 * commit_chunks[0] + 2 * commit_chunks[1] + commit_chunks[2])
-                + 2   # the quotients' coset_intt at 2^21: a four-step
-                + 1)  # FRI's final polynomial at 2^8: one pass
-    grind_batch = 1 << min(20, cfg.fri.proof_of_work_bits + 3)
-    layers = data.log_n - cfg.fri.final_poly_bits
-    plan_sponge = (3 * tree_launches(n_lde, cfg.cap_height)
-                   + sum(tree_launches(n_lde >> (k + 1), 4) for k in range(layers))
-                   + proof.fri_proof.pow_witness // grind_batch + 1)
-    plan = {"ntt": plan_ntt, "poseidon": plan_sponge, "field": STEADY_FIELD_LAUNCHES}
+    plan = launch_plan(pd.data, first_proof.fri_proof.pow_witness, field_plan, gates_plan)
     if steady != plan:
-        fail(f"a steady prove launched {steady}, the plan is {plan}")
-    log(f"[6] a steady prove launches {steady} (as planned: three commitments, "
-        f"the quotient's and the final polynomial's inverse transforms; three trees, {layers} "
-        f"FRI layer trees, the grind; the eager field ops of this circuit), peak memory {steady_peak_gb:.2f} GB [{card}]")
+        fail(f"{tag} a steady prove launched {steady}, the plan is {plan}")
+    log(f"{tag} a steady prove launches {steady} (as planned: three commitments, the quotient's "
+        f"and the final polynomial's inverse transforms; three trees, "
+        f"{pd.data.log_n - pd.data.config.fri.final_poly_bits} FRI layer trees, the grind; the eager "
+        f"field ops of this circuit; a launch a gate that has its own kernel), peak memory "
+        f"{steady_peak_gb:.2f} GB [{card}]")
 
     # Device time by kernel name, and the idle share of the window.  A trace
     # that starts cold can lose the first device records after a long host
@@ -1057,9 +963,6 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     # discarded before the active one.  A trace whose launches are not the
     # wrappers' counts is incomplete: it is taken again, at most three times,
     # and the profile's line says how many were discarded.
-    by_source = {"ntt_pass_kernel": "ntt", "sponge_kernel": "poseidon",
-                 "merkle_level_kernel": "poseidon", "merkle_tail_kernel": "poseidon",
-                 "field_binary_kernel": "field", "field_inv_kernel": "field"}
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as tprof:
@@ -1080,24 +983,77 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
                 entry["ms"] += ev.self_device_time_total / 1e3
                 entry["launches"] += ev.count
         seen = dict.fromkeys(steady, 0)
-        for name, source in by_source.items():
+        for name, source in BY_SOURCE.items():
             seen[source] += by_name.get(name, {}).get("launches", 0)
         if seen == steady:
             break
-        log(f"[6] trace {attempt + 1} shows launches {seen}, the wrappers counted {steady}")
+        log(f"{tag} trace {attempt + 1} shows launches {seen}, the wrappers counted {steady}")
     else:
         fail(f"three traces in a row lost records: {seen} against {steady}")
     busy_ms = sum(v["ms"] for v in by_name.values())
     for name, v in sorted(by_name.items(), key=lambda kv: -kv[1]["ms"]):
-        log(f"[6] profile, one prove: {name}: {v['ms']:.3f} ms in {v['launches']} launches [{card}]")
-    log(f"[6] profile: busy {busy_ms:.3f} ms of a {window_ms:.3f} ms window, idle share "
+        log(f"{tag} profile, one prove: {name}: {v['ms']:.3f} ms in {v['launches']} launches [{card}]")
+    log(f"{tag} profile: busy {busy_ms:.3f} ms of a {window_ms:.3f} ms window, idle share "
         f"{1 - busy_ms / window_ms:.3f}, one trace's reading, {attempt} incomplete traces "
         f"discarded before it [{card}]")
-    inv_plan = cfg.num_challenges + 1  # a (m, n) batch a challenge set, and the G kernel's norms
+    inv_plan = pd.data.config.num_challenges + 1  # a (m, n) batch a challenge set, and the G kernel's norms
     if by_name.get("field_inv_kernel", {}).get("launches", 0) != inv_plan:
         fail(f"the profile shows {by_name.get('field_inv_kernel')} inversions, the plan is {inv_plan}")
-    log(f"[6] the profile's launches by kernel source == the wrappers' counts {steady}; "
+    log(f"{tag} the profile's launches by kernel source == the wrappers' counts {steady}; "
         f"{inv_plan} batched inversions as planned")
+    return {"prove_ms": prove_ms, "phase_ms": phase_ms, "by_name": by_name}
+
+
+def first_prove(torch, tag: str, pd, witness, card: str, sources: tuple):
+    """The main path: one proof, counts set to 0 just before and read just after."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    proof = prove.prove(pd, witness)
+    torch.cuda.synchronize()
+    launched = dict(kernels.launches)
+    first_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag} first prove (makes the per-circuit tables) in {first_s:.3f} s, launches {launched}, "
+        f"peak memory {peak_gb:.2f} GB [{card}]")
+    for name in sources:
+        if launched[name] <= 0:
+            fail(f"{tag} the main path never launched the {name} kernel")
+    return proof, launched
+
+
+def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    # the same circuit at 2^12 rows: kernels against plain versions, whole proofs
+    small, small_w = flagship_circuit(12, seed)
+    small_pd, small_vk = prove.preprocess(small)
+    prove_kernels_and_plain(torch, small_pd, small_w, "[6] flagship shape at 2^12 rows",
+                            ("ntt", "poseidon", "field"))
+    check_proof(small, small_vk, prove.prove(small_pd, small_w), small_w, "[6] 2^12 rows")
+    del small_pd
+
+    t0 = time.perf_counter()
+    data, witness = flagship_circuit(LOG_N, seed)
+    cfg = data.config
+    log(f"[6] circuit tables and witness in {time.perf_counter() - t0:.1f} s: {cfg.num_wires} wires, "
+        f"2^{data.log_n} rows, {data.num_rows_used} used, gates {data.gate_names}, "
+        f"{len(data.public_input_targets)} public inputs")
+    t0 = time.perf_counter()
+    pd, vk = prove.preprocess(data)
+    torch.cuda.synchronize()
+    log(f"[6] preprocess ({pd.pre_values.shape[0]} polys) in {time.perf_counter() - t0:.3f} s")
+    proof, launched = first_prove(torch, "[6]", pd, witness, card, ("ntt", "poseidon", "field"))
+    if launched["gates"] != 0:
+        fail(f"[6] a circuit of generic gates launched a gate kernel: {launched}")
+    check_proof(data, vk, proof, witness, "[6] 2^18 rows")
+    res = profile_prove(torch, "[6]", pd, witness, proof, card, STEADY_FIELD_LAUNCHES, 0,
+                        free_runs=1)
+    n_lde = data.n << cfg.rate_bits
 
     # the field kernel beside its plain version at a main-path shape: one
     # permutation chunk (8, 2^21) times another
@@ -1122,9 +1078,317 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
         f"({field_bound[0] / field_ms:.1%} of the kernel's time); add {add_ms:.3f} ms; mul by a "
         f"row (2^21,) {row_ms:.3f} ms; inv (5, 2^21) {inv_ms:.3f} ms against a bound of "
         f"{inv_bound_ms:.4f} ms by operations (72 products a word) [{card}]")
-    return {"launches": launched, "prove_ms": prove_ms, "phase_ms": phase_ms,
+    return {"launches": launched, "prove_ms": res["prove_ms"], "phase_ms": res["phase_ms"],
             "field": (field_ms, field_plain_ms, *field_bound)}
 
+
+# ---------------------------------------------------------------------------
+# Phase 7: a light-client-shaped circuit of SHA-256 and Poseidon rows
+# ---------------------------------------------------------------------------
+
+MERKLE_HEIGHT = 10  # 1,024 leaves: 1,023 two-to-one hashes, 2,046 compressions
+POSEIDON_CHAIN_ROWS = 16_000
+GATE_SIZES = (1 << 7, 1 << 12, 1 << 15)
+# csrc/field.cu launches of one steady prove of phase 7's circuit (12 opening
+# points, gates arith, basesum2, const and noop on the generic loop).
+LC_STEADY_FIELD_LAUNCHES = 5187
+
+# 32 x 32 multiply-adds a column of each gate, two challenges, each polynomial
+# in the cheapest form known (which is also csrc/gates.cu's): a field product
+# is 4, its reduction one more; a multiply-accumulate into the 96-bit column
+# sums is 4.
+# SHA-256: xor3 = xor2(xor2(x, y), z) is 2 products and xor2 one (S1, S0: 32
+# xor3 each; s1: 22 xor3 + 10 xor2; s0: 29 + 3), ch = g + e (f - g) one x 32,
+# maj = ab + c (a + b - 2 ab) 2 x 32, the booleanity squares 96, the carries'
+# 2^32 3, the range products 15, the masks 6 and one a challenge, the selector
+# one a challenge; 105 multiply-accumulates a challenge, four sums reduced.
+SHA_GATE_PRODUCTS = (2 * 32 * 2 + (22 * 2 + 10) + (29 * 2 + 3) + 32 + 2 * 32 + 96 + 3 + 15
+                     + 6 + 2 + 2)
+SHA_GATE_MADS = SHA_GATE_PRODUCTS * 5 + 2 * 105 * 4 + 4
+# Poseidon: 118 x^7 of 4 products, 30 dense layers of 12 x (12 x 2) small
+# products, 2 for the diagonal entry and a reduction a row; 130
+# multiply-accumulates a challenge; the selector.
+POSEIDON_GATE_MADS = 118 * 4 * 5 + 30 * (12 * 12 * 2 + 2 + 12) + 2 * 130 * 4 + 2 + 2 * 5
+
+
+def light_client_circuit(height: int, chain_rows: int, seed: int):
+    """A circuit of the light-client circuit's two row kinds, built with the
+    port's own CircuitBuilder at CircuitConfig(num_wires=184): the SHA-256 Merkle root
+    of 2^height 32-byte leaves (2^height - 1 two-to-one hashes of two 68-row
+    compression segments each, and their feed-forward adds), the root as public
+    inputs, then a chain of ``chain_rows`` Poseidon permutation rows whose last
+    state's first four words are public inputs.  Leaves and the chain's first
+    state come from ``seed``.  Returns (data, witness, leaves, first state)."""
+    from eth_lc_plonky2_tpu_torch.circuit import gadgets_merkle as gm, gates_poseidon as gp
+    from eth_lc_plonky2_tpu_torch.circuit.builder import CircuitBuilder
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
+    from eth_lc_plonky2_tpu_torch.prover.config import CircuitConfig
+
+    rng = np.random.default_rng(seed)
+    b = CircuitBuilder(CircuitConfig(num_wires=NUM_WIRES))
+    tree = gm.add_virtual_merkle_tree_sha256(b, height)
+    b.register_public_inputs(tree.root)
+    first = b.add_virtual_targets(12)
+    state = first
+    for _ in range(chain_rows):
+        state = gp.add_poseidon_permutations(b, [state])[0]
+    b.register_public_inputs(state[:4])
+    data = b.build()
+    witness = data.new_witness()
+    leaves = [bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(1 << height)]
+    gm.set_partial_merkle_tree_sha256_target(witness, leaves, tree)
+    first_state = [int(v) for v in rng.integers(0, gl.P, size=12, dtype=np.uint64)]
+    for t, v in zip(first, first_state):
+        witness.set(t, v)
+    witness.generate()
+    return data, witness, leaves, first_state
+
+
+def check_light_client_outputs(proof, leaves, first_state, chain_rows: int, what: str) -> None:
+    """The public inputs are the leaves' SHA-256 Merkle root (hashlib) and the
+    first four words of the Poseidon chain's last state (the host permutation)."""
+    import hashlib
+
+    from eth_lc_plonky2_tpu_torch.ops import poseidon as pos, sha256 as sha
+
+    layer = list(leaves)
+    while len(layer) > 1:
+        layer = [hashlib.sha256(layer[i] + layer[i + 1]).digest() for i in range(0, len(layer), 2)]
+    pis = [int(v) for v in proof.public_inputs]
+    if sha.bytes_from_words(np.array(pis[:8], dtype=np.uint32)) != layer[0] or max(pis[:8]) >> 32:
+        fail(f"{what}: the proof's root is not hashlib's SHA-256 Merkle root")
+    state = list(first_state)
+    for _ in range(chain_rows):
+        state = pos.permute_host(state)
+    if pis[8:] != state[:4]:
+        fail(f"{what}: the Poseidon chain's public inputs are not the host permutation's")
+    log(f"{what}: public inputs == hashlib's SHA-256 Merkle root of {len(leaves)} leaves and the "
+        f"host's Poseidon chain of {chain_rows} permutations")
+
+
+def gate_inputs(rng, n_lde: int, num_constraints: int) -> tuple:
+    """Random field words for a gate's quotient share (not only bits), with the
+    edge words 0, 1, p - 1, 2^32 - 1, 2^32 in the first and last columns:
+    (wires (184, n_lde), constant rows (4, n_lde), selector, alpha rows,
+    accumulators: two challenges), on the card."""
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
+
+    edge = np.array([0, 1, gl.P - 1, (1 << 32) - 1, 1 << 32], dtype=np.uint64)
+    wires = rng.integers(0, gl.P, size=(NUM_WIRES, n_lde), dtype=np.uint64)
+    wires[:, : len(edge)] = edge
+    wires[::3, n_lde - len(edge):] = edge[::-1]
+    dev = lambda a: gl.from_u64(a, DEVICE)  # noqa: E731
+    return (dev(wires), dev(rng.integers(0, gl.P, size=(4, n_lde), dtype=np.uint64)),
+            dev(rng.integers(0, gl.P, size=(n_lde,), dtype=np.uint64)),
+            [dev(rng.integers(0, gl.P, size=(num_constraints,), dtype=np.uint64)) for _ in range(2)],
+            [dev(rng.integers(0, gl.P, size=(n_lde,), dtype=np.uint64)) for _ in range(2)])
+
+
+def gate_generic(gate, inputs, rate_bits: int, plain: bool) -> list:
+    """The generic loop over ``gate.eval`` on the card: on csrc/field.cu, or
+    with ``plain`` on the plain ops (the package's test of the device replaced
+    from outside, as for whole proofs)."""
+    from eth_lc_plonky2_tpu_torch.circuit.algebra import DeviceBaseAlgebra
+    from eth_lc_plonky2_tpu_torch.circuit.gates import absorb_quotient_generic
+    from eth_lc_plonky2_tpu_torch.ops import kernels, ntt
+
+    wires_lde, const_rows, sel, apow_rows, accs = inputs
+
+    def run():
+        return absorb_quotient_generic(
+            gate, DeviceBaseAlgebra((wires_lde.shape[1],), DEVICE),
+            lambda col, offset=0: ntt.roll_lde(wires_lde[col], offset, rate_bits),
+            lambda i: const_rows[i], sel, apow_rows, accs)
+
+    if not plain:
+        return run()
+    before = dict(kernels.launches)
+    with mock.patch.object(kernels, "on_card", lambda t: False):
+        out = run()
+    if kernels.launches != before:
+        fail(f"the plain loop of gate {gate.name} launched a kernel")
+    return out
+
+
+def gate_kernel(gate, inputs, rate_bits: int) -> list:
+    wires_lde, const_rows, sel, apow_rows, accs = inputs
+    return gate.absorb_quotient_device(wires_lde, lambda i: const_rows[i], sel, apow_rows, accs,
+                                       rate_bits)
+
+
+def check_gate_kernels(torch, chk: Checker, rng) -> None:
+    """Each gate kernel against the generic loop on the plain ops, on random
+    field words with the edge words among them, at rate 2^3 (offset -16 is 128
+    columns back: at n_lde = 2^7 every column's neighbours wrap around the
+    start of the domain)."""
+    from eth_lc_plonky2_tpu_torch.circuit.gates_poseidon import PoseidonGate
+    from eth_lc_plonky2_tpu_torch.circuit.gates_sha256 import Sha256RoundGate
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    for gate in (Sha256RoundGate(), PoseidonGate()):
+        for n_lde in GATE_SIZES:
+            inputs = gate_inputs(rng, n_lde, gate.num_constraints)
+            before = kernels.launches["gates"]
+            got = gate_kernel(gate, inputs, RATE_BITS)
+            if kernels.launches["gates"] - before != 1:
+                fail(f"gate {gate.name}: {kernels.launches['gates'] - before} launches")
+            want = gate_generic(gate, inputs, RATE_BITS, plain=True)
+            for j in range(2):
+                chk.same("gates", got[j], want[j], f"gate {gate.name}, n_lde {n_lde}, challenge {j}")
+        torch.cuda.synchronize()
+    log(f"[7] gate kernels == the generic eval loop on the plain ops at n_lde {GATE_SIZES}, "
+        f"rate 2^{RATE_BITS}, on random field words and the edge words")
+
+
+def measure_gate_kernels(torch, chk: Checker, rng, card: str) -> dict:
+    """Each gate kernel at the main path's shape, (184, 2^21) wires and two
+    challenges, against the generic loop on the plain ops and on csrc/field.cu
+    (same words), with its time, the generic loop's on field.cu and on the
+    plain ops, and its bound."""
+    from eth_lc_plonky2_tpu_torch.circuit.gates_poseidon import PoseidonGate
+    from eth_lc_plonky2_tpu_torch.circuit.gates_sha256 import Sha256RoundGate
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    n_lde = 1 << (LOG_N + RATE_BITS)
+    out = {}
+    # distinct rows, each read once: the wires the gate reads, its constant
+    # rows, the selector and the accumulators; the accumulators written once
+    specs = ((Sha256RoundGate(), 3 * 32 + 6 + 4 + 1 + 2 + 2, SHA_GATE_MADS),
+             (PoseidonGate(), 142 + 1 + 2 + 2, POSEIDON_GATE_MADS))
+    for gate, rows, mads in specs:
+        inputs = gate_inputs(rng, n_lde, gate.num_constraints)
+        got = gate_kernel(gate, inputs, RATE_BITS)
+        before = dict(kernels.launches)
+        want = gate_generic(gate, inputs, RATE_BITS, plain=False)
+        torch.cuda.synchronize()
+        generic_launches = kernels.launches["field"] - before["field"]
+        for j in range(2):
+            chk.same("gates", got[j], want[j],
+                     f"gate {gate.name} at n_lde 2^21 against field.cu, challenge {j}")
+        del want
+        ms = cuda_ms(lambda: gate_kernel(gate, inputs, RATE_BITS), 5)
+        field_ms = cuda_ms(lambda: gate_generic(gate, inputs, RATE_BITS, plain=False), 1)
+        plain = []  # the one timed run of the plain version is also the one compared
+        plain_ms = cuda_ms(lambda: plain.append(gate_generic(gate, inputs, RATE_BITS, plain=True)), 1)
+        for j in range(2):
+            chk.same("gates", got[j], plain[-1][j],
+                     f"gate {gate.name} at n_lde 2^21 against the plain ops, challenge {j}")
+        del got, plain
+        by_bytes = rows * n_lde * 8 / PEAK_BYTES_PER_S * 1e3
+        by_ops = mads * n_lde / PEAK_INT32_MADS_PER_S * 1e3
+        bound = (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations")
+        log(f"[7] gate {gate.name} at (184, 2^21), 2 challenges: kernel {ms:.3f} ms, its words == "
+            f"the generic eval loop's on the plain ops and on field.cu; the generic "
+            f"eval loop on field.cu {field_ms:.3f} ms in {generic_launches} launches, on the plain "
+            f"ops {plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} (bytes {by_bytes:.4f} ms "
+            f"for {rows} rows, operations {by_ops:.4f} ms for {mads} multiply-adds a column; "
+            f"{bound[0] / ms:.1%} of the kernel's time) [{card}]")
+        out[gate.name] = {"ms": ms, "plain_ms": plain_ms, "field_ms": field_ms,
+                          "bound_ms": bound[0], "bound_by": bound[1]}
+        del inputs
+    return out
+
+
+def forged_witness(data, witness, gate_name: str):
+    """A copy of the witness with one wire of a ``gate_name`` row forged: a
+    SHA-256 a-bit of a round row together with its word, so that the word-bit
+    consistency still holds locally, or one Poseidon s-box output."""
+    from eth_lc_plonky2_tpu_torch.circuit import gates_poseidon as gp, gates_sha256 as gsha
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
+
+    forged = data.new_witness()
+    forged.values, forged.known = witness.values.copy(), witness.known.copy()
+    nw = data.config.num_wires
+    rows = np.flatnonzero(data.selectors[data.gate_names.index(gate_name)])
+    if gate_name == "sha256":
+        row = int(rows[gsha.PROLOGUE + 30])  # round 30 of the first compression
+        sid_bit = int(data.rep[row * nw + gsha.A_BITS + 7])
+        sid_word = int(data.rep[row * nw + gsha.COL_WA])
+        bit = int(forged.values[sid_bit])
+        forged.values[sid_bit] = 1 - bit
+        forged.values[sid_word] = int(forged.values[sid_word]) + (128 if bit == 0 else -128)
+    else:
+        sid = int(data.rep[int(rows[len(rows) // 2]) * nw + gp.W_ADV + 3])
+        forged.values[sid] = (int(forged.values[sid]) + 1) % gl.P
+    return forged
+
+
+def check_forged_rejected(data, vk, pd, witness, what: str) -> None:
+    from eth_lc_plonky2_tpu_torch.prover import prove
+    from eth_lc_plonky2_tpu_torch.prover.verify import VerificationError, verify
+
+    for gate_name in ("sha256", "poseidon"):
+        proof = prove.prove(pd, forged_witness(data, witness, gate_name))
+        try:
+            verify(data, vk, proof)
+        except VerificationError as e:
+            log(f"{what}: a proof from a witness with one forged {gate_name} wire is rejected: {e}")
+        else:
+            fail(f"{what}: the verifier accepts a proof from a forged {gate_name} witness")
+
+
+def phase7(torch, chk: Checker, rng, card: str, seed: int) -> dict:
+    from eth_lc_plonky2_tpu_torch.circuit.gates_poseidon import PoseidonGate
+    from eth_lc_plonky2_tpu_torch.circuit.gates_sha256 import Sha256RoundGate
+    from eth_lc_plonky2_tpu_torch.prover import prove, serialize
+    from eth_lc_plonky2_tpu_torch.prover.profiler import Profiler
+
+    sources = ("ntt", "poseidon", "field", "gates")
+    check_gate_kernels(torch, chk, rng)
+
+    # the same circuit family at 2^12 rows: kernels against plain versions, whole proofs
+    small, small_w, leaves, first_state = light_client_circuit(4, 200, seed)
+    if small.log_n != 12:
+        fail(f"[7] the small circuit has 2^{small.log_n} rows")
+    small_pd, small_vk = prove.preprocess(small)
+    got = prove_kernels_and_plain(torch, small_pd, small_w, "[7] SHA-256 and Poseidon rows at 2^12 rows",
+                                  sources)
+    small_proof = serialize.proof_from_dict(got)
+    check_proof(small, small_vk, small_proof, small_w, "[7] 2^12 rows")
+    check_light_client_outputs(small_proof, leaves, first_state, 200, "[7] 2^12 rows")
+    check_forged_rejected(small, small_vk, small_pd, small_w, "[7] 2^12 rows")
+    del small_pd
+
+    t0 = time.perf_counter()
+    data, witness, leaves, first_state = light_client_circuit(MERKLE_HEIGHT, POSEIDON_CHAIN_ROWS, seed)
+    cfg = data.config
+    rows_of = {name: int(data.selectors[i].sum()) for i, name in enumerate(data.gate_names)}
+    log(f"[7] circuit built and witness generated by the port's CircuitBuilder in "
+        f"{time.perf_counter() - t0:.1f} s: {cfg.num_wires} wires, 2^{data.log_n} rows, "
+        f"{data.num_rows_used} used, rows by gate {rows_of}, "
+        f"{len(data.public_input_targets)} public inputs, "
+        f"{len(prove.opening_point_specs(data))} opening points")
+    if data.log_n != LOG_N or rows_of["sha256"] != 68 * 2 * ((1 << MERKLE_HEIGHT) - 1) \
+            or rows_of["poseidon"] != POSEIDON_CHAIN_ROWS:
+        fail(f"[7] the circuit is not the planned one: 2^{data.log_n} rows, {rows_of}")
+    t0 = time.perf_counter()
+    pd, vk = prove.preprocess(data)
+    torch.cuda.synchronize()
+    log(f"[7] preprocess ({pd.pre_values.shape[0]} polys) in {time.perf_counter() - t0:.3f} s")
+    proof, launched = first_prove(torch, "[7]", pd, witness, card, sources)
+    check_proof(data, vk, proof, witness, "[7] 2^18 rows")
+    check_light_client_outputs(proof, leaves, first_state, POSEIDON_CHAIN_ROWS, "[7] 2^18 rows")
+    res = profile_prove(torch, "[7]", pd, witness, proof, card, LC_STEADY_FIELD_LAUNCHES, 2,
+                        free_runs=3)
+    check_forged_rejected(data, vk, pd, witness, "[7] 2^18 rows")
+
+    # the quotient phase with the gates on the generic loop on csrc/field.cu (a
+    # number for the record, not a path of prove): the gates' own kernels are
+    # hidden from the quotient for one prove, and the proof must not change
+    prof = Profiler(enabled=True)
+    with mock.patch.object(Sha256RoundGate, "absorb_quotient_device", None), \
+            mock.patch.object(PoseidonGate, "absorb_quotient_device", None):
+        generic_proof = prove.prove(pd, witness, prof=prof)
+    torch.cuda.synchronize()
+    if (where := first_difference(proof_dict(generic_proof), proof_dict(proof))):
+        fail(f"[7] the proof with the gates on the generic loop differs at {where}")
+    log(f"[7] phase quotient with the two gate kernels {res['phase_ms']['quotient']:.3f} ms (median "
+        f"of 3), with the gates on the generic eval loop on field.cu "
+        f"{prof.times['quotient'] * 1e3:.3f} ms (one prove); the two proofs are equal [{card}]")
+    del pd
+    gates_res = measure_gate_kernels(torch, chk, rng, card)
+    return {"launches": launched, "prove_ms": res["prove_ms"], "phase_ms": res["phase_ms"],
+            "gates": gates_res}
 
 
 def main() -> int:
@@ -1144,24 +1408,41 @@ def main() -> int:
     res = phase4(torch, chk, rng, card)
     phase5(torch)
     whole = phase6(torch, chk, rng, card, args.seed)
-    res["launches"] = whole["launches"]  # the main path is the whole proof at the flagship's width
+    lc = phase7(torch, chk, rng, card, args.seed)
+    # the launches are those of the newest main path, phase 7's first prove (it
+    # runs every kernel source); phases 4 and 6 have held their own above
+    launches = lc["launches"]
+    sha_gate, poseidon_gate = lc["gates"]["sha256"], lc["gates"]["poseidon"]
     kernels_line = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/ntt.cu",
          "replaces": "eth_lc_plonky2_tpu/ops/pallas/ntt_mxu.py:165",
-         "launches": res["launches"]["ntt"], "max_abs_err": chk.err["ntt"],
+         "launches": launches["ntt"], "max_abs_err": chk.err["ntt"],
          "ms": res["ntt"][0], "plain_ms": res["ntt"][1], "bound_ms": res["ntt"][2],
          "bound_by": res["ntt"][3], "library_ms": None},
         {"name": "poseidon", "route": "cuda",
          "source": "eth_lc_plonky2_tpu_torch/csrc/poseidon.cu",
          "replaces": "eth_lc_plonky2_tpu/ops/pallas/poseidon_pallas.py:114",
-         "launches": res["launches"]["poseidon"], "max_abs_err": chk.err["poseidon"],
+         "launches": launches["poseidon"], "max_abs_err": chk.err["poseidon"],
          "ms": res["poseidon"][0], "plain_ms": res["poseidon"][1],
          "bound_ms": res["poseidon"][2], "bound_by": res["poseidon"][3], "library_ms": None},
         {"name": "field", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/field.cu",
          "replaces": "eth_lc_plonky2_tpu/ops/goldilocks.py:143-301 (XLA-fused, no Pallas kernel)",
-         "launches": whole["launches"]["field"], "max_abs_err": chk.err["field"],
+         "launches": launches["field"], "max_abs_err": chk.err["field"],
          "ms": whole["field"][0], "plain_ms": whole["field"][1], "bound_ms": whole["field"][2],
          "bound_by": whole["field"][3], "library_ms": None},
+        # one source, two kernels, one launch each a proof: the times are the
+        # two kernels' at (184, 2^21) added up, and "by_kernel" has each alone
+        {"name": "gates", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/gates.cu",
+         "replaces": "eth_lc_plonky2_tpu/circuit/gates_sha256.py:223 and "
+                     "eth_lc_plonky2_tpu/circuit/gates_poseidon.py:133 (XLA-fused, no Pallas kernel)",
+         "launches": launches["gates"], "max_abs_err": chk.err["gates"],
+         "ms": sha_gate["ms"] + poseidon_gate["ms"],
+         "plain_ms": sha_gate["plain_ms"] + poseidon_gate["plain_ms"],
+         "bound_ms": sha_gate["bound_ms"] + poseidon_gate["bound_ms"],
+         "bound_by": sha_gate["bound_by"] if sha_gate["bound_by"] == poseidon_gate["bound_by"]
+         else "operations", "library_ms": None,
+         "by_kernel": {"sha_gate_quotient_kernel": sha_gate,
+                       "poseidon_gate_quotient_kernel": poseidon_gate}},
     ]}
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)

@@ -13,8 +13,8 @@ reference neighbor rows; generic gates use offset 0 only.
 
 Copy of ``eth_lc_plonky2_tpu/circuit/gates.py`` (the port keeps its own):
 the generic gates of plonky2's set (ArithmeticGate / BaseSumGate /
-ConstantGate / NoopGate).  The Poseidon and SHA-256 gates are not ported
-yet; their specs raise.
+ConstantGate / NoopGate).  The Poseidon and SHA-256 gates live in
+``gates_poseidon.py`` and ``gates_sha256.py``.
 """
 
 from __future__ import annotations
@@ -122,6 +122,20 @@ class ConstantGate(Gate):
         return [A.sub(wires(i), consts(i)) for i in range(self.num_slots)]
 
 
+def absorb_quotient_generic(g: Gate, A, wires, consts, sel, apow_rows, accs) -> list:
+    """accs[j] + sum_k (sel * C_k) * apow_rows[j][k] over ``g.eval``'s
+    constraints C_k, one algebra operation at a time: the quotient's generic
+    gate loop, and the plain version of the gates' own kernels
+    (``absorb_quotient_device``).  Field addition is associative and every
+    word canonical, so any other order of the same sum gives the same words."""
+    out = list(accs)
+    for k, cval in enumerate(g.eval(A, wires, consts)):
+        sc = A.mul(sel, cval)
+        for j in range(len(out)):
+            out[j] = A.add(out[j], A.mul(sc, apow_rows[j][k]))
+    return out
+
+
 GATE_REGISTRY = {}
 
 
@@ -162,6 +176,12 @@ def gate_from_spec(spec: dict) -> Gate:
         return BaseSum2Gate(num_bits=spec["num_bits"], num_slots=spec["num_slots"])
     if t == "const":
         return ConstantGate(num_slots=spec["num_slots"])
-    if t in ("poseidon", "sha256"):
-        raise NotImplementedError(f"gate type {t!r} is not ported yet")
+    if t == "poseidon":
+        from .gates_poseidon import PoseidonGate
+
+        return PoseidonGate()
+    if t == "sha256":
+        from .gates_sha256 import Sha256RoundGate
+
+        return Sha256RoundGate()
     raise ValueError(f"unknown gate type in spec: {t!r}")

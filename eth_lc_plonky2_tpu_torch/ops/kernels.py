@@ -32,7 +32,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("ntt.cu", "poseidon.cu", "field.cu")
+SOURCES = ("ntt.cu", "poseidon.cu", "field.cu", "gates.cu")
 HEADERS = ("goldilocks.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -41,8 +41,10 @@ NTT_THREADS = 256
 POSEIDON_THREADS = 256  # csrc/poseidon.cu: __launch_bounds__(256, ...), the most it takes
 FIELD_THREADS = 256  # csrc/field.cu: __launch_bounds__(256)
 FIELD_OPS = {"add": 0, "sub": 1, "mul": 2}  # csrc/field.cu: OP_ADD, OP_SUB, OP_MUL
+GATES_THREADS = 256  # csrc/gates.cu: __launch_bounds__(256)
+GATES_CHALLENGES = 2  # csrc/gates.cu: NCH, the challenges one launch takes (the prover's 2)
 
-launches = {"ntt": 0, "poseidon": 0, "field": 0}
+launches = {"ntt": 0, "poseidon": 0, "field": 0, "gates": 0}
 build_info: dict = {}
 
 
@@ -107,6 +109,10 @@ def _libraries() -> dict:
                      "elp_merkle_tail": [vp, ll, i32, vp, i32, vp]},
         "field": {"elp_field_binary": [i32, vp, ll, ll, vp, ll, ll, vp, ll, ll, i32, vp],
                   "elp_field_inv": [vp, vp, ll, i32, vp]},
+        "gates": {"elp_sha_gate_quotient": [vp, ll, ll, i32, ctypes.POINTER(i32), vp, vp, vp, vp,
+                                            vp, vp, vp, vp, vp, vp, vp, i32, vp],
+                  "elp_poseidon_gate_quotient": [vp, ll, ll, ctypes.POINTER(i32), vp, vp, vp, vp,
+                                                 vp, vp, vp, vp, i32, vp]},
     }
     for stem, functions in signatures.items():
         for name, argtypes in functions.items():
@@ -302,3 +308,96 @@ def field_inv(a: torch.Tensor) -> torch.Tensor:
     launches["field"] += 1
     _raise_on(err, "field inv")
     return out
+
+
+def neighbour_columns(n_lde: int, offset: int, rate_bits: int) -> torch.Tensor:
+    """The LDE column that ``csrc/gates.cu`` reads for trace row r + offset at
+    each column x: (x + offset * 2^rate_bits) mod n_lde, as WireView::at
+    computes it (n_lde a power of two, so the kernel masks)."""
+    return (torch.arange(n_lde, dtype=torch.int64) + offset * (1 << rate_bits)) & (n_lde - 1)
+
+
+def gate_quotient_plan(wires_lde, rows: dict, apow_rows: list, accs: list,
+                       num_constraints: int) -> tuple:
+    """How ``csrc/gates.cu`` is launched for one gate: checks what the kernels
+    assume of their arguments and returns (n_lde, the wires' row stride in
+    words).
+
+    ``wires_lde`` is (num_wires, n_lde) with unit column stride; ``rows`` the
+    named (n_lde,) rows (selector, constant columns), ``accs`` one (n_lde,)
+    accumulator a challenge and ``apow_rows`` its (num_constraints,) alpha
+    powers: all dense 1-D tensors, ``GATES_CHALLENGES`` of each."""
+    if wires_lde.dim() != 2 or wires_lde.stride(1) != 1 or wires_lde.stride(0) < wires_lde.shape[1]:
+        raise ValueError(f"gate quotient: wires of shape {tuple(wires_lde.shape)}, strides "
+                         f"{wires_lde.stride()}")
+    n_lde = wires_lde.shape[1]
+    if n_lde < 1 or n_lde & (n_lde - 1):
+        raise ValueError(f"gate quotient: {n_lde} columns is not a power of two")
+    if len(apow_rows) != GATES_CHALLENGES or len(accs) != GATES_CHALLENGES:
+        raise ValueError(f"gate quotient: {len(apow_rows)} alpha rows and {len(accs)} accumulators, "
+                         f"the kernels take {GATES_CHALLENGES} challenges")
+    for name, t, length in ([(k, v, n_lde) for k, v in rows.items()]
+                            + [(f"acc {j}", a, n_lde) for j, a in enumerate(accs)]
+                            + [(f"alpha row {j}", a, num_constraints)
+                               for j, a in enumerate(apow_rows)]):
+        if tuple(t.shape) != (length,) or (length > 1 and t.stride(0) != 1):
+            raise ValueError(f"gate quotient: {name} of shape {tuple(t.shape)}, strides "
+                             f"{t.stride()}, expected a dense ({length},) row")
+        if t.device != wires_lde.device or t.dtype != torch.int64:
+            raise ValueError(f"gate quotient: {name} on {t.device} as {t.dtype}")
+    return n_lde, wires_lde.stride(0)
+
+
+def _gate_launch(kind: str, wires_lde, rows: dict, apow_rows, accs, num_constraints, call):
+    """One launch of csrc/gates.cu; returns the new accumulators (the inputs
+    are left as they were)."""
+    _check(wires_lde, "wires_lde")
+    n_lde, stride = gate_quotient_plan(wires_lde, rows, apow_rows, accs, num_constraints)
+    outs = [torch.empty_like(a) for a in accs]
+    err = call(n_lde, stride, [a.data_ptr() for a in apow_rows], [a.data_ptr() for a in accs],
+               [o.data_ptr() for o in outs])
+    launches["gates"] += 1
+    _raise_on(err, kind)
+    return outs
+
+
+def sha_gate_quotient(wires_lde, layout: tuple, consts: tuple, sel, apow_rows, accs,
+                      rate_bits: int) -> list:
+    """Launch ``sha_gate_quotient_kernel``: accs[j] + sel * sum_k apow_rows[j][k] *
+    C_k, the SHA-256 round gate's 105 constraints in ``eval()``'s order.
+    ``layout`` is (COL_WA, COL_WE, COL_WW, A_BITS, E_BITS, W_BITS, CARRY_A,
+    CARRY_E, CARRY_W); ``consts`` the four constant rows (K, round, schedule
+    and segment masks)."""
+    k_t, m_round, m_sched, m_bits = consts
+    rows = {"sel": sel, "k_t": k_t, "m_round": m_round, "m_sched": m_sched, "m_bits": m_bits}
+    if len(layout) != 9 or max(layout[3:6]) + 32 > wires_lde.shape[0] or max(layout) >= wires_lde.shape[0]:
+        raise ValueError(f"sha gate: layout {layout} for {wires_lde.shape[0]} wires")
+    c_layout = (ctypes.c_int * 9)(*layout)
+
+    def call(n_lde, stride, alphas, acc_in, acc_out):
+        return _libraries()["gates"].elp_sha_gate_quotient(
+            wires_lde.data_ptr(), stride, n_lde, rate_bits, c_layout, k_t.data_ptr(),
+            m_round.data_ptr(), m_sched.data_ptr(), m_bits.data_ptr(), sel.data_ptr(),
+            *alphas, *acc_in, *acc_out, GATES_THREADS, _stream(wires_lde))
+
+    return _gate_launch("sha gate", wires_lde, rows, apow_rows, accs, 105, call)
+
+
+def poseidon_gate_quotient(wires_lde, layout: tuple, table, sel, apow_rows, accs) -> list:
+    """Launch ``poseidon_gate_quotient_kernel``: accs[j] + sel * sum_k
+    apow_rows[j][k] * C_k, the Poseidon gate's 130 constraints in ``eval()``'s
+    order.  ``layout`` is (W_IN, W_OUT, W_ADV); ``table`` the 30 x 12 round
+    constants, the circulant's first row and MDS_DIAG[0] (373 words)."""
+    _check(table, "table")
+    if len(layout) != 3 or layout[2] + 118 > wires_lde.shape[0] or max(layout[:2]) + 12 > wires_lde.shape[0]:
+        raise ValueError(f"poseidon gate: layout {layout} for {wires_lde.shape[0]} wires")
+    if tuple(table.shape) != (373,) or not table.is_contiguous() or table.device != wires_lde.device:
+        raise ValueError(f"poseidon gate: table of shape {tuple(table.shape)} on {table.device}")
+    c_layout = (ctypes.c_int * 3)(*layout)
+
+    def call(n_lde, stride, alphas, acc_in, acc_out):
+        return _libraries()["gates"].elp_poseidon_gate_quotient(
+            wires_lde.data_ptr(), stride, n_lde, c_layout, table.data_ptr(), sel.data_ptr(),
+            *alphas, *acc_in, *acc_out, GATES_THREADS, _stream(wires_lde))
+
+    return _gate_launch("poseidon gate", wires_lde, {"sel": sel}, apow_rows, accs, 130, call)

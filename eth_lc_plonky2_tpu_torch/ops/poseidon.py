@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import goldilocks as gl
+from . import host_field as hf
 from . import kernels
 
 P = gl.P
@@ -422,3 +423,135 @@ def hash_no_pad_host(inputs: list) -> list:
 def compress_host(left: list, right: list) -> list:
     """Host mirror of compress (two 4-element digests)."""
     return permute_host(list(left) + list(right) + [0] * (WIDTH - 2 * DIGEST_LEN))[:DIGEST_LEN]
+
+
+# ---------------------------------------------------------------------------
+# Batched witness trace (for the in-circuit PoseidonGate)
+# ---------------------------------------------------------------------------
+
+
+def permute_trace_np(states: np.ndarray):
+    """Vectorized permutation trace for witness generation.
+
+    states: (N, 12) u64.  Returns (advice, out): advice (N, 118) holds
+    every s-box output in round order (full 4x12, partial 22x1, full
+    4x12); out (N, 12) is the final state.  Mirrors the PoseidonGate
+    wire layout in circuit/gates_poseidon.py.
+
+    Small batches route to the Python-int path: numpy u64 scalar
+    wide-muls are ~100x slower than int arithmetic at N ~ 1 (the
+    recursion layer generates one row per sponge permutation).
+    """
+    if states.shape[0] < 64:
+        return _permute_trace_host(states)
+
+    rc = round_constants()
+    n = states.shape[0]
+    st = [states[:, i].astype(np.uint64) for i in range(WIDTH)]
+    advice = []
+    half = N_FULL_ROUNDS // 2
+    ridx = 0
+
+    def x7(x):
+        x2 = hf.mul(x, x)
+        x3 = hf.mul(x2, x)
+        return hf.mul(hf.mul(x3, x3), x)
+
+    def mds(v):
+        out = []
+        for r in range(WIDTH):
+            acc = None
+            for i in range(WIDTH):
+                term = hf.mul(np.uint64(MDS_CIRC[i]), v[(r + i) % WIDTH])
+                acc = term if acc is None else hf.add(acc, term)
+            if MDS_DIAG[r]:
+                acc = hf.add(acc, hf.mul(np.uint64(MDS_DIAG[r]), v[r]))
+            out.append(acc)
+        return out
+
+    def add_rc(v):
+        return [hf.add(x, np.uint64(rc[ridx * WIDTH + i])) for i, x in enumerate(v)]
+
+    for _ in range(half):
+        st = add_rc(st)
+        for i in range(WIDTH):
+            st[i] = x7(st[i])
+            advice.append(st[i])
+        st = mds(st)
+        ridx += 1
+    for _ in range(N_PARTIAL_ROUNDS):
+        st = add_rc(st)
+        st[0] = x7(st[0])
+        advice.append(st[0])
+        st = mds(st)
+        ridx += 1
+    for _ in range(half):
+        st = add_rc(st)
+        for i in range(WIDTH):
+            st[i] = x7(st[i])
+            advice.append(st[i])
+        st = mds(st)
+        ridx += 1
+    adv = np.stack([np.broadcast_to(a, (n,)) for a in advice], axis=1)
+    out = np.stack([np.broadcast_to(s, (n,)) for s in st], axis=1)
+    return adv.astype(np.uint64), out.astype(np.uint64)
+
+
+def _permute_trace_host(states: np.ndarray):
+    """Python-int permutation trace (fast for small N)."""
+    rc = [int(c) for c in round_constants()]
+    circ = [int(c) for c in MDS_CIRC]
+    diag0 = int(MDS_DIAG[0])
+    half = N_FULL_ROUNDS // 2
+    n = states.shape[0]
+    adv = np.empty((n, N_FULL_ROUNDS * WIDTH + N_PARTIAL_ROUNDS), dtype=np.uint64)
+    out = np.empty((n, WIDTH), dtype=np.uint64)
+    for k in range(n):
+        st = [int(v) for v in states[k]]
+        a = 0
+        ridx = 0
+
+        def mds(v):
+            res = []
+            for r in range(WIDTH):
+                acc = 0
+                for i in range(WIDTH):
+                    acc += circ[i] * v[(r + i) % WIDTH]
+                if r == 0:
+                    acc += diag0 * v[0]
+                res.append(acc % P)
+            return res
+
+        for _ in range(half):
+            base = ridx * WIDTH
+            for i in range(WIDTH):
+                x = (st[i] + rc[base + i]) % P
+                x3 = x * x % P * x % P
+                st[i] = x3 * x3 % P * x % P
+                adv[k, a] = st[i]
+                a += 1
+            st = mds(st)
+            ridx += 1
+        for _ in range(N_PARTIAL_ROUNDS):
+            base = ridx * WIDTH
+            x = (st[0] + rc[base]) % P
+            for i in range(1, WIDTH):
+                st[i] = (st[i] + rc[base + i]) % P
+            x3 = x * x % P * x % P
+            st[0] = x3 * x3 % P * x % P
+            adv[k, a] = st[0]
+            a += 1
+            st = mds(st)
+            ridx += 1
+        for _ in range(half):
+            base = ridx * WIDTH
+            for i in range(WIDTH):
+                x = (st[i] + rc[base + i]) % P
+                x3 = x * x % P * x % P
+                st[i] = x3 * x3 % P * x % P
+                adv[k, a] = st[i]
+                a += 1
+            st = mds(st)
+            ridx += 1
+        out[k] = st
+    return adv, out

@@ -10,7 +10,8 @@ Port of ``eth_lc_plonky2_tpu/prover/prove.py``:
 Goldilocks arithmetic is exact, so a proof equals the JAX package's byte for
 byte.  There is no ``jit`` and no executable cache here: PyTorch runs
 eagerly, and each field operation on a CUDA tensor is one launch of
-``csrc/field.cu``.  The sharded prover's ``put`` argument is not ported.
+``csrc/field.cu``; the SHA-256 and Poseidon gates' share of the quotient is
+one launch of ``csrc/gates.cu`` each.  The sharded prover's ``put`` argument is not ported.
 
 Host and device traffic: commitments (LDEs, Merkle levels) stay on the
 device for the whole prove; the host sees Merkle caps (for the
@@ -30,9 +31,11 @@ import torch
 
 from ..circuit.algebra import DeviceBaseAlgebra
 from ..circuit.builder import CircuitData, Witness
+from ..circuit.gates import absorb_quotient_generic
 from ..ops import goldilocks as gl
 from ..ops import goldilocks_ext as ge
 from ..ops import host_field as hf
+from ..ops import kernels
 from ..ops import ntt as nttm
 from ..ops import poseidon as pos
 from . import fri as frim
@@ -384,10 +387,13 @@ def make_quotient_kernel(pd: ProverData):
             if g.num_constraints == 0:
                 continue
             s = pre_lde[gi]
-            for k, cval in enumerate(g.eval(A, wires, consts)):
-                sc = gl.mul(s, cval)
-                for j in range(cfg.num_challenges):
-                    absorb(j, k0 + k, sc)
+            apow_rows = [apows[j][k0 : k0 + g.num_constraints] for j in range(cfg.num_challenges)]
+            absorber = getattr(g, "absorb_quotient_device", None)
+            if absorber is not None and kernels.on_card(wires_lde):
+                # the gate's own kernel: the same words as the generic loop
+                accs[:] = absorber(wires_lde, consts, s, apow_rows, accs, rate)
+            else:
+                accs[:] = absorb_quotient_generic(g, A, wires, consts, s, apow_rows, accs)
 
         # split each quotient into 2^rate chunks of degree < n, coefficient form
         quotients = gl.mul(torch.stack(accs), zh_inv[None, :])

@@ -132,7 +132,8 @@ def test_dryrun_proof_on_card_matches_reference(dev):
     assert pd.device.type == dev
     before = dict(kernels.launches)
     got = chip_smoke.proof_dict(prove.prove(pd, witness))
-    assert all(kernels.launches[k] > before[k] for k in before)
+    assert all(kernels.launches[k] > before[k] for k in ("ntt", "poseidon", "field"))
+    assert kernels.launches["gates"] == before["gates"]  # generic gates only
     with open(os.path.join(chip_smoke.REPO, "assets", "dryrun", "ref_proof.json")) as f:
         assert chip_smoke.first_difference(got, json.load(f)) is None
     from unittest import mock
@@ -143,3 +144,51 @@ def test_dryrun_proof_on_card_matches_reference(dev):
                                     dev=pd.dev)
         assert chip_smoke.proof_dict(prove.prove(plain_pd, witness)) == got
     assert kernels.launches == before
+
+
+@pytest.mark.parametrize("n_lde", [1 << 7, 1 << 12])
+@pytest.mark.parametrize("gate_name", ["sha256", "poseidon"])
+def test_gate_kernel_matches_generic_loop(dev, gate_name, n_lde):
+    """csrc/gates.cu against the generic eval loop on the plain ops, on random
+    field words with the edge words among them; at n_lde = 2^7 and rate 2^3
+    offset -16 wraps around the start of the domain."""
+    import chip_smoke
+    from eth_lc_plonky2_tpu_torch.circuit import gates
+
+    gate = gates.gate_from_spec({"type": gate_name})
+    inputs = chip_smoke.gate_inputs(np.random.default_rng(n_lde), n_lde, gate.num_constraints)
+    before = dict(kernels.launches)
+    got = chip_smoke.gate_kernel(gate, inputs, 3)
+    assert kernels.launches["gates"] == before["gates"] + 1
+    assert kernels.launches["field"] == before["field"]
+    want = chip_smoke.gate_generic(gate, inputs, 3, plain=True)
+    on_field_kernel = chip_smoke.gate_generic(gate, inputs, 3, plain=False)
+    for j in range(2):
+        assert torch.equal(got[j], want[j]) and torch.equal(on_field_kernel[j], want[j])
+    for acc, new in zip(inputs[4], got):  # the inputs are left as they were
+        assert acc.data_ptr() != new.data_ptr()
+    with pytest.raises(ValueError):
+        chip_smoke.gate_kernel(gate, (inputs[0][:, ::2], *inputs[1:]), 3)
+
+
+def test_sha_and_poseidon_proof_on_card_verifies(dev):
+    """A proof of SHA-256 and Poseidon rows made on the card: two launches of
+    csrc/gates.cu, equal to the proof on the plain versions, accepted by the
+    port's verifier; a forged witness of either gate is rejected."""
+    import chip_smoke
+    from eth_lc_plonky2_tpu_torch.prover.verify import VerificationError, verify
+
+    data, witness, leaves, first_state = chip_smoke.light_client_circuit(1, 3, 5)
+    pd, vk = prove.preprocess(data)
+    before = kernels.launches["gates"]
+    proof = prove.prove(pd, witness)
+    assert kernels.launches["gates"] == before + 2
+    verify(data, vk, proof)
+    chip_smoke.check_light_client_outputs(proof, leaves, first_state, 3, "card test")
+    got = chip_smoke.prove_kernels_and_plain(torch, pd, witness, "card test",
+                                             ("ntt", "poseidon", "field", "gates"))
+    assert got == chip_smoke.proof_dict(proof)
+    for gate_name in ("sha256", "poseidon"):
+        forged = chip_smoke.forged_witness(data, witness, gate_name)
+        with pytest.raises(VerificationError):
+            verify(data, vk, prove.prove(pd, forged))
