@@ -58,16 +58,24 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      phase 6, its public inputs must be hashlib's root and the host's Poseidon
      chain, proofs from a forged SHA-256 bit wire and from a forged Poseidon
      s-box output must be rejected, the launches must be the plan's (one of
-     csrc/gates.cu a gate), and the quotient phase is timed once more with the
-     gates on the generic loop (the proof must not change).
+     csrc/gates.cu a gate; csrc/field.cu's fused kernels, one or two an
+     opening batch and one for the permutation terms, also by name in the
+     trace), and the quotient phase is timed once more with the gates on the
+     generic loop (the proof must not change).  Last, csrc/field.cu's two
+     fused kernels against their plain versions at the main path's shapes:
+     the four opening batches at 2^18 coefficients (12 points) and the
+     permutation terms at (80, 2^21) with 2 challenges and chunk 8, edge words
+     included (and edge points at 2^12, a wrapping roll at 2^7), each timed
+     beside its bound, its plain version and the eager chain it replaced.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on the main path, its error against the plain
 version, and its time beside the plain version's and beside the least time
 the card could take (bound_ms: the larger of bytes over 3.35 TB/s and 32-bit
 integer multiply-adds, counted in the cheapest form known, over 16.75 T/s).
 The launches are phase 7's first prove; the gates entry adds up its two
-kernels (one launch each a proof) and lists each under by_kernel.  No PyTorch
-call computes any of these functions, so library_ms is null.
+kernels (one launch each a proof) and the field entry its elementwise
+product and its two fused kernels, and each lists them under by_kernel.  No
+PyTorch call computes any of these functions, so library_ms is null.
 
 It needs a CUDA device, and no JAX: the port imports neither jax nor the JAX
 package.
@@ -107,9 +115,13 @@ TREE_LEAVES = (1 << 4, 1 << 5, 1 << 11, 1 << 12)
 TREE_CAPS = (0, 4)
 DEVICE = "cuda"
 # csrc/field.cu launches of one steady prove of phase 6's circuit: one an eager
-# field op that gives a non-empty result (mul_small by 0 or 1 launches none).
-# A change in the number of eager ops shows here.
-STEADY_FIELD_LAUNCHES = 3189
+# field op that gives a non-empty result (mul_small by 0 or 1 launches none),
+# two an opening batch (field_open_kernel and its sum over the slices: P, W, Z,
+# Q) and one for the permutation terms.  A change in the number of eager ops
+# shows here.  Recounted from the code when the two fused kernels came: the
+# 3,189 eager launches less 276 an opening point at 2^18 (5 points) and 358
+# for the permutation terms, plus 8 + 1 (3,189 - 1,380 - 358 + 9).
+STEADY_FIELD_LAUNCHES = 1460
 
 # The card's peaks (NVIDIA H100 SXM data sheet): 3.35 TB/s of device memory,
 # and 67 TFLOP/s of float32 = 33.5 T multiply-adds/s on 128 lanes an SM, of
@@ -123,6 +135,14 @@ PEAK_INT32_MADS_PER_S = 67e12 / 2 / 2
 # the 22 sparse partial rounds (an 11 x 11 matrix, then 23 products of
 # 64 x 64 bits a round).
 MADS_PER_PERMUTATION = 118 * (2 * 3 + 2 * 4) + 8 * (72 * 4 + 4) + (121 + 22 * 23) * 4
+
+
+def bound_of(nbytes: int, mads: int) -> tuple:
+    """The least time the card could take (each input read once, each output
+    written once; the multiply-adds the algorithm needs): (ms, "bytes" or
+    "operations", whichever bounds it)."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, mads / PEAK_INT32_MADS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
 def fail(msg: str) -> None:
@@ -212,7 +232,8 @@ def phase1() -> None:
     for line in info.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line:
             log(f"[1] ptxas: {line.strip()}")
-            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills and spills.groups() != ("0", "0"):
                 fail(f"a kernel spills registers: {line.strip()}")
 
 
@@ -521,17 +542,11 @@ def phase4(torch, chk: Checker, rng, card: str) -> dict:
         f"{pass_ms[1]:.3f} ms [{card}]")
     del coeffs, lde_out, passes
 
-    # The least time the card could take (each input read once, each output
-    # written once; the multiply-adds the algorithm needs).
-    def bound(nbytes, mads):
-        by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, mads / PEAK_INT32_MADS_PER_S * 1e3
-        return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
-
-    ntt_bound = bound((chunk * n + chunk * n_lde) * 8,
-                      chunk * (n_lde // 2) * (LOG_N + RATE_BITS) * 4)  # butterflies x (64 x 64 product)
-    level_bound = bound((2 * n * 4 + n * 4) * 8, n * MADS_PER_PERMUTATION)
-    leaf_bound = bound(NUM_WIRES * n_lde * 8 + n_lde * 32,
-                       n_lde * (NUM_WIRES // 8) * MADS_PER_PERMUTATION)
+    ntt_bound = bound_of((chunk * n + chunk * n_lde) * 8,
+                         chunk * (n_lde // 2) * (LOG_N + RATE_BITS) * 4)  # butterflies x (64 x 64 product)
+    level_bound = bound_of((2 * n * 4 + n * 4) * 8, n * MADS_PER_PERMUTATION)
+    leaf_bound = bound_of(NUM_WIRES * n_lde * 8 + n_lde * 32,
+                          n_lde * (NUM_WIRES // 8) * MADS_PER_PERMUTATION)
     # one proof: the leaves' permutations and one a pair of every level
     permutations = (n_lde * sum(-(-rows // 8) for rows in (NUM_WIRES, NUM_Z, NUM_QUOTIENT))
                     + 3 * (n_lde - (1 << CAP_HEIGHT)))
@@ -874,6 +889,8 @@ def check_proof(data, vk, proof, witness, what: str) -> None:
 BY_SOURCE = {"ntt_pass_kernel": "ntt", "sponge_kernel": "poseidon",
              "merkle_level_kernel": "poseidon", "merkle_tail_kernel": "poseidon",
              "field_binary_kernel": "field", "field_inv_kernel": "field",
+             "field_open_kernel": "field", "field_open_sum_kernel": "field",
+             "perm_quotient_kernel": "field",
              "sha_gate_quotient_kernel": "gates", "poseidon_gate_quotient_kernel": "gates"}
 
 
@@ -999,9 +1016,33 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
     inv_plan = pd.data.config.num_challenges + 1  # a (m, n) batch a challenge set, and the G kernel's norms
     if by_name.get("field_inv_kernel", {}).get("launches", 0) != inv_plan:
         fail(f"the profile shows {by_name.get('field_inv_kernel')} inversions, the plan is {inv_plan}")
+    fused = fused_launch_plan(pd)
+    seen = {name: by_name.get(name, {}).get("launches", 0) for name in fused}
+    if seen != fused:
+        fail(f"the profile shows fused field launches {seen}, the plan is {fused}")
     log(f"{tag} the profile's launches by kernel source == the wrappers' counts {steady}; "
-        f"{inv_plan} batched inversions as planned")
+        f"{inv_plan} batched inversions and the fused field kernels {fused} as planned")
     return {"prove_ms": prove_ms, "phase_ms": phase_ms, "by_name": by_name}
+
+
+def fused_launch_plan(pd) -> dict:
+    """The launches of csrc/field.cu's fused kernels in one prove: per opening
+    batch one field_open_kernel and, with more than one slice, one
+    field_open_sum_kernel; one perm_quotient_kernel."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    cfg = pd.data.config
+    rows = {"P": pd.pre_values.shape[0], "W": cfg.num_wires,
+            "Z": cfg.num_challenges * cfg.num_permutation_chunks,
+            "Q": cfg.num_challenges << cfg.rate_bits}
+    points = {}
+    for tag, _ in prove.opening_point_specs(pd.data):
+        points[tag] = points.get(tag, 0) + 1
+    plans = [kernels.field_open_plan(rows[tag], pd.data.n, k) for tag, k in points.items()]
+    return {"field_open_kernel": len(plans),
+            "field_open_sum_kernel": sum(p["launches"] - 1 for p in plans),
+            "perm_quotient_kernel": 1}
 
 
 def first_prove(torch, tag: str, pd, witness, card: str, sources: tuple):
@@ -1066,11 +1107,8 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     row_ms = cuda_ms(lambda: gl.mul(a, b[0]), 9)
     inv_in = a[:5]  # the G kernel's norms: (5, 2^21)
     inv_ms = cuda_ms(lambda: gl.inv(inv_in), 5)
-    nbytes = 3 * a.numel() * 8
     # a 64 x 64 product is 4 multiply-adds of 32 x 32 bits, its reduction one more
-    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = a.numel() * 5 / PEAK_INT32_MADS_PER_S * 1e3
-    field_bound = (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations")
+    field_bound = bound_of(3 * a.numel() * 8, a.numel() * 5)
     inv_bound_ms = max(2 * inv_in.numel() * 8 / PEAK_BYTES_PER_S,
                        inv_in.numel() * 72 * 5 / PEAK_INT32_MADS_PER_S) * 1e3
     log(f"[6] field: mul (8, 2^21) x (8, 2^21): kernel {field_ms:.3f} ms, plain "
@@ -1090,8 +1128,9 @@ MERKLE_HEIGHT = 10  # 1,024 leaves: 1,023 two-to-one hashes, 2,046 compressions
 POSEIDON_CHAIN_ROWS = 16_000
 GATE_SIZES = (1 << 7, 1 << 12, 1 << 15)
 # csrc/field.cu launches of one steady prove of phase 7's circuit (12 opening
-# points, gates arith, basesum2, const and noop on the generic loop).
-LC_STEADY_FIELD_LAUNCHES = 5187
+# points, gates arith, basesum2, const and noop on the generic loop), counted
+# as STEADY_FIELD_LAUNCHES: 5,187 - 12 x 276 - 358 + 9.
+LC_STEADY_FIELD_LAUNCHES = 1526
 
 # 32 x 32 multiply-adds a column of each gate, two challenges, each polynomial
 # in the cheapest form known (which is also csrc/gates.cu's): a field product
@@ -1190,7 +1229,7 @@ def gate_generic(gate, inputs, rate_bits: int, plain: bool) -> list:
     from outside, as for whole proofs)."""
     from eth_lc_plonky2_tpu_torch.circuit.algebra import DeviceBaseAlgebra
     from eth_lc_plonky2_tpu_torch.circuit.gates import absorb_quotient_generic
-    from eth_lc_plonky2_tpu_torch.ops import kernels, ntt
+    from eth_lc_plonky2_tpu_torch.ops import ntt
 
     wires_lde, const_rows, sel, apow_rows, accs = inputs
 
@@ -1200,14 +1239,7 @@ def gate_generic(gate, inputs, rate_bits: int, plain: bool) -> list:
             lambda col, offset=0: ntt.roll_lde(wires_lde[col], offset, rate_bits),
             lambda i: const_rows[i], sel, apow_rows, accs)
 
-    if not plain:
-        return run()
-    before = dict(kernels.launches)
-    with mock.patch.object(kernels, "on_card", lambda t: False):
-        out = run()
-    if kernels.launches != before:
-        fail(f"the plain loop of gate {gate.name} launched a kernel")
-    return out
+    return on_plain(run) if plain else run()
 
 
 def gate_kernel(gate, inputs, rate_bits: int) -> list:
@@ -1287,6 +1319,258 @@ def measure_gate_kernels(torch, chk: Checker, rng, card: str) -> dict:
                           "bound_ms": bound[0], "bound_by": bound[1]}
         del inputs
     return out
+
+
+# ---------------------------------------------------------------------------
+# The fused kernels of csrc/field.cu: the openings and the permutation terms
+# ---------------------------------------------------------------------------
+
+# Phase 7's opening batches: (tag, polynomials, row offsets of its points).
+# The wire offsets are the SHA-256 gate's; 12 points in all.
+OPEN_BATCHES = (("P", 92, (0,)), ("W", NUM_WIRES, (0, -1, -2, -3, -4, -7, -15, -16)),
+                ("Z", NUM_Z, (0, 1)), ("Q", NUM_QUOTIENT, (0,)))
+NUM_ROUTED = 80
+PERM_CHUNK = 8
+
+
+def on_plain(fn):
+    """fn() with every wrapper on its plain version (the package's test of the
+    device replaced from outside, as for whole proofs); fails if a kernel
+    launches meanwhile."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    before = dict(kernels.launches)
+    with mock.patch.object(kernels, "on_card", lambda t: False):
+        out = fn()
+    if kernels.launches != before:
+        fail(f"a plain version launched a kernel: {kernels.launches} after {before}")
+    return out
+
+
+def opening_inputs(rng, log_n: int, zeta=None) -> list:
+    """Phase 7's four opening batches at 2^log_n coefficients on the card:
+    [(tag, (rows, n) coefficients, z_re, z_im)], the points zeta * omega^o of
+    each batch's offsets, zeta seeded unless given; the edge words stand in
+    the first and the last columns of the coefficients."""
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, goldilocks_ext as ge
+
+    n = 1 << log_n
+    if zeta is None:
+        zeta = tuple(int(v) for v in rng.integers(0, gl.P, size=2, dtype=np.uint64))
+    omega = gl.primitive_root_of_unity(log_n)
+    edge = field_edge_words()
+    out = []
+    for tag, rows, offsets in OPEN_BATCHES:
+        c = rng.integers(0, gl.P, size=(rows, n), dtype=np.uint64)
+        c[:, : min(n, len(edge))] = edge[: min(n, len(edge))]
+        c[::3, -1] = edge[-1]
+        points = [ge.h_mul(zeta, (pow(omega, o % n, gl.P), 0)) for o in offsets]
+        out.append((tag, gl.from_u64(c, DEVICE), gl.from_u64([z[0] for z in points], DEVICE),
+                    gl.from_u64([z[1] for z in points], DEVICE)))
+    return out
+
+
+def perm_inputs(rng, log_n_lde: int) -> tuple:
+    """The permutation terms' arguments at 2^log_n_lde columns on the card,
+    as the quotient passes them: the 80 routed rows of a (184, n_lde) wires
+    LDE, the 80 sigma rows of a (92, n_lde) preprocessed LDE (from row 12),
+    20 Z rows, the LDE coset x, a seeded l0, the k shifts, two betas and
+    gammas, two alpha-power rows of 30; random words with the edge words in
+    the first and last columns."""
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, host_field as hf
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    n_lde = 1 << log_n_lde
+    edge = field_edge_words()
+    dev = lambda a: gl.from_u64(a, DEVICE)  # noqa: E731
+
+    def rows(count):
+        a = rng.integers(0, gl.P, size=(count, n_lde), dtype=np.uint64)
+        a[:, : min(n_lde, len(edge))] = edge[: min(n_lde, len(edge))]
+        a[1::2, -min(n_lde, len(edge)):] = edge[::-1][: min(n_lde, len(edge))]
+        return dev(a)
+
+    wires, pre, zs = rows(NUM_WIRES), rows(92), rows(NUM_Z)
+    x = dev(prove._lde_domain_u64(log_n_lde - RATE_BITS, RATE_BITS))
+    scalars = rng.integers(0, gl.P, size=(2, 2), dtype=np.uint64)
+    scalars[1, 1] = gl.P - 1
+    return (wires[:NUM_ROUTED], pre[12 : 12 + NUM_ROUTED], zs, x,
+            dev(rng.integers(0, gl.P, size=n_lde, dtype=np.uint64)),
+            dev(hf.powers(gl.MULTIPLICATIVE_GENERATOR, NUM_ROUTED)), dev(scalars[0]),
+            dev(scalars[1]), [dev(rng.integers(0, gl.P, size=30, dtype=np.uint64)) for _ in range(2)],
+            PERM_CHUNK, RATE_BITS)
+
+
+def open_all(batches, plain: bool = False) -> list:
+    """``_open_core`` of each batch: the kernels, or the plain versions."""
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    def run():
+        return [prove._open_core(c, zr, zi) for _, c, zr, zi in batches]
+
+    return on_plain(run) if plain else run()
+
+
+def perm_terms(inputs, plain: bool = False):
+    """The permutation terms: ``kernels.perm_quotient`` as (2, n_lde), or the
+    plain version stacked the same way."""
+    import torch
+
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    if not plain:
+        return kernels.perm_quotient(*inputs)
+    return torch.stack(on_plain(lambda: prove.perm_quotient_terms_plain(*inputs)))
+
+
+# 32 x 32 multiply-adds, in the cheapest form known (a 64 x 64 product is 4,
+# its reduction one more, a multiply-accumulate into the column sums 4):
+# the openings, per coefficient and point, two multiply-accumulates, and per
+# column and point one ext product for z^c (four multiply-accumulates and two
+# reductions); the permutation terms, per column and challenge, per chunk of
+# 8 wires 8 + 8 products for the factors and 7 + 7 for the running products,
+# 2 for the chain terms and 2 multiply-accumulates by alpha, and for term 0
+# one product and 2 multiply-accumulates.
+OPEN_MADS_PER_COEFF_POINT = 2 * 4
+OPEN_MADS_PER_COLUMN_POINT = 4 * 4 + 2
+PERM_MADS_PER_COLUMN = 2 * ((NUM_ROUTED // PERM_CHUNK) * ((2 * PERM_CHUNK + 2 * (PERM_CHUNK - 1) + 2) * 5
+                                                          + 2 * 4) + 5 + 2 * 4)
+
+
+def check_fused_field_kernels(torch, chk: Checker, rng, card: str) -> dict:
+    """Both fused kernels of csrc/field.cu against their plain versions at the
+    main path's shapes: phase 7's four opening batches at 2^18 coefficients
+    (12 points) and the permutation terms at (80, 2^21) with 2 challenges and
+    chunk 8, edge words included; then at 2^12 with edge points.  Each call
+    must launch only its plan's launches (no field_binary_kernel); each is
+    timed with CUDA events beside its bound, its plain version and the eager
+    chain of field.cu ops it replaces."""
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    out = {}
+    batches = opening_inputs(rng, LOG_N)
+    plans = [kernels.field_open_plan(c.shape[0], c.shape[1], zr.shape[0]) for _, c, zr, _ in batches]
+    before = kernels.launches["field"]
+    got = open_all(batches)
+    if kernels.launches["field"] - before != sum(p["launches"] for p in plans):
+        fail(f"openings: {kernels.launches['field'] - before} field launches, the plans' are "
+             f"{[p['launches'] for p in plans]}")
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(open_all(batches, plain=True)), 1)
+    for (tag, *_), g, w in zip(batches, got, plain[-1]):
+        chk.same("field", g[0], w[0], f"openings {tag}, real parts")
+        chk.same("field", g[1], w[1], f"openings {tag}, imaginary parts")
+    del plain, got
+    ms = cuda_ms(lambda: open_all(batches), 9)
+    before = kernels.launches["field"]
+    # the plain version's field ops on CUDA tensors: one field_binary_kernel each
+    chain_ms = cuda_ms(lambda: [prove._open_core_plain(c, zr, zi) for _, c, zr, zi in batches], 1)
+    chain_launches = kernels.launches["field"] - before
+    coeffs = sum(c.numel() for _, c, _, _ in batches)
+    nbytes = coeffs * 8 + sum(2 * zr.numel() * c.shape[0] * 8 for _, c, zr, _ in batches)
+    mads = sum(c.numel() * zr.numel() * OPEN_MADS_PER_COEFF_POINT
+               + c.shape[1] * zr.numel() * OPEN_MADS_PER_COLUMN_POINT for _, c, zr, _ in batches)
+    out["field_open_kernel"] = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                                    chain_launches=chain_launches,
+                                    launches=sum(p["launches"] for p in plans),
+                                    **dict(zip(("bound_ms", "bound_by"), bound_of(nbytes, mads))))
+    log(f"[7] openings, the four batches of phase 7 (92, 184, 20, 16 rows of 2^{LOG_N}; 12 points): "
+        f"field_open_kernel {ms:.3f} ms in {out['field_open_kernel']['launches']} launches, its words "
+        f"== the plain version's ({plain_ms:.3f} ms); the eager chain on field.cu it replaces "
+        f"{chain_ms:.3f} ms in {chain_launches} launches; bound {out['field_open_kernel']['bound_ms']:.4f} "
+        f"ms by {out['field_open_kernel']['bound_by']} ({nbytes} bytes, {mads} multiply-adds; "
+        f"{out['field_open_kernel']['bound_ms'] / ms:.1%} of the kernel's time) [{card}]")
+    for tag, c, zr, zi in batches:
+        one = [(tag, c, zr, zi)]
+        per = cuda_ms(lambda: open_all(one), 9)
+        log(f"[7] openings {tag} ({c.shape[0]}, 2^{LOG_N}) at {zr.numel()} points: {per:.3f} ms, "
+            f"plan {kernels.field_open_plan(c.shape[0], c.shape[1], zr.numel())} [{card}]")
+    del batches
+    # edge points at 2^12: zeta with words at the ends of the range
+    for zeta in ((gl.P - 1, 1 << 63), (0, 1), (1 << 32, gl.P - 1)):
+        small = opening_inputs(rng, 12, zeta)
+        for (tag, *_), g, w in zip(small, open_all(small), open_all(small, plain=True)):
+            chk.same("field", g[0], w[0], f"openings {tag} at 2^12, zeta {zeta}, real parts")
+            chk.same("field", g[1], w[1], f"openings {tag} at 2^12, zeta {zeta}, imaginary parts")
+    torch.cuda.synchronize()
+
+    inputs = perm_inputs(rng, LOG_N + RATE_BITS)
+    before = kernels.launches["field"]
+    got = perm_terms(inputs)
+    if kernels.launches["field"] - before != 1:
+        fail(f"permutation terms: {kernels.launches['field'] - before} field launches, the plan is 1")
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(perm_terms(inputs, plain=True)), 1)
+    chk.same("field", got, plain[-1], f"permutation terms at (80, 2^{LOG_N + RATE_BITS})")
+    del plain
+    ms = cuda_ms(lambda: perm_terms(inputs), 9)
+    before = kernels.launches["field"]
+    chain_ms = cuda_ms(lambda: prove.perm_quotient_terms_plain(*inputs), 1)
+    chain_launches = kernels.launches["field"] - before
+    n_lde = 1 << (LOG_N + RATE_BITS)
+    rows_read = 2 * NUM_ROUTED + NUM_Z + 2  # wires, sigmas, Z rows, x, l0
+    bound = bound_of((rows_read + 2) * n_lde * 8, PERM_MADS_PER_COLUMN * n_lde)
+    out["perm_quotient_kernel"] = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                                       chain_launches=chain_launches, launches=1,
+                                       **dict(zip(("bound_ms", "bound_by"), bound)))
+    r = out["perm_quotient_kernel"]
+    log(f"[7] permutation terms at (80, 2^{LOG_N + RATE_BITS}), 2 challenges, chunk 8: "
+        f"perm_quotient_kernel {ms:.3f} ms in 1 launch, its words == the plain version's "
+        f"({plain_ms:.3f} ms); the eager chain on field.cu it replaces {chain_ms:.3f} ms in "
+        f"{chain_launches} launches; bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({rows_read} "
+        f"rows read, 2 written; {PERM_MADS_PER_COLUMN} multiply-adds a column; "
+        f"{r['bound_ms'] / ms:.1%} of the kernel's time) [{card}]")
+    del inputs, got
+    for log_n_lde in (7, 12):  # every column's next row and the roll's wrap in a small domain
+        small = perm_inputs(rng, log_n_lde)
+        chk.same("field", perm_terms(small), perm_terms(small, plain=True),
+                 f"permutation terms at (80, 2^{log_n_lde})")
+    torch.cuda.synchronize()
+    return out
+
+
+def eager_chains():
+    """A context in which the two fused kernels' wrappers run the eager chains
+    of field.cu ops that they replaced (a number for the record, not a path
+    of prove)."""
+    import torch
+
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    return mock.patch.multiple(
+        kernels, field_open=prove._open_core_plain,
+        perm_quotient=lambda *args: torch.stack(prove.perm_quotient_terms_plain(*args)))
+
+
+def fused_against_eager_chains(torch, pd, witness, proof, card: str) -> None:
+    """Phase 7's prove with the fused kernels and with the eager chains they
+    replaced, in turns (eager, fused, fused, eager) on one card: the phases'
+    times, and the proofs must be equal."""
+    import contextlib
+
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+    from eth_lc_plonky2_tpu_torch.prover.profiler import Profiler
+
+    want = proof_dict(proof)
+    for fused in (False, True, True, False):
+        prof = Profiler(enabled=True)
+        before = kernels.launches["field"]
+        with contextlib.nullcontext() if fused else eager_chains():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = prove.prove(pd, witness, prof=prof)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        if (where := first_difference(proof_dict(got), want)):
+            fail(f"[7] the proof on the {'fused kernels' if fused else 'eager chains'} differs at {where}")
+        log(f"[7] prove with the {'fused kernels' if fused else 'eager chains on field.cu'}: "
+            f"{wall:.2f} ms, openings {prof.times['openings'] * 1e3:.3f} ms, quotient "
+            f"{prof.times['quotient'] * 1e3:.3f} ms, {kernels.launches['field'] - before} field "
+            f"launches; the proof is the same [{card}]")
 
 
 def forged_witness(data, witness, gate_name: str):
@@ -1369,8 +1653,9 @@ def phase7(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     check_proof(data, vk, proof, witness, "[7] 2^18 rows")
     check_light_client_outputs(proof, leaves, first_state, POSEIDON_CHAIN_ROWS, "[7] 2^18 rows")
     res = profile_prove(torch, "[7]", pd, witness, proof, card, LC_STEADY_FIELD_LAUNCHES, 2,
-                        free_runs=3)
+                        free_runs=1)
     check_forged_rejected(data, vk, pd, witness, "[7] 2^18 rows")
+    fused_against_eager_chains(torch, pd, witness, proof, card)
 
     # the quotient phase with the gates on the generic loop on csrc/field.cu (a
     # number for the record, not a path of prove): the gates' own kernels are
@@ -1387,8 +1672,17 @@ def phase7(torch, chk: Checker, rng, card: str, seed: int) -> dict:
         f"{prof.times['quotient'] * 1e3:.3f} ms (one prove); the two proofs are equal [{card}]")
     del pd
     gates_res = measure_gate_kernels(torch, chk, rng, card)
+    fused_res = check_fused_field_kernels(torch, chk, rng, card)
     return {"launches": launched, "prove_ms": res["prove_ms"], "phase_ms": res["phase_ms"],
-            "gates": gates_res}
+            "gates": gates_res, "fused": fused_res}
+
+
+def summed(parts: dict) -> dict:
+    """One source's kernels added up: times and bounds summed; bound by bytes
+    only if every part is."""
+    by = {p["bound_by"] for p in parts.values()}
+    return {key: sum(p[key] for p in parts.values()) for key in ("ms", "plain_ms", "bound_ms")} | {
+        "bound_by": by.pop() if len(by) == 1 else "operations"}
 
 
 def main() -> int:
@@ -1399,20 +1693,33 @@ def main() -> int:
 
     import eth_lc_plonky2_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    t_start = time.perf_counter()
     card = phase0(torch)
-    phase1()
     rng = np.random.default_rng(args.seed)
     chk = Checker()
-    phase2(torch, chk, rng)
-    phase3(torch)
-    res = phase4(torch, chk, rng, card)
-    phase5(torch)
-    whole = phase6(torch, chk, rng, card, args.seed)
-    lc = phase7(torch, chk, rng, card, args.seed)
+
+    def timed(k: int, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        log(f"[{k}] phase {k} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed(1, phase1)
+    timed(2, phase2, torch, chk, rng)
+    timed(3, phase3, torch)
+    res = timed(4, phase4, torch, chk, rng, card)
+    timed(5, phase5, torch)
+    whole = timed(6, phase6, torch, chk, rng, card, args.seed)
+    lc = timed(7, phase7, torch, chk, rng, card, args.seed)
     # the launches are those of the newest main path, phase 7's first prove (it
     # runs every kernel source); phases 4 and 6 have held their own above
     launches = lc["launches"]
     sha_gate, poseidon_gate = lc["gates"]["sha256"], lc["gates"]["poseidon"]
+    # field.cu: the elementwise kernels at their table shape ((8, 2^21) mul),
+    # and the two fused kernels at the main path's shapes; the entry adds the
+    # three up, as the gates entry its two
+    binary = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), whole["field"]))
+    field_parts = {"field_binary_kernel": binary, **lc["fused"]}
     kernels_line = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/ntt.cu",
          "replaces": "eth_lc_plonky2_tpu/ops/pallas/ntt_mxu.py:165",
@@ -1426,24 +1733,21 @@ def main() -> int:
          "ms": res["poseidon"][0], "plain_ms": res["poseidon"][1],
          "bound_ms": res["poseidon"][2], "bound_by": res["poseidon"][3], "library_ms": None},
         {"name": "field", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/field.cu",
-         "replaces": "eth_lc_plonky2_tpu/ops/goldilocks.py:143-301 (XLA-fused, no Pallas kernel)",
+         "replaces": "eth_lc_plonky2_tpu/ops/goldilocks.py:143-301, "
+                     "eth_lc_plonky2_tpu/prover/prove.py:551 and :457-481 (XLA-fused, no Pallas kernel)",
          "launches": launches["field"], "max_abs_err": chk.err["field"],
-         "ms": whole["field"][0], "plain_ms": whole["field"][1], "bound_ms": whole["field"][2],
-         "bound_by": whole["field"][3], "library_ms": None},
+         **summed(field_parts), "library_ms": None, "by_kernel": field_parts},
         # one source, two kernels, one launch each a proof: the times are the
         # two kernels' at (184, 2^21) added up, and "by_kernel" has each alone
         {"name": "gates", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/gates.cu",
          "replaces": "eth_lc_plonky2_tpu/circuit/gates_sha256.py:223 and "
                      "eth_lc_plonky2_tpu/circuit/gates_poseidon.py:133 (XLA-fused, no Pallas kernel)",
          "launches": launches["gates"], "max_abs_err": chk.err["gates"],
-         "ms": sha_gate["ms"] + poseidon_gate["ms"],
-         "plain_ms": sha_gate["plain_ms"] + poseidon_gate["plain_ms"],
-         "bound_ms": sha_gate["bound_ms"] + poseidon_gate["bound_ms"],
-         "bound_by": sha_gate["bound_by"] if sha_gate["bound_by"] == poseidon_gate["bound_by"]
-         else "operations", "library_ms": None,
+         **summed({"sha": sha_gate, "poseidon": poseidon_gate}), "library_ms": None,
          "by_kernel": {"sha_gate_quotient_kernel": sha_gate,
                        "poseidon_gate_quotient_kernel": poseidon_gate}},
     ]}
+    log(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

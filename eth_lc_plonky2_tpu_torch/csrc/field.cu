@@ -1,27 +1,71 @@
-// Elementwise Goldilocks field operations: add, sub, mul of two operands
-// with broadcasting, and the multiplicative inverse.
+// Goldilocks field kernels: the elementwise operations, and two fused
+// passes of the prover that eager PyTorch would run as long chains of them.
 //
-// Replaces eth_lc_plonky2_tpu/ops/goldilocks.py:143-301 (`add`, `sub`,
-// `mul`, `square`, `inv`).  The JAX package has no Pallas kernel for them:
-// XLA fuses the u32-limb arithmetic into its neighbours on the TPU.  Eager
-// PyTorch does not fuse, and a product written as tensor ops is some 35
-// launches and as many passes over the array, so on the card each operation
-// is one launch here: one load an operand, one store an element.
+// 1. field_binary_kernel, field_inv_kernel: add, sub, mul of two operands
+//    with broadcasting, and the multiplicative inverse.  Replace
+//    eth_lc_plonky2_tpu/ops/goldilocks.py:143-301 (`add`, `sub`, `mul`,
+//    `square`, `inv`).  The JAX package has no Pallas kernel for them: XLA
+//    fuses the u32-limb arithmetic into its neighbours on the TPU.  Eager
+//    PyTorch does not fuse, and a product written as tensor ops is some 35
+//    launches and as many passes over the array, so on the card each
+//    operation is one launch here: one load an operand, one store an element.
 //
-// Addressing.  The output is a contiguous (rows, cols) array.  Each operand
-// is read at base[r * stride_r + c * stride_c] (strides in words), so the
-// wrapper passes 0 for a broadcast axis: a scalar is (0, 0), a row (1, n)
-// against (r, n) is (0, 1), a column (r, 1) is (1, 0), and a strided slice
-// keeps its own strides.  Threads run along cols, so neighbouring threads
-// read neighbouring words of every operand that has stride_c = 1.
+//    Addressing.  The output is a contiguous (rows, cols) array.  Each
+//    operand is read at base[r * stride_r + c * stride_c] (strides in words),
+//    so the wrapper passes 0 for a broadcast axis: a scalar is (0, 0), a row
+//    (1, n) against (r, n) is (0, 1), a column (r, 1) is (1, 0), and a strided
+//    slice keeps its own strides.  Threads run along cols, so neighbouring
+//    threads read neighbouring words of every operand that has stride_c = 1.
 //
-// What bounds it: memory traffic.  A binary op on same-shape operands moves
-// 24 bytes an element (0.120 ms for (8, 2^21) at 3.35 TB/s) against one
-// 64 x 64 product and its reduction, about 20 integer instructions.  The
-// inverse is bound by operations: the Fermat power a^(p-2) is 63 squarings
-// and 9 products in registers (the addition chain through a^(2^31 - 1)),
-// against 16 bytes an element; as tensor ops it was about 125 products of
-// 35 passes each.
+//    What bounds it: memory traffic.  A binary op on same-shape operands
+//    moves 24 bytes an element (0.120 ms for (8, 2^21) at 3.35 TB/s) against
+//    one 64 x 64 product and its reduction, about 20 integer instructions.
+//    The inverse is bound by operations: the Fermat power a^(p-2) is 63
+//    squarings and 9 products in registers (the addition chain through
+//    a^(2^31 - 1)), against 16 bytes an element; as tensor ops it was about
+//    125 products of 35 passes each.
+//
+// 2. field_open_kernel (+ field_open_sum_kernel): the openings, the values of
+//    (rows, n) base-field coefficient rows at k points of the quadratic
+//    extension, sum_c coeffs[r][c] * z_j^c.  Replaces what XLA fuses of
+//    eth_lc_plonky2_tpu/prover/prove.py:551 `_open_core` (ext powers by
+//    log-doubling, two products and two sums over (rows, n) a point), which
+//    eager PyTorch ran as some 276 launches a point.  A block owns a slice of
+//    columns and a group of rows; each warp takes one point and a few rows,
+//    so the block's warps read the same coefficient words (from device memory
+//    once, then from L1) for all of its points.  A thread works out z^c for
+//    its columns in registers, z^c0 by square-and-multiply and then steps of
+//    z^32, and accumulates coeff * re and coeff * im in 96-bit column sums
+//    (gl::Acc: one reduction an output word).  A warp adds up its lanes with
+//    shuffles and writes one partial sum a row, point and slice; a second,
+//    small launch adds the slices.  What bounds it: operations, two 64 x 64
+//    products a coefficient a point (W: 184 x 2^18 words at 8 points), a
+//    little above the bytes' time for phase 7's four batches; the powers cost
+//    one ext product a column a point a thread besides (about a third of a
+//    lane's instructions at 4 rows a thread), and a column's words are loaded
+//    one column ahead.
+//
+// 3. perm_quotient_kernel: the permutation argument's terms of the quotient,
+//    for both challenges, in one pass: term 0, l0 * (Z - 1), and for each
+//    chunk k of `chunk` routed columns
+//        chain[k+1] * prod_i (w_i + beta sigma_i + gamma)
+//          - chain[k] * prod_i (w_i + beta k_i x + gamma),
+//    each times its power of alpha, summed into one accumulator a challenge
+//    (chain = [Z, partials..., Z at the next row]).  Replaces what XLA fuses
+//    of eth_lc_plonky2_tpu/prover/prove.py:457-481 inside the jitted quotient
+//    (:534); eager PyTorch ran it as some 358 launches over (8, n_lde)
+//    temporaries.  One thread a column keeps both challenges' running
+//    products in registers; beta k_i, the alpha powers, beta and gamma sit in
+//    shared memory; the routed wires and sigma rows are read through their
+//    row strides (sigma as rows of the preprocessed LDE, no copy), and Z at
+//    the next row is column (x + 2^rate) mod n_lde, as ops/ntt.py `roll_lde`.
+//    What bounds it: memory, 182 words read and 2 written a column (80 wires,
+//    80 sigmas, 20 Z rows, x, l0; 3.1 GB at 2^21) against 686 products; each
+//    word is loaded one step ahead of its use.
+//
+// All results are canonical and the field is exact, so every word equals
+// the plain versions' (prover/prove.py `_open_core_plain`,
+// `perm_quotient_terms_plain`) whatever the order of the sums.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -88,6 +132,227 @@ field_inv_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, lo
   }
 }
 
+// ---------------------------------------------------------------------------
+// The openings
+// ---------------------------------------------------------------------------
+
+// The tiling; ops/kernels.py `field_open_plan` mirrors it.
+constexpr int OPEN_WARPS = 8;      // warps a block: points_per_block x row subgroups
+constexpr int OPEN_ROWS = 4;       // rows a thread (two column sums each)
+constexpr int OPEN_MAX_COLS = 128; // columns a thread a slice (gl::Acc takes 2^8 products)
+
+// a + b phi in GF(p^2) = GF(p)[phi] / (phi^2 - 7), lazy words.
+struct Ext {
+  uint64_t re, im;
+};
+
+// lazy x lazy -> lazy; b_im7 = 7 * b.im (canonical), so that
+// (a + a' phi)(b + b' phi) = (a b + a' 7b') + (a b' + a' b) phi is two sums of
+// two products each.
+__device__ __forceinline__ Ext ext_mul_by(Ext a, Ext b, uint64_t b_im7) {
+  gl::Acc re, im;
+  re.mac(a.re, b.re);
+  re.mac(a.im, b_im7);
+  im.mac(a.re, b.im);
+  im.mac(a.im, b.re);
+  return {re.reduce_lazy(), im.reduce_lazy()};
+}
+
+__device__ __forceinline__ Ext ext_mul(Ext a, Ext b) { return ext_mul_by(a, b, gl::mul(b.im, 7)); }
+
+// z^e by square-and-multiply, lazy.
+__device__ Ext ext_pow(Ext z, unsigned long long e) {
+  Ext r{1, 0};
+  while (e) {
+    if (e & 1) r = ext_mul(r, z);
+    e >>= 1;
+    if (e) z = ext_mul(z, z);
+  }
+  return r;
+}
+
+__device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
+  for (int off = 16; off; off >>= 1)
+    v = gl::add(v, (uint64_t)__shfl_down_sync(0xffffffffu, (unsigned long long)v, off));
+  return v;
+}
+
+// Block b = (row group g, slice s) = (b / slices, b % slices) of blockIdx.x
+// and point group blockIdx.y.  Warp w takes point
+// blockIdx.y * points_per_block + w % points_per_block and rows
+// g * rows_per_block + (w / points_per_block) * OPEN_ROWS + q, q < OPEN_ROWS;
+// lane l takes columns s * 32 * cols + l + 32 i, i < cols.  Coefficient
+// (r, c) is coeffs[r * stride + c].  Writes the canonical partial sums
+// partial[((s * 2 + part) * k + j) * rows + r], part 0 the real one.
+__global__ void __launch_bounds__(32 * OPEN_WARPS)
+field_open_kernel(const uint64_t* __restrict__ coeffs, long long stride, long long rows,
+                  long long n, const uint64_t* __restrict__ z_re,
+                  const uint64_t* __restrict__ z_im, int k, int points_per_block,
+                  long long slices, int cols, uint64_t* __restrict__ partial) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = warp / points_per_block;
+  const int j = blockIdx.y * points_per_block + warp % points_per_block;
+  const long long s = blockIdx.x % slices;
+  const long long r0 =
+      (blockIdx.x / slices) * (long long)(OPEN_WARPS / points_per_block) * OPEN_ROWS +
+      (long long)sub * OPEN_ROWS;
+  // uniform across a warp: a warp without a point or rows has nothing to do
+  const bool active = sub < OPEN_WARPS / points_per_block && j < k && r0 < rows;
+  gl::Acc re[OPEN_ROWS], im[OPEN_ROWS];
+  if (active) {
+    const Ext z{z_re[j], z_im[j]};
+    const Ext step = ext_pow(z, 32);
+    const uint64_t step_im7 = gl::mul(step.im, 7);
+    const long long c0 = s * 32ll * cols + lane;
+    Ext zc = ext_pow(z, (unsigned long long)c0);
+    // a column's words are loaded one column ahead, so that their latency
+    // hides behind a column of arithmetic
+    uint64_t cur[OPEN_ROWS], ahead[OPEN_ROWS];
+    const auto load = [&](long long c, uint64_t* w) {
+#pragma unroll
+      for (int q = 0; q < OPEN_ROWS; ++q)
+        w[q] = c < n && r0 + q < rows ? coeffs[(r0 + q) * stride + c] : 0;
+    };
+    load(c0, cur);
+    for (int i = 0; i < cols; ++i) {
+      const long long c = c0 + 32ll * i;
+      if (c >= n) break;
+      load(i + 1 < cols ? c + 32 : n, ahead);
+#pragma unroll
+      for (int q = 0; q < OPEN_ROWS; ++q) {
+        re[q].mac(cur[q], zc.re);
+        im[q].mac(cur[q], zc.im);
+        cur[q] = ahead[q];
+      }
+      zc = ext_mul_by(zc, step, step_im7);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < OPEN_ROWS; ++q) {
+    const uint64_t a = warp_sum(gl::canon(re[q].reduce_lazy()));
+    const uint64_t b = warp_sum(gl::canon(im[q].reduce_lazy()));
+    if (active && lane == 0 && r0 + q < rows) {
+      partial[((s * 2) * k + j) * rows + r0 + q] = a;
+      partial[((s * 2 + 1) * k + j) * rows + r0 + q] = b;
+    }
+  }
+}
+
+// out[i] = sum_s partial[s * count + i], canonical.
+__global__ void __launch_bounds__(256)
+field_open_sum_kernel(const uint64_t* __restrict__ partial, long long slices, long long count,
+                      uint64_t* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  uint64_t v = 0;
+  for (long long s = 0; s < slices; ++s) v = gl::add(v, partial[s * count + i]);
+  out[i] = v;
+}
+
+// ---------------------------------------------------------------------------
+// The permutation terms of the quotient
+// ---------------------------------------------------------------------------
+
+constexpr int PERM_CHALLENGES = 2;   // the prover's two challenges, one launch
+constexpr int PERM_MAX_ROUTED = 256; // routed wires (shared memory for beta k_i)
+constexpr int PERM_MAX_CHUNKS = 64;  // chunks: alpha^0 .. alpha^m in shared memory
+
+struct PermArgs {
+  const uint64_t* wires;  // routed wire i at column x: wires[i * wires_stride + x]
+  long long wires_stride;
+  const uint64_t* sigma;  // sigma_i at column x: sigma[i * sigma_stride + x]
+  long long sigma_stride;
+  const uint64_t* zs;  // challenge j's Z at row j * m, its partials at j * m + 1 + k
+  long long zs_stride;
+  const uint64_t* x;   // the LDE coset's points
+  const uint64_t* l0;  // the first Lagrange polynomial on it
+  const uint64_t* k_shifts;  // (routed,)
+  const uint64_t* betas;     // (2,)
+  const uint64_t* gammas;    // (2,)
+  const uint64_t* alpha[PERM_CHALLENGES];  // alpha_j^0 .. alpha_j^m
+  long long n_lde;  // a power of two
+  long long next;   // 2^rate: the column of the next trace row
+  int routed, chunk;
+};
+
+// out[j * n_lde + x] = sum_k alpha_j^k * term_k(x), canonical.
+__global__ void __launch_bounds__(256)
+perm_quotient_kernel(PermArgs a, uint64_t* __restrict__ out) {
+  constexpr int NC = PERM_CHALLENGES;
+  static_assert(NC == 2, "the alpha rows below are written out for two challenges");
+  __shared__ uint64_t beta_k[NC][PERM_MAX_ROUTED];
+  __shared__ uint64_t alpha[NC][PERM_MAX_CHUNKS + 1];
+  __shared__ uint64_t beta[NC], gamma[NC];
+  const int m = a.routed / a.chunk;
+  for (int t = threadIdx.x; t < NC * a.routed; t += blockDim.x)
+    beta_k[t / a.routed][t % a.routed] = gl::mul(a.betas[t / a.routed], a.k_shifts[t % a.routed]);
+  for (int t = threadIdx.x; t <= m; t += blockDim.x) {
+    alpha[0][t] = a.alpha[0][t];
+    alpha[1][t] = a.alpha[1][t];
+  }
+  if (threadIdx.x < NC) {
+    beta[threadIdx.x] = a.betas[threadIdx.x];
+    gamma[threadIdx.x] = a.gammas[threadIdx.x];
+  }
+  __syncthreads();
+  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= a.n_lde) return;
+  const uint64_t xv = a.x[x];
+  const uint64_t l0 = a.l0[x];
+  const long long x_next = (x + a.next) & (a.n_lde - 1);
+  // the sum of the terms as two sums: sum alpha * (chain[k+1] * den_k) and
+  // sum alpha * (chain[k] * num_k), l0 * Z and l0 for term 0
+  gl::Acc pos[NC], neg[NC];
+  uint64_t prev[NC];  // chain[k]
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const uint64_t z = a.zs[(long long)j * m * a.zs_stride + x];
+    pos[j].mac(alpha[j][0], gl::mul_lazy(l0, z));
+    neg[j].mac(alpha[j][0], l0);
+    prev[j] = z;
+  }
+  // each word is loaded one wire (a chain word one chunk) ahead of its use,
+  // so that its latency hides behind the arithmetic
+  uint64_t w = a.wires[x], sg = a.sigma[x];
+  for (int c = 0; c < m; ++c) {
+    uint64_t next[NC];  // chain[k+1]
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      next[j] = c + 1 < m ? a.zs[((long long)j * m + c + 1) * a.zs_stride + x]
+                          : a.zs[(long long)j * m * a.zs_stride + x_next];
+    uint64_t num[NC], den[NC];  // lazy running products of the chunk
+    for (int i = 0; i < a.chunk; ++i) {
+      const int col = c * a.chunk + i;
+      uint64_t w_ahead = 0, sg_ahead = 0;
+      if (col + 1 < a.routed) {
+        w_ahead = a.wires[(long long)(col + 1) * a.wires_stride + x];
+        sg_ahead = a.sigma[(long long)(col + 1) * a.sigma_stride + x];
+      }
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const uint64_t wg = gl::add(w, gamma[j]);
+        const uint64_t nt = gl::mul_add_lazy(beta_k[j][col], xv, wg);  // w + beta k_i x + gamma
+        const uint64_t dt = gl::mul_add_lazy(beta[j], sg, wg);          // w + beta sigma_i + gamma
+        num[j] = i ? gl::mul_lazy(num[j], nt) : nt;
+        den[j] = i ? gl::mul_lazy(den[j], dt) : dt;
+      }
+      w = w_ahead;
+      sg = sg_ahead;
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      pos[j].mac(alpha[j][c + 1], gl::mul_lazy(next[j], den[j]));
+      neg[j].mac(alpha[j][c + 1], gl::mul_lazy(prev[j], num[j]));
+      prev[j] = next[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+    out[(long long)j * a.n_lde + x] =
+        gl::sub(gl::canon(pos[j].reduce_lazy()), gl::canon(neg[j].reduce_lazy()));
+}
+
 unsigned blocks_for(long long count, int threads, long long most) {
   long long blocks = (count + threads - 1) / threads;
   if (blocks > most) blocks = most;
@@ -121,5 +386,50 @@ extern "C" int elp_field_inv(const void* in, void* out, long long n, int threads
   field_inv_kernel<<<blocks_for(n, threads, 1ll << 30), threads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out), n);
+  return (int)cudaGetLastError();
+}
+
+// One launch of field_open_kernel: grid (slices x row groups, point groups).
+extern "C" int elp_field_open(const void* coeffs, long long stride, long long rows, long long n,
+                              const void* z_re, const void* z_im, int k, int points_per_block,
+                              long long slices, int cols, long long row_groups,
+                              long long point_groups, void* partial, void* stream) {
+  if (points_per_block < 1 || points_per_block > OPEN_WARPS || cols < 1 ||
+      cols > OPEN_MAX_COLS || slices < 1 || row_groups < 1 || point_groups < 1 ||
+      slices * row_groups > 0x7FFFFFFFll || point_groups > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(slices * row_groups), (unsigned)point_groups);
+  field_open_kernel<<<grid, 32 * OPEN_WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(coeffs), stride, rows, n, static_cast<const uint64_t*>(z_re),
+      static_cast<const uint64_t*>(z_im), k, points_per_block, slices, cols,
+      static_cast<uint64_t*>(partial));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int elp_field_open_sum(const void* partial, long long slices, long long count,
+                                  void* out, int threads, void* stream) {
+  field_open_sum_kernel<<<blocks_for(count, threads, 1ll << 30), threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(partial), slices, count, static_cast<uint64_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// One launch for the two challenges; `out` is (2, n_lde) and overlaps no input.
+extern "C" int elp_perm_quotient(const void* wires, long long wires_stride, const void* sigma,
+                                 long long sigma_stride, const void* zs, long long zs_stride,
+                                 const void* x, const void* l0, const void* k_shifts,
+                                 const void* betas, const void* gammas, const void* alpha0,
+                                 const void* alpha1, long long n_lde, int rate, int routed,
+                                 int chunk, void* out, int threads, void* stream) {
+  if (n_lde < 1 || (n_lde & (n_lde - 1)) || rate < 0 || rate > 30 || chunk < 1 ||
+      routed < chunk || routed % chunk || routed > PERM_MAX_ROUTED ||
+      routed / chunk > PERM_MAX_CHUNKS || threads < 1 || threads > 256)
+    return (int)cudaErrorInvalidValue;
+  const auto w = [](const void* p) { return static_cast<const uint64_t*>(p); };
+  const PermArgs a{w(wires), wires_stride, w(sigma), sigma_stride, w(zs), zs_stride, w(x), w(l0),
+                   w(k_shifts), w(betas), w(gammas), {w(alpha0), w(alpha1)}, n_lde,
+                   1ll << rate, routed, chunk};
+  perm_quotient_kernel<<<blocks_for(n_lde, threads, 1ll << 30), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a, static_cast<uint64_t*>(out));
   return (int)cudaGetLastError();
 }

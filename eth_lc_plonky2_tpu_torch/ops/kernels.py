@@ -41,6 +41,17 @@ NTT_THREADS = 256
 POSEIDON_THREADS = 256  # csrc/poseidon.cu: __launch_bounds__(256, ...), the most it takes
 FIELD_THREADS = 256  # csrc/field.cu: __launch_bounds__(256)
 FIELD_OPS = {"add": 0, "sub": 1, "mul": 2}  # csrc/field.cu: OP_ADD, OP_SUB, OP_MUL
+# csrc/field.cu's openings: OPEN_WARPS warps a block, each a point and
+# OPEN_ROWS rows, 16 to OPEN_MAX_COLS columns a lane a slice of the columns
+OPEN_WARPS = 8
+OPEN_ROWS = 4
+OPEN_MAX_COLS = 128
+OPEN_MIN_COLS = 16
+OPEN_MIN_BLOCKS = 2 * 132  # two blocks for each of the H100's 132 SMs, where the columns allow
+# csrc/field.cu's permutation terms: PERM_CHALLENGES, PERM_MAX_ROUTED, PERM_MAX_CHUNKS
+PERM_CHALLENGES = 2
+PERM_MAX_ROUTED = 256
+PERM_MAX_CHUNKS = 64
 GATES_THREADS = 256  # csrc/gates.cu: __launch_bounds__(256)
 GATES_CHALLENGES = 2  # csrc/gates.cu: NCH, the challenges one launch takes (the prover's 2)
 
@@ -108,7 +119,11 @@ def _libraries() -> dict:
                      "elp_merkle_level": [vp, ll, vp, i32, vp],
                      "elp_merkle_tail": [vp, ll, i32, vp, i32, vp]},
         "field": {"elp_field_binary": [i32, vp, ll, ll, vp, ll, ll, vp, ll, ll, i32, vp],
-                  "elp_field_inv": [vp, vp, ll, i32, vp]},
+                  "elp_field_inv": [vp, vp, ll, i32, vp],
+                  "elp_field_open": [vp, ll, ll, ll, vp, vp, i32, i32, ll, i32, ll, ll, vp, vp],
+                  "elp_field_open_sum": [vp, ll, ll, vp, i32, vp],
+                  "elp_perm_quotient": [vp, ll, vp, ll, vp, ll, vp, vp, vp, vp, vp, vp, vp, ll,
+                                        i32, i32, i32, vp, i32, vp]},
         "gates": {"elp_sha_gate_quotient": [vp, ll, ll, i32, ctypes.POINTER(i32), vp, vp, vp, vp,
                                             vp, vp, vp, vp, vp, vp, vp, i32, vp],
                   "elp_poseidon_gate_quotient": [vp, ll, ll, ctypes.POINTER(i32), vp, vp, vp, vp,
@@ -307,6 +322,136 @@ def field_inv(a: torch.Tensor) -> torch.Tensor:
                                               FIELD_THREADS, _stream(x))
     launches["field"] += 1
     _raise_on(err, "field inv")
+    return out
+
+
+def field_open_plan(rows: int, n: int, k: int) -> dict:
+    """How ``field_open_kernel`` tiles the evaluation of (rows, n) coefficients
+    at k points: ``points_per_block`` warps a row subgroup take one point
+    each, a block covers ``rows_per_block`` rows of ``row_groups`` and
+    ``32 * cols`` columns of ``slices``; ``launches`` is 2 when the slices'
+    partial sums need the second, summing launch, else 1.  The columns a
+    lane takes shrink (to OPEN_MIN_COLS) until the grid has OPEN_MIN_BLOCKS
+    blocks or the columns run out."""
+    if rows < 1 or n < 1 or k < 1:
+        raise ValueError(f"field open: {rows} rows of {n} coefficients at {k} points")
+    ppb = min(k, OPEN_WARPS)
+    rows_per_block = (OPEN_WARPS // ppb) * OPEN_ROWS
+    row_groups = -(-rows // rows_per_block)
+    point_groups = -(-k // ppb)
+    cols = OPEN_MAX_COLS
+    while cols > OPEN_MIN_COLS and row_groups * point_groups * -(-n // (32 * cols)) < OPEN_MIN_BLOCKS:
+        cols //= 2
+    cols = min(cols, -(-n // 32))
+    slices = -(-n // (32 * cols))
+    if slices * row_groups >= 1 << 31 or point_groups > 65535:
+        raise ValueError(f"field open: a grid of {slices * row_groups} x {point_groups} blocks")
+    return {"points_per_block": ppb, "rows_per_block": rows_per_block, "row_groups": row_groups,
+            "point_groups": point_groups, "cols": cols, "slices": slices,
+            "launches": 1 if slices == 1 else 2}
+
+
+def field_open(coeffs: torch.Tensor, z_re: torch.Tensor, z_im: torch.Tensor) -> tuple:
+    """Launch ``field_open_kernel`` (and ``field_open_sum_kernel`` over its
+    slices): the values of the (rows, n) coefficient rows at the k ext points
+    (z_re[j], z_im[j]), as (k, rows) real and imaginary words."""
+    for t, name in ((coeffs, "coeffs"), (z_re, "z_re"), (z_im, "z_im")):
+        _check(t, name)
+    if (coeffs.dim() != 2 or coeffs.stride(1) != 1 or coeffs.stride(0) < coeffs.shape[1]
+            or z_re.dim() != 1 or z_re.shape != z_im.shape or not z_re.is_contiguous()
+            or not z_im.is_contiguous() or len({coeffs.device, z_re.device, z_im.device}) != 1):
+        raise ValueError(f"field open: coefficients {tuple(coeffs.shape)} with strides "
+                         f"{coeffs.stride()}, points {tuple(z_re.shape)} and {tuple(z_im.shape)}")
+    rows, n = coeffs.shape
+    k = z_re.shape[0]
+    if rows == 0 or k == 0:
+        empty = torch.empty((k, rows), dtype=torch.int64, device=coeffs.device)
+        return empty, empty.clone()
+    plan = field_open_plan(rows, n, k)
+    lib = _libraries()["field"]
+    partial = torch.empty((plan["slices"], 2, k, rows), dtype=torch.int64, device=coeffs.device)
+    err = lib.elp_field_open(coeffs.data_ptr(), coeffs.stride(0), rows, n, z_re.data_ptr(),
+                             z_im.data_ptr(), k, plan["points_per_block"], plan["slices"],
+                             plan["cols"], plan["row_groups"], plan["point_groups"],
+                             partial.data_ptr(), _stream(coeffs))
+    launches["field"] += 1
+    _raise_on(err, "field open")
+    if plan["slices"] == 1:
+        return partial[0, 0], partial[0, 1]
+    out = torch.empty((2, k, rows), dtype=torch.int64, device=coeffs.device)
+    err = lib.elp_field_open_sum(partial.data_ptr(), plan["slices"], out.numel(), out.data_ptr(),
+                                 FIELD_THREADS, _stream(coeffs))
+    launches["field"] += 1
+    _raise_on(err, "field open sum")
+    return out[0], out[1]
+
+
+def perm_quotient_plan(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas: list,
+                       chunk: int, rate_bits: int) -> dict:
+    """How ``perm_quotient_kernel`` reads its arguments: checks what it assumes
+    and returns the columns, the routed wires, the chunks, the row strides (in
+    words) of the wires, the sigma rows and the Z rows, the column offset of
+    the next trace row and how many alpha powers a challenge it reads.
+
+    ``wires`` and ``sigma`` are (routed, n_lde) views with unit column stride
+    (rows of the wires' and the preprocessed LDE), ``zs`` the (2 m, n_lde) Z
+    rows (Z and its m - 1 partials a challenge), ``x`` and ``l0`` dense
+    (n_lde,) rows, ``k_shifts`` (routed,), ``betas`` and ``gammas`` (2,),
+    ``alphas`` one dense row of at least m + 1 powers a challenge."""
+    routed, n_lde = wires.shape if wires.dim() == 2 else (0, 0)
+    if n_lde < 1 or n_lde & (n_lde - 1):
+        raise ValueError(f"perm quotient: wires of shape {tuple(wires.shape)}")
+    if chunk < 1 or routed % chunk or routed > PERM_MAX_ROUTED or routed // chunk > PERM_MAX_CHUNKS:
+        raise ValueError(f"perm quotient: {routed} routed wires in chunks of {chunk} (at most "
+                         f"{PERM_MAX_ROUTED} wires, {PERM_MAX_CHUNKS} chunks)")
+    m = routed // chunk
+    if len(alphas) != PERM_CHALLENGES:
+        raise ValueError(f"perm quotient: {len(alphas)} alpha rows, the kernel takes "
+                         f"{PERM_CHALLENGES} challenges")
+    shapes = [("wires", wires, (routed, n_lde)), ("sigma", sigma, (routed, n_lde)),
+              ("zs", zs, (PERM_CHALLENGES * m, n_lde)), ("x", x, (n_lde,)), ("l0", l0, (n_lde,)),
+              ("k_shifts", k_shifts, (routed,)), ("betas", betas, (PERM_CHALLENGES,)),
+              ("gammas", gammas, (PERM_CHALLENGES,))]
+    for j, a in enumerate(alphas):
+        if a.dim() != 1 or a.shape[0] < m + 1:
+            raise ValueError(f"perm quotient: alpha row {j} of shape {tuple(a.shape)}, the kernel "
+                             f"reads {m + 1} powers")
+        shapes.append((f"alpha row {j}", a, tuple(a.shape)))
+    for name, t, shape in shapes:
+        if tuple(t.shape) != shape or t.stride(-1) != 1 or t.dtype != torch.int64:
+            raise ValueError(f"perm quotient: {name} of shape {tuple(t.shape)}, strides "
+                             f"{t.stride()}, {t.dtype}, expected {shape} with unit column stride")
+        if len(shape) == 2 and shape[0] > 1 and t.stride(0) < n_lde:
+            raise ValueError(f"perm quotient: {name}'s rows overlap (row stride {t.stride(0)})")
+        if t.device != wires.device:
+            raise ValueError(f"perm quotient: {name} on {t.device}, the wires on {wires.device}")
+    return {"n_lde": n_lde, "routed": routed, "chunks": m, "wires_stride": wires.stride(0),
+            "sigma_stride": sigma.stride(0), "zs_stride": zs.stride(0), "next": 1 << rate_bits,
+            "alpha_terms": m + 1}
+
+
+def perm_quotient(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas: list, chunk: int,
+                  rate_bits: int) -> torch.Tensor:
+    """Launch ``perm_quotient_kernel``: the (2, n_lde) accumulators
+    sum_k alphas[j][k] * term_k of the permutation argument (term 0 is
+    l0 * (Z - 1), term 1 + k chunk k's), as ``perm_quotient_plan`` reads
+    the arguments."""
+    for t, name in ((wires, "wires"), (sigma, "sigma"), (zs, "zs"), (x, "x"), (l0, "l0"),
+                    (k_shifts, "k_shifts"), (betas, "betas"), (gammas, "gammas")):
+        _check(t, name)
+    for j, a in enumerate(alphas):
+        _check(a, f"alpha row {j}")
+    plan = perm_quotient_plan(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas, chunk,
+                              rate_bits)
+    out = torch.empty((PERM_CHALLENGES, plan["n_lde"]), dtype=torch.int64, device=wires.device)
+    err = _libraries()["field"].elp_perm_quotient(
+        wires.data_ptr(), plan["wires_stride"], sigma.data_ptr(), plan["sigma_stride"],
+        zs.data_ptr(), plan["zs_stride"], x.data_ptr(), l0.data_ptr(), k_shifts.data_ptr(),
+        betas.data_ptr(), gammas.data_ptr(), alphas[0].data_ptr(), alphas[1].data_ptr(),
+        plan["n_lde"], rate_bits, plan["routed"], chunk, out.data_ptr(), FIELD_THREADS,
+        _stream(wires))
+    launches["field"] += 1
+    _raise_on(err, "perm quotient")
     return out
 
 

@@ -10,8 +10,11 @@ Port of ``eth_lc_plonky2_tpu/prover/prove.py``:
 Goldilocks arithmetic is exact, so a proof equals the JAX package's byte for
 byte.  There is no ``jit`` and no executable cache here: PyTorch runs
 eagerly, and each field operation on a CUDA tensor is one launch of
-``csrc/field.cu``; the SHA-256 and Poseidon gates' share of the quotient is
-one launch of ``csrc/gates.cu`` each.  The sharded prover's ``put`` argument is not ported.
+``csrc/field.cu``; two chains that XLA fuses for the JAX package are one
+fused kernel of ``csrc/field.cu`` each on the card (the quotient's
+permutation terms, one launch a proof; the openings, at most two a batch),
+and the SHA-256 and Poseidon gates' share of the quotient is one launch of
+``csrc/gates.cu`` each.  The sharded prover's ``put`` argument is not ported.
 
 Host and device traffic: commitments (LDEs, Merkle levels) stay on the
 device for the whole prove; the host sees Merkle caps (for the
@@ -298,6 +301,51 @@ def compute_permutation_polys(pd: ProverData, wires_dev, beta: int, gamma: int):
 # ---------------------------------------------------------------------------
 
 
+def perm_quotient_terms_plain(w_all, sigma_all, zs_lde, x_dev, l0, ks_dev, betas_f, gammas_f,
+                              apows, cs: int, rate: int) -> list:
+    """The permutation argument's terms of the quotient, one (n_lde,)
+    accumulator a challenge j: sum_k apows[j][k] * term_k with term 0 =
+    l0 * (Z_j - 1) and term 1 + k = chain_j[k+1] * prod(w + beta_j sigma +
+    gamma_j) - chain_j[k] * prod(w + beta_j k_i x + gamma_j) over chunk k's
+    cs routed columns, chain_j = [Z_j, its partials, Z_j at the next row].
+
+    The plain version of ``kernels.perm_quotient`` (csrc/field.cu
+    ``perm_quotient_kernel``), on eager field ops; the CPU path.
+    """
+    nr, n_lde = w_all.shape
+    m = nr // cs
+    num_challenges = len(apows)
+    dev = w_all.device
+    one = scalar_f(1, dev)
+    accs = [gl.zeros((n_lde,), dev) for _ in range(num_challenges)]
+
+    def absorb(j: int, idx: int, t):
+        accs[j] = gl.add(accs[j], gl.mul(t, apows[j][idx]))
+
+    chains = []
+    for j in range(num_challenges):
+        z = zs_lde[j * m]
+        partials = [zs_lde[j * m + 1 + k] for k in range(m - 1)]
+        chains.append([z] + partials + [_roll_lde(z, 1, rate)])
+        absorb(j, 0, gl.mul(l0, gl.sub(z, one)))
+    # permutation products a chunk of cs columns at a time: the
+    # (cs, n_lde) products are freed before the next chunk's are made
+    for k in range(m):
+        sl = slice(k * cs, (k + 1) * cs)
+        id_k = gl.mul(ks_dev[sl, None], x_dev[None, :])
+        for j in range(num_challenges):
+            n_k = gl.add(gl.add(w_all[sl], gl.mul(id_k, betas_f[j])), gammas_f[j])
+            acc_n = nttm.prod_field(n_k, axis=0)
+            del n_k
+            d_k = gl.add(gl.add(w_all[sl], gl.mul(sigma_all[sl], betas_f[j])), gammas_f[j])
+            acc_d = nttm.prod_field(d_k, axis=0)
+            del d_k
+            absorb(j, 1 + k, gl.sub(gl.mul(chains[j][k + 1], acc_d),
+                                    gl.mul(chains[j][k], acc_n)))
+        del id_k
+    return accs
+
+
 def make_quotient_kernel(pd: ProverData):
     data = pd.data
     cfg = data.config
@@ -329,7 +377,6 @@ def make_quotient_kernel(pd: ProverData):
                for k, wr in enumerate(pi_roots)]
     del denoms, inv_all
     ks_dev = gl.from_u64(np.asarray(data.k_shifts[:nr], dtype=np.uint64), dev)
-    one = scalar_f(1, dev)
     A = DeviceBaseAlgebra((n_lde,), dev)
 
     def kernel(wires_lde, zs_lde, pre_lde, pi_f, betas_f, gammas_f, alphas_f):
@@ -349,32 +396,18 @@ def make_quotient_kernel(pd: ProverData):
         # constraint index (shared across gates).
         n_terms = 1 + m + num_pi + max_con
         apows = [nttm.powers_device(alphas_f[j], n_terms) for j in range(cfg.num_challenges)]
-        accs = [gl.zeros((n_lde,), dev) for _ in range(cfg.num_challenges)]
 
         def absorb(j: int, idx: int, t):
             accs[j] = gl.add(accs[j], gl.mul(t, apows[j][idx]))
 
-        chains = []
-        for j in range(cfg.num_challenges):
-            z = zs_lde[j * m]
-            partials = [zs_lde[j * m + 1 + k] for k in range(m - 1)]
-            chains.append([z] + partials + [_roll_lde(z, 1, rate)])
-            absorb(j, 0, gl.mul(l0, gl.sub(z, one)))
-        # permutation products a chunk of cs columns at a time: the
-        # (cs, n_lde) products are freed before the next chunk's are made
-        for k in range(m):
-            sl = slice(k * cs, (k + 1) * cs)
-            id_k = gl.mul(ks_dev[sl, None], x_dev[None, :])
-            for j in range(cfg.num_challenges):
-                n_k = gl.add(gl.add(w_all[sl], gl.mul(id_k, betas_f[j])), gammas_f[j])
-                acc_n = nttm.prod_field(n_k, axis=0)
-                del n_k
-                d_k = gl.add(gl.add(w_all[sl], gl.mul(sigma_all[sl], betas_f[j])), gammas_f[j])
-                acc_d = nttm.prod_field(d_k, axis=0)
-                del d_k
-                absorb(j, 1 + k, gl.sub(gl.mul(chains[j][k + 1], acc_d),
-                                        gl.mul(chains[j][k], acc_n)))
-            del id_k
+        # the permutation terms 0..m: one launch of csrc/field.cu for both
+        # challenges on the card, the eager chain on the CPU
+        if kernels.on_card(wires_lde):
+            accs = list(kernels.perm_quotient(w_all, sigma_all, zs_lde, x_dev, l0, ks_dev, betas_f,
+                                              gammas_f, apows, cs, rate))
+        else:
+            accs = perm_quotient_terms_plain(w_all, sigma_all, zs_lde, x_dev, l0, ks_dev, betas_f,
+                                             gammas_f, apows, cs, rate)
 
         for i in range(num_pi):
             c = data.public_input_targets[i].col
@@ -420,8 +453,18 @@ def _open_core(coeffs, z_re_f, z_im_f):
     """Evaluate base-coefficient polys (batch, n) at k ext points.
 
     z_re_f/z_im_f: field tensors of shape (k,).  Returns (re, im) field
-    tensors of shape (k, batch): value of poly b at point j.
+    tensors of shape (k, batch): value of poly b at point j.  On the card
+    this is csrc/field.cu's ``field_open_kernel`` (two launches at most); a
+    CPU tensor runs ``_open_core_plain``.
     """
+    if kernels.on_card(coeffs):
+        return kernels.field_open(coeffs, z_re_f, z_im_f)
+    return _open_core_plain(coeffs, z_re_f, z_im_f)
+
+
+def _open_core_plain(coeffs, z_re_f, z_im_f):
+    """The plain version of ``_open_core``: for each point, its ext powers by
+    log-doubling, then two products with the coefficients and two sums."""
     n = coeffs.shape[-1]
     outs_re, outs_im = [], []
     for j in range(z_re_f.shape[0]):

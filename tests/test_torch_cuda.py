@@ -192,3 +192,51 @@ def test_sha_and_poseidon_proof_on_card_verifies(dev):
         forged = chip_smoke.forged_witness(data, witness, gate_name)
         with pytest.raises(VerificationError):
             verify(data, vk, prove.prove(pd, forged))
+
+
+OPEN_OFFSETS = (0, -1, -2, -3, -4, -7, -15, -16)
+
+
+@pytest.mark.parametrize("zeta", ["seeded", "edge"])
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("log_n", [4, 12, 18])
+def test_field_open_kernel_matches_plain(dev, log_n, k, zeta):
+    """field_open_kernel (and its sum over the slices) against the plain
+    openings on the card: 37 rows read through a row stride wider than n,
+    points zeta * omega^o at phase 7's offsets, edge words in the
+    coefficients and, for "edge", in zeta."""
+    import chip_smoke
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks_ext as ge
+
+    rng = np.random.default_rng(log_n * 10 + k)
+    n, p = 1 << log_n, gl.P
+    wide = _rand((37, n + 8), log_n + k)
+    edge = chip_smoke.field_edge_words()
+    wide[:, : min(n, len(edge))] = edge[: min(n, len(edge))]
+    coeffs = gl.from_u64(wide, dev)[:, :n]
+    z = ((p - 1, 1 << 63) if zeta == "edge"
+         else tuple(int(v) for v in rng.integers(0, p, size=2, dtype=np.uint64)))
+    omega = gl.primitive_root_of_unity(log_n)
+    points = [ge.h_mul(z, (pow(omega, o % n, p), 0)) for o in OPEN_OFFSETS[:k]]
+    z_re = gl.from_u64([q[0] for q in points], dev)
+    z_im = gl.from_u64([q[1] for q in points], dev)
+    before = kernels.launches["field"]
+    got = kernels.field_open(coeffs, z_re, z_im)
+    assert kernels.launches["field"] == before + kernels.field_open_plan(37, n, k)["launches"]
+    want = chip_smoke.on_plain(lambda: prove._open_core_plain(coeffs, z_re, z_im))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("log_n_lde", [7, 12, 15])
+def test_perm_quotient_kernel_matches_plain(dev, log_n_lde):
+    """perm_quotient_kernel against the plain permutation terms on the card:
+    80 routed rows of a 184-row LDE, 80 sigma rows of a 92-row preprocessed
+    LDE (real row strides), random and edge words; at 2^7 the next row of
+    every column in the last 2^3 wraps to the start."""
+    import chip_smoke
+
+    inputs = chip_smoke.perm_inputs(np.random.default_rng(log_n_lde), log_n_lde)
+    before = kernels.launches["field"]
+    got = chip_smoke.perm_terms(inputs)
+    assert kernels.launches["field"] == before + 1
+    assert torch.equal(got, chip_smoke.perm_terms(inputs, plain=True))
