@@ -15,8 +15,9 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      (the one-launch tail of a tree); the shapes that only a whole proof has
      (the grind's sponge of (2^19, 2) and its first witness, FRI's layer tree
      of 2^20 pair leaves, coset_intt of (2, 2^21) and (2, 2^8)); the field kernel's add, sub, mul and inv
-     in every broadcast form at sizes 1, 1023 and 2^21, on edge and seeded
-     words, and inv(x) * x == 1;
+     in every broadcast form at sizes 1, 1023 and 2^21 (views at an odd word
+     offset and of odd length among them), on edge and seeded words, and
+     inv(x) * x == 1;
   3. commit_values on assets/dryrun/pre.npz must reproduce its stored
      coefficients, LDE and every Merkle level;
   4. one proof's three commitments at the flagship width (CircuitConfig
@@ -42,7 +43,8 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      verifier on the proof (every challenge re-derived, the constraint identity
      at zeta, all Merkle paths, FRI's folds, the final polynomial, the PoW).
      The same circuit at 2^12 rows is proved on the kernels and on the plain
-     versions, both on the card, and the two proofs must be equal;
+     versions, both on the card, and the two proofs must be equal; the field
+     kernel's (8, 2^21) product is timed as one call and ten back to back;
   7. a light-client-shaped circuit built with the port's own CircuitBuilder at the
      same widths: the SHA-256 Merkle root of 1,024 seeded leaves (1,023
      two-to-one hashes, 139,128 SHA-256 segment rows and their feed-forward
@@ -57,24 +59,28 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      versions; the 2^18-row proof is made, timed, traced and verified as in
      phase 6, its public inputs must be hashlib's root and the host's Poseidon
      chain, proofs from a forged SHA-256 bit wire and from a forged Poseidon
-     s-box output must be rejected, the launches must be the plan's (one of
-     csrc/gates.cu a gate; csrc/field.cu's fused kernels, one or two an
-     opening batch and one for the permutation terms, also by name in the
-     trace), and the quotient phase is timed once more with the gates on the
-     generic loop (the proof must not change).  Last, csrc/field.cu's two
-     fused kernels against their plain versions at the main path's shapes:
-     the four opening batches at 2^18 coefficients (12 points) and the
-     permutation terms at (80, 2^21) with 2 challenges and chunk 8, edge words
-     included (and edge points at 2^12, a wrapping roll at 2^7), each timed
-     beside its bound, its plain version and the eager chain it replaced.
+     s-box output must be rejected, the launches must be the plan's (three of
+     csrc/gates.cu: the two gates and the generic gates with the public
+     inputs; csrc/field.cu's fused kernels, one or two an opening batch, one
+     for the permutation terms, one for FRI's G and one a FRI fold, also by
+     name in the trace), and the proof is made in turns with the fused
+     kernels and with the eager chains of field.cu ops they replaced (the
+     proof must not change).  Last, the fused kernels against their plain
+     versions at the main path's shapes: the four opening batches at 2^18
+     coefficients (12 points), the permutation terms at (80, 2^21) with 2
+     challenges and chunk 8, the generic gates and 12 public inputs at (184,
+     2^21), G over the four batches at 2^21 with 5 and 12 specs (a zero norm
+     among them) and the fold at every size 2^1 to 2^21, edge words included
+     (and edge points at 2^12, a wrapping roll at 2^7, the small sizes), each
+     timed beside its bound, its plain version and the eager chain it replaced.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on the main path, its error against the plain
 version, and its time beside the plain version's and beside the least time
 the card could take (bound_ms: the larger of bytes over 3.35 TB/s and 32-bit
 integer multiply-adds, counted in the cheapest form known, over 16.75 T/s).
-The launches are phase 7's first prove; the gates entry adds up its two
+The launches are phase 7's first prove; the gates entry adds up its three
 kernels (one launch each a proof) and the field entry its elementwise
-product and its two fused kernels, and each lists them under by_kernel.  No
+product and its four fused kernels, and each lists them under by_kernel.  No
 PyTorch call computes any of these functions, so library_ms is null.
 
 It needs a CUDA device, and no JAX: the port imports neither jax nor the JAX
@@ -117,11 +123,16 @@ DEVICE = "cuda"
 # csrc/field.cu launches of one steady prove of phase 6's circuit: one an eager
 # field op that gives a non-empty result (mul_small by 0 or 1 launches none),
 # two an opening batch (field_open_kernel and its sum over the slices: P, W, Z,
-# Q) and one for the permutation terms.  A change in the number of eager ops
-# shows here.  Recounted from the code when the two fused kernels came: the
-# 3,189 eager launches less 276 an opening point at 2^18 (5 points) and 358
-# for the permutation terms, plus 8 + 1 (3,189 - 1,380 - 358 + 9).
-STEADY_FIELD_LAUNCHES = 1460
+# Q), one for the permutation terms, one for FRI's G and one a FRI fold.  A
+# change in the number of eager ops shows here.  Recounted from the code when
+# the openings and the permutation terms were fused: the 3,189 eager
+# launches less 276 an opening point at 2^18 (5 points) and 358 for the
+# permutation terms, plus 8 + 1 (3,189 - 1,380 - 358 + 9 = 1,460); and when
+# G and the folds were fused and the generic gates went to csrc/gates.cu:
+# less the generic gates' and public inputs' 836 eager ops, G's 270 (its
+# batched inversion among them) and 13 folds of 18, plus 1 + 13
+# (1,460 - 836 - 270 - 234 + 14).
+STEADY_FIELD_LAUNCHES = 134
 
 # The card's peaks (NVIDIA H100 SXM data sheet): 3.35 TB/s of device memory,
 # and 67 TFLOP/s of float32 = 33.5 T multiply-adds/s on 128 lanes an SM, of
@@ -613,6 +624,9 @@ def check_field_kernel(torch, chk: Checker, rng) -> None:
             "strided rows": (a[::2], b[1::2]),
             "3-D (2, r/2, n) by (r/2, 1)": (a[: rows & ~1].reshape(2, rows // 2, n), b[: rows // 2, :1]),
             "column (n, 1) of a narrow array": (a.T[:, :1], b.T[:, 1:2]),
+            "odd word offset": (a.reshape(-1)[1:], b.reshape(-1)[1:]),
+            "odd offset against one word": (a.reshape(-1)[3:], b[1, 0]),
+            "odd length": (a.reshape(-1)[:-1], b.reshape(-1)[:-1]),
         }
         for name, kernel, plain in ops:
             for form, (u, v) in forms.items():
@@ -630,7 +644,8 @@ def check_field_kernel(torch, chk: Checker, rng) -> None:
             fail(f"field inv: inv(x) * x != 1 over the whole ({rows}, {n}) array")
         torch.cuda.synchronize()
     log(f"[2] field add, sub, mul == plain on all pairs of {len(edge)} edge words and at sizes "
-        f"{FIELD_SIZES} in {len(forms)} broadcast forms; square, neg, inv == plain; inv(x) * x == 1")
+        f"{FIELD_SIZES} in {len(forms)} broadcast forms; "
+        f"square, neg, inv == plain; inv(x) * x == 1")
 
 
 # ---------------------------------------------------------------------------
@@ -838,7 +853,7 @@ def phase5(torch) -> None:
     if pd.device.type != "cuda":
         fail(f"dryrun circuit: preprocess left its data on {pd.device}")
     got = prove_kernels_and_plain(torch, pd, witness, "[5] dryrun circuit",
-                                  ("ntt", "poseidon", "field"))
+                                  ("ntt", "poseidon", "field", "gates"))
     with open(os.path.join(REPO, "assets", "dryrun", "ref_proof.json")) as f:
         want = json.load(f)
     if (where := first_difference(got, want)):
@@ -890,8 +905,9 @@ BY_SOURCE = {"ntt_pass_kernel": "ntt", "sponge_kernel": "poseidon",
              "merkle_level_kernel": "poseidon", "merkle_tail_kernel": "poseidon",
              "field_binary_kernel": "field", "field_inv_kernel": "field",
              "field_open_kernel": "field", "field_open_sum_kernel": "field",
-             "perm_quotient_kernel": "field",
-             "sha_gate_quotient_kernel": "gates", "poseidon_gate_quotient_kernel": "gates"}
+             "perm_quotient_kernel": "field", "fri_g_kernel": "field", "fri_fold_kernel": "field",
+             "sha_gate_quotient_kernel": "gates", "poseidon_gate_quotient_kernel": "gates",
+             "generic_gate_quotient_kernel": "gates"}
 
 
 def launch_plan(data, pow_witness: int, field: int, gates: int) -> dict:
@@ -915,10 +931,10 @@ def launch_plan(data, pow_witness: int, field: int, gates: int) -> dict:
 
 
 def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_plan: int,
-                  gates_plan: int, free_runs: int) -> dict:
-    """A warm-up, three timed proves with the phase marks (and ``free_runs``
-    without), a steady prove whose launches must be the plan's, and a scheduled
-    trace split by kernel name whose launches must be the wrappers' counts."""
+                  gates_plan: int) -> dict:
+    """A warm-up, three timed proves with the phase marks, a steady prove whose
+    launches must be the plan's, and a scheduled trace split by kernel name
+    whose launches must be the wrappers' counts."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from eth_lc_plonky2_tpu_torch.ops import kernels
@@ -939,16 +955,6 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
     log(f"{tag} prove: median {prove_ms:.2f} ms of {len(runs)} "
         f"({', '.join(f'{r * 1e3:.2f}' for r in runs)}), each phase ending in a synchronize "
         f"[{card}]")
-    runs_free = []
-    for _ in range(free_runs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prove.prove(pd, witness, prof=Profiler(enabled=False))
-        torch.cuda.synchronize()
-        runs_free.append(time.perf_counter() - t0)
-    if runs_free:
-        log(f"{tag} prove without the phase marks: median {statistics.median(runs_free) * 1e3:.2f} "
-            f"ms of {len(runs_free)} ({', '.join(f'{r * 1e3:.2f}' for r in runs_free)}) [{card}]")
     want = proof_dict(first_proof)
     for p in proofs:
         if (where := first_difference(proof_dict(p), want)):
@@ -1013,7 +1019,7 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
     log(f"{tag} profile: busy {busy_ms:.3f} ms of a {window_ms:.3f} ms window, idle share "
         f"{1 - busy_ms / window_ms:.3f}, one trace's reading, {attempt} incomplete traces "
         f"discarded before it [{card}]")
-    inv_plan = pd.data.config.num_challenges + 1  # a (m, n) batch a challenge set, and the G kernel's norms
+    inv_plan = pd.data.config.num_challenges  # a (m, n) batch a challenge set
     if by_name.get("field_inv_kernel", {}).get("launches", 0) != inv_plan:
         fail(f"the profile shows {by_name.get('field_inv_kernel')} inversions, the plan is {inv_plan}")
     fused = fused_launch_plan(pd)
@@ -1026,9 +1032,10 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
 
 
 def fused_launch_plan(pd) -> dict:
-    """The launches of csrc/field.cu's fused kernels in one prove: per opening
-    batch one field_open_kernel and, with more than one slice, one
-    field_open_sum_kernel; one perm_quotient_kernel."""
+    """The launches of the fused kernels in one prove: per opening batch one
+    field_open_kernel and, with more than one slice, one
+    field_open_sum_kernel; one perm_quotient_kernel, one fri_g_kernel, one
+    fri_fold_kernel a FRI layer; one generic_gate_quotient_kernel."""
     from eth_lc_plonky2_tpu_torch.ops import kernels
     from eth_lc_plonky2_tpu_torch.prover import prove
 
@@ -1042,7 +1049,9 @@ def fused_launch_plan(pd) -> dict:
     plans = [kernels.field_open_plan(rows[tag], pd.data.n, k) for tag, k in points.items()]
     return {"field_open_kernel": len(plans),
             "field_open_sum_kernel": sum(p["launches"] - 1 for p in plans),
-            "perm_quotient_kernel": 1}
+            "perm_quotient_kernel": 1, "fri_g_kernel": 1,
+            "fri_fold_kernel": pd.data.log_n - cfg.fri.final_poly_bits,
+            "generic_gate_quotient_kernel": 1}
 
 
 def first_prove(torch, tag: str, pd, witness, card: str, sources: tuple):
@@ -1067,14 +1076,14 @@ def first_prove(torch, tag: str, pd, witness, card: str, sources: tuple):
 
 
 def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
-    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, kernels
     from eth_lc_plonky2_tpu_torch.prover import prove
 
     # the same circuit at 2^12 rows: kernels against plain versions, whole proofs
     small, small_w = flagship_circuit(12, seed)
     small_pd, small_vk = prove.preprocess(small)
     prove_kernels_and_plain(torch, small_pd, small_w, "[6] flagship shape at 2^12 rows",
-                            ("ntt", "poseidon", "field"))
+                            ("ntt", "poseidon", "field", "gates"))
     check_proof(small, small_vk, prove.prove(small_pd, small_w), small_w, "[6] 2^12 rows")
     del small_pd
 
@@ -1088,12 +1097,12 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     pd, vk = prove.preprocess(data)
     torch.cuda.synchronize()
     log(f"[6] preprocess ({pd.pre_values.shape[0]} polys) in {time.perf_counter() - t0:.3f} s")
-    proof, launched = first_prove(torch, "[6]", pd, witness, card, ("ntt", "poseidon", "field"))
-    if launched["gates"] != 0:
-        fail(f"[6] a circuit of generic gates launched a gate kernel: {launched}")
+    proof, launched = first_prove(torch, "[6]", pd, witness, card,
+                                  ("ntt", "poseidon", "field", "gates"))
+    if launched["gates"] != 1:
+        fail(f"[6] a circuit of generic gates launched {launched['gates']} gate kernels, not 1")
     check_proof(data, vk, proof, witness, "[6] 2^18 rows")
-    res = profile_prove(torch, "[6]", pd, witness, proof, card, STEADY_FIELD_LAUNCHES, 0,
-                        free_runs=1)
+    res = profile_prove(torch, "[6]", pd, witness, proof, card, STEADY_FIELD_LAUNCHES, 1)
     n_lde = data.n << cfg.rate_bits
 
     # the field kernel beside its plain version at a main-path shape: one
@@ -1103,9 +1112,11 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     field_ms = cuda_ms(lambda: gl.mul(a, b), 9)
     field_plain_ms = cuda_ms(lambda: gl.mul_plain(a, b), 3)
     chk.same("field", gl.mul(a, b), gl.mul_plain(a, b), "timed field mul")
+    # and ten launches back to back (no host time between them)
+    back10_ms = cuda_ms(lambda: [gl.mul(a, b) for _ in range(10)], 5) / 10
     add_ms = cuda_ms(lambda: gl.add(a, b), 9)
     row_ms = cuda_ms(lambda: gl.mul(a, b[0]), 9)
-    inv_in = a[:5]  # the G kernel's norms: (5, 2^21)
+    inv_in = a[:5]  # the table's shape since the inverse kernel came: (5, 2^21)
     inv_ms = cuda_ms(lambda: gl.inv(inv_in), 5)
     # a 64 x 64 product is 4 multiply-adds of 32 x 32 bits, its reduction one more
     field_bound = bound_of(3 * a.numel() * 8, a.numel() * 5)
@@ -1113,11 +1124,13 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
                        inv_in.numel() * 72 * 5 / PEAK_INT32_MADS_PER_S) * 1e3
     log(f"[6] field: mul (8, 2^21) x (8, 2^21): kernel {field_ms:.3f} ms, plain "
         f"{field_plain_ms:.3f} ms, bound {field_bound[0]:.4f} ms by {field_bound[1]} "
-        f"({field_bound[0] / field_ms:.1%} of the kernel's time); add {add_ms:.3f} ms; mul by a "
-        f"row (2^21,) {row_ms:.3f} ms; inv (5, 2^21) {inv_ms:.3f} ms against a bound of "
+        f"({field_bound[0] / field_ms:.1%} of the kernel's time); ten launches back to back: "
+        f"{back10_ms:.4f} ms a launch ({field_bound[0] / back10_ms:.1%} of its bound); add "
+        f"{add_ms:.3f} ms; mul by a row (2^21,) {row_ms:.3f} ms; inv (5, 2^21) {inv_ms:.3f} ms against a bound of "
         f"{inv_bound_ms:.4f} ms by operations (72 products a word) [{card}]")
     return {"launches": launched, "prove_ms": res["prove_ms"], "phase_ms": res["phase_ms"],
-            "field": (field_ms, field_plain_ms, *field_bound)}
+            "field": (field_ms, field_plain_ms, *field_bound),
+            "field_back_to_back_ms": back10_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1128,9 +1141,10 @@ MERKLE_HEIGHT = 10  # 1,024 leaves: 1,023 two-to-one hashes, 2,046 compressions
 POSEIDON_CHAIN_ROWS = 16_000
 GATE_SIZES = (1 << 7, 1 << 12, 1 << 15)
 # csrc/field.cu launches of one steady prove of phase 7's circuit (12 opening
-# points, gates arith, basesum2, const and noop on the generic loop), counted
-# as STEADY_FIELD_LAUNCHES: 5,187 - 12 x 276 - 358 + 9.
-LC_STEADY_FIELD_LAUNCHES = 1526
+# points), counted as STEADY_FIELD_LAUNCHES: 5,187 - 12 x 276 - 358 + 9 =
+# 1,526, then 1,526 - 896 (generic gates and 12 public inputs) - 272 (G) -
+# 234 (folds) + 14.
+LC_STEADY_FIELD_LAUNCHES = 138
 
 # 32 x 32 multiply-adds a column of each gate, two challenges, each polynomial
 # in the cheapest form known (which is also csrc/gates.cu's): a field product
@@ -1205,6 +1219,27 @@ def check_light_client_outputs(proof, leaves, first_state, chain_rows: int, what
         f"host's Poseidon chain of {chain_rows} permutations")
 
 
+def device_rows(rng, count: int, n: int, edge=None, tail_from: int = 1, tail_step: int = 2):
+    """(count, n) seeded field words made on the card (a host generator takes
+    seconds for the 2^21-column inputs): two 32-bit halves a word from a
+    generator seeded from ``rng``, reduced to canonical words; with ``edge``,
+    its words in the first columns of every row and reversed in the last
+    columns of every ``tail_step``-th row from row ``tail_from``."""
+    import torch
+
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
+
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(0, 1 << 62)))
+    hi, lo = (torch.randint(0, 1 << 32, (count, n), generator=gen, dtype=torch.int64, device=DEVICE)
+              for _ in range(2))
+    rows = gl.add_plain((hi << 32) | lo, torch.zeros((), dtype=torch.int64, device=DEVICE))
+    if edge is not None:
+        k = min(n, len(edge))
+        rows[:, :k] = gl.from_u64(edge[:k], DEVICE)
+        rows[tail_from::tail_step, n - k:] = gl.from_u64(edge[::-1][:k].copy(), DEVICE)
+    return rows
+
+
 def gate_inputs(rng, n_lde: int, num_constraints: int) -> tuple:
     """Random field words for a gate's quotient share (not only bits), with the
     edge words 0, 1, p - 1, 2^32 - 1, 2^32 in the first and last columns:
@@ -1213,14 +1248,12 @@ def gate_inputs(rng, n_lde: int, num_constraints: int) -> tuple:
     from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
 
     edge = np.array([0, 1, gl.P - 1, (1 << 32) - 1, 1 << 32], dtype=np.uint64)
-    wires = rng.integers(0, gl.P, size=(NUM_WIRES, n_lde), dtype=np.uint64)
-    wires[:, : len(edge)] = edge
-    wires[::3, n_lde - len(edge):] = edge[::-1]
     dev = lambda a: gl.from_u64(a, DEVICE)  # noqa: E731
-    return (dev(wires), dev(rng.integers(0, gl.P, size=(4, n_lde), dtype=np.uint64)),
-            dev(rng.integers(0, gl.P, size=(n_lde,), dtype=np.uint64)),
+    accs = device_rows(rng, 2, n_lde)
+    return (device_rows(rng, NUM_WIRES, n_lde, edge, tail_from=0, tail_step=3), device_rows(rng, 4, n_lde),
+            device_rows(rng, 1, n_lde)[0],
             [dev(rng.integers(0, gl.P, size=(num_constraints,), dtype=np.uint64)) for _ in range(2)],
-            [dev(rng.integers(0, gl.P, size=(n_lde,), dtype=np.uint64)) for _ in range(2)])
+            [accs[0], accs[1]])
 
 
 def gate_generic(gate, inputs, rate_bits: int, plain: bool) -> list:
@@ -1383,19 +1416,11 @@ def perm_inputs(rng, log_n_lde: int) -> tuple:
     n_lde = 1 << log_n_lde
     edge = field_edge_words()
     dev = lambda a: gl.from_u64(a, DEVICE)  # noqa: E731
-
-    def rows(count):
-        a = rng.integers(0, gl.P, size=(count, n_lde), dtype=np.uint64)
-        a[:, : min(n_lde, len(edge))] = edge[: min(n_lde, len(edge))]
-        a[1::2, -min(n_lde, len(edge)):] = edge[::-1][: min(n_lde, len(edge))]
-        return dev(a)
-
-    wires, pre, zs = rows(NUM_WIRES), rows(92), rows(NUM_Z)
+    wires, pre, zs = (device_rows(rng, rows, n_lde, edge) for rows in (NUM_WIRES, 92, NUM_Z))
     x = dev(prove._lde_domain_u64(log_n_lde - RATE_BITS, RATE_BITS))
     scalars = rng.integers(0, gl.P, size=(2, 2), dtype=np.uint64)
     scalars[1, 1] = gl.P - 1
-    return (wires[:NUM_ROUTED], pre[12 : 12 + NUM_ROUTED], zs, x,
-            dev(rng.integers(0, gl.P, size=n_lde, dtype=np.uint64)),
+    return (wires[:NUM_ROUTED], pre[12 : 12 + NUM_ROUTED], zs, x, device_rows(rng, 1, n_lde)[0],
             dev(hf.powers(gl.MULTIPLICATIVE_GENERATOR, NUM_ROUTED)), dev(scalars[0]),
             dev(scalars[1]), [dev(rng.integers(0, gl.P, size=30, dtype=np.uint64)) for _ in range(2)],
             PERM_CHUNK, RATE_BITS)
@@ -1422,6 +1447,155 @@ def perm_terms(inputs, plain: bool = False):
     if not plain:
         return kernels.perm_quotient(*inputs)
     return torch.stack(on_plain(lambda: prove.perm_quotient_terms_plain(*inputs)))
+
+
+def generic_inputs(rng, n_lde: int) -> dict:
+    """Phase 7's generic share of the quotient at n_lde columns on the card,
+    as the quotient passes it: the gates in the light-client circuit's
+    selector order (arith 20 ops, basesum2, const 6, noop, poseidon, sha256),
+    a (184, n_lde) wires LDE, a (92, n_lde) preprocessed LDE (6 selectors, 6
+    constant rows, 80 sigmas), 12 Lagrange rows, public inputs at seeded
+    columns below 80, two alpha rows of 1 + 10 + 12 + 130 powers and two
+    accumulators; random words with the edge words in the first and last
+    columns."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from eth_lc_plonky2_tpu_torch.circuit import gates as G
+    from eth_lc_plonky2_tpu_torch.circuit.gates_poseidon import PoseidonGate
+    from eth_lc_plonky2_tpu_torch.circuit.gates_sha256 import Sha256RoundGate
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    edge = field_edge_words()
+
+    def rows(count):
+        return device_rows(rng, count, n_lde, edge)
+
+    gates = [G.ArithmeticGate(20), G.BaseSum2Gate(), G.ConstantGate(6), G.NoopGate(),
+             PoseidonGate(), Sha256RoundGate()]
+    num_pi = 12
+    pi_cols = [int(c) for c in rng.integers(0, NUM_ROUTED, size=num_pi)]
+    pi = rng.integers(0, gl.P, size=num_pi, dtype=np.uint64)
+    pi[:5] = edge[:5]
+    return {"generic": prove.split_gates(SimpleNamespace(gates=gates))[0], "wires": rows(NUM_WIRES),
+            "pre": rows(92), "num_sel": len(gates), "num_con": 6, "lr": rows(num_pi),
+            "pi": gl.from_u64(pi, DEVICE), "pi_cols_host": pi_cols,
+            "pi_cols": torch.tensor(pi_cols, dtype=torch.int64, device=DEVICE),
+            "apows": [gl.from_u64(rng.integers(0, gl.P, size=1 + 10 + num_pi + 130, dtype=np.uint64),
+                                  DEVICE) for _ in range(2)],
+            "accs": list(rows(2)), "pi0": 1 + 10, "k0": 1 + 10 + num_pi}
+
+
+def generic_terms(inp, mode: str = "kernel"):
+    """The accumulators after the generic share, (2, n_lde): ``mode`` "kernel"
+    (kernels.generic_gate_quotient on copies of them), "plain" (the plain
+    version on the plain ops) or "eager" (the plain version on field.cu)."""
+    import torch
+
+    from eth_lc_plonky2_tpu_torch.circuit.algebra import DeviceBaseAlgebra
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    if mode == "kernel":
+        accs = [a.clone() for a in inp["accs"]]
+        kernels.generic_gate_quotient(inp["generic"], inp["wires"], inp["pre"], inp["num_sel"],
+                                      inp["num_con"], inp["lr"], inp["pi"], inp["pi_cols"],
+                                      inp["apows"], accs, inp["pi0"], inp["k0"])
+        return torch.stack(accs)
+    wires, pre = inp["wires"], inp["pre"]
+
+    def run():
+        return torch.stack(prove.generic_quotient_terms_plain(
+            inp["generic"], DeviceBaseAlgebra((wires.shape[1],), DEVICE),
+            lambda col, offset=0: wires[col], lambda i: pre[inp["num_sel"] + i], pre, inp["lr"],
+            inp["pi"], inp["pi_cols_host"], inp["apows"], inp["accs"], inp["pi0"], inp["k0"]))
+
+    return on_plain(run) if mode == "plain" else run()
+
+
+G_SPEC_TAGS = {5: ("P", "W", "Z", "Z", "Q"), 12: ("P",) + ("W",) * 8 + ("Z", "Z", "Q")}
+G_ROWS = {"P": 92, "W": NUM_WIRES, "Z": NUM_Z, "Q": NUM_QUOTIENT}  # phase 7's batches
+
+
+def g_inputs(rng, log_n_lde: int, num_specs: int) -> dict:
+    """FRI's G at 2^log_n_lde columns on the card: phase 7's four batches
+    (92, 184, 20, 16 rows), the weights, values and points of ``num_specs``
+    specs (phase 6's 5 or phase 7's 12 tags), the LDE coset; spec 1's point
+    is the coset's point at column 3, so its norm is 0 there; edge words in
+    the rows, the weights and the points."""
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl
+    from eth_lc_plonky2_tpu_torch.prover import fri
+
+    edge = field_edge_words()
+    dev = lambda a: gl.from_u64(a, DEVICE)  # noqa: E731
+    ldes = [device_rows(rng, G_ROWS[tag], 1 << log_n_lde, edge) for tag in fri.TAGS]
+    total = sum(G_ROWS.values())
+    apow = rng.integers(0, gl.P, size=(2, total + num_specs), dtype=np.uint64)
+    apow[:, :len(edge)] = edge
+    y = rng.integers(0, gl.P, size=(2, num_specs), dtype=np.uint64)
+    z = rng.integers(0, gl.P, size=(2, num_specs), dtype=np.uint64)
+    x = fri._lde_x(log_n_lde - RATE_BITS, RATE_BITS)
+    z[:, 0] = (gl.P - 1, 1 << 63)
+    z[:, 1] = (x[3], 0)
+    return {"ldes": ldes, "apow": (dev(apow[0]), dev(apow[1])), "y": (dev(y[0]), dev(y[1])),
+            "z": (dev(z[0]), dev(z[1])), "x": dev(x), "tags": G_SPEC_TAGS[num_specs]}
+
+
+def g_terms(inp, mode: str = "kernel"):
+    """G as (2, n_lde): ``mode`` "kernel" (kernels.fri_g), "plain" or "eager"
+    (fri.g_plain on the plain ops or on field.cu)."""
+    import torch
+
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import fri
+
+    args = (inp["ldes"], inp["apow"], inp["y"], inp["z"], inp["x"])
+    if mode == "kernel":
+        return torch.stack(kernels.fri_g(*args, tuple(fri.TAGS.index(t) for t in inp["tags"])))
+
+    def run():
+        return torch.stack(fri.g_plain(*args, G_ROWS, inp["tags"]))
+
+    return on_plain(run) if mode == "plain" else run()
+
+
+def fold_inputs(rng, log_size: int) -> dict:
+    """One FRI fold of a 2^log_size ext layer on the card, as fri_prove makes
+    it: the layer (edge words first), the cached table of w^-i, the scale
+    1 / (2 shift) of the layer's coset (7^(2^21 / size)) and a seeded beta."""
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, ntt
+    from eth_lc_plonky2_tpu_torch.prover import fri, prove
+
+    size = 1 << log_size
+    layer = rng.integers(0, gl.P, size=(2, size), dtype=np.uint64)
+    layer[:, : min(size, 5)] = field_edge_words()[: min(size, 5)]
+    shift = pow(gl.MULTIPLICATIVE_GENERATOR, (1 << (LOG_N + RATE_BITS)) // size, gl.P)
+    w = gl.primitive_root_of_unity(log_size)
+    beta = [int(v) for v in rng.integers(0, gl.P, size=2, dtype=np.uint64)]
+    return {"re": gl.from_u64(layer[0], DEVICE), "im": gl.from_u64(layer[1], DEVICE),
+            "w_inv": ntt._powers_on(gl.h_inv(w), size // 2, DEVICE),
+            "scale": fri.INV2 * gl.h_inv(shift) % gl.P,
+            "beta": (prove.scalar_f(beta[0], DEVICE), prove.scalar_f(beta[1], DEVICE))}
+
+
+def fold_terms(inp, mode: str = "kernel"):
+    """One fold as (2, h): ``mode`` "kernel" (kernels.fri_fold), "plain" or
+    "eager" (fri.fold_plain on the plain ops or on field.cu)."""
+    import torch
+
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import fri
+
+    args = (inp["re"], inp["im"], inp["w_inv"], inp["scale"])
+    if mode == "kernel":
+        return torch.stack(kernels.fri_fold(*args, fri.INV2, inp["beta"]))
+
+    def run():
+        return torch.stack(fri.fold_plain(*args, inp["beta"]))
+
+    return on_plain(run) if mode == "plain" else run()
 
 
 # 32 x 32 multiply-adds, in the cheapest form known (a 64 x 64 product is 4,
@@ -1513,7 +1687,7 @@ def check_fused_field_kernels(torch, chk: Checker, rng, card: str) -> dict:
     rows_read = 2 * NUM_ROUTED + NUM_Z + 2  # wires, sigmas, Z rows, x, l0
     bound = bound_of((rows_read + 2) * n_lde * 8, PERM_MADS_PER_COLUMN * n_lde)
     out["perm_quotient_kernel"] = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
-                                       chain_launches=chain_launches, launches=1,
+                                       chain_launches=chain_launches,
                                        **dict(zip(("bound_ms", "bound_by"), bound)))
     r = out["perm_quotient_kernel"]
     log(f"[7] permutation terms at (80, 2^{LOG_N + RATE_BITS}), 2 challenges, chunk 8: "
@@ -1531,18 +1705,163 @@ def check_fused_field_kernels(torch, chk: Checker, rng, card: str) -> dict:
     return out
 
 
+# The generic share at phase 7's shapes, per column: 3 selectors, 6
+# constant rows, the 80 wire columns the generic gates read (the public
+# inputs' columns among them), 12 Lagrange rows and 2 accumulators read, 2
+# written; 32 x 32 multiply-adds (a product 5, a multiply-accumulate 4): 20
+# arith ops of 3 products and 2 multiply-accumulates, 64 bits of 1 product
+# (the square) and 2 multiply-accumulates, 2 sum constraints and 6 constant
+# constraints of 2 multiply-accumulates, 12 public inputs of 1 product and 2
+# multiply-accumulates, 3 selectors of 2 products.
+GENERIC_ROWS = 3 + 6 + NUM_ROUTED + 12 + 2 + 2
+GENERIC_MADS_PER_COLUMN = (20 * (3 * 5 + 2 * 4) + 64 * (5 + 2 * 4) + (2 + 6) * 2 * 4
+                           + 12 * (5 + 2 * 4) + 3 * 2 * 5)
+# G per column: every row of the four batches times two weights (two
+# multiply-accumulates), and per spec the norm's square, the three products of
+# the batch trick, the two of the denominator, an ext product (four
+# multiply-accumulates and two reductions) and the weight's four
+# multiply-accumulates; one Fermat inversion of 72 products.
+G_MADS_PER_SPEC = 5 + 3 * 5 + 2 * 5 + (4 * 4 + 2 * 5) + 4 * 4
+G_MADS_FERMAT = 72 * 5
+# A fold per output word: the point's product, two halves, two differences'
+# products, an ext product by beta.
+FOLD_MADS_PER_WORD = 5 + 2 * 5 + 2 * 5 + (4 * 4 + 2 * 5)
+
+
+def timed_against_plain(torch, chk: Checker, source: str, run, what: str) -> tuple:
+    """run("kernel") against run("plain") (timed once), the kernel timed over
+    9 runs and the eager chain on field.cu run("eager") once with its field
+    launches: (ms, plain_ms, chain_ms, chain_launches)."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    got = run("kernel")
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(run("plain")), 1)
+    chk.same(source, got, plain[-1], what)
+    del got, plain
+    ms = cuda_ms(lambda: run("kernel"), 9)
+    before = kernels.launches["field"]
+    chain_ms = cuda_ms(lambda: run("eager"), 1)
+    return ms, plain_ms, chain_ms, kernels.launches["field"] - before
+
+
+def check_fused_quotient_fri_kernels(torch, chk: Checker, rng, card: str) -> dict:
+    """generic_gate_quotient_kernel, fri_g_kernel and fri_fold_kernel against
+    their plain versions: the generic share at n_lde 2^7, 2^12 and 2^21, G at
+    2^12 and 2^21 with 5 and 12 specs (a zero norm among them), the fold at
+    every layer size from 2^1 to 2^21; each launch is its source's one and no
+    field_binary_kernel; at the main path's shapes each is timed beside its
+    bound, its plain version and the eager chain it replaced."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    def launches_of(fn, want: dict, what: str):
+        before = dict(kernels.launches)
+        out = fn()
+        delta = {k: kernels.launches[k] - before[k] for k in before}
+        if {k: v for k, v in delta.items() if v} != want:
+            fail(f"{what}: launches {delta}, the plan is {want}")
+        return out
+
+    out = {}
+    n_lde = 1 << (LOG_N + RATE_BITS)
+    for log_n_lde in (7, 12):
+        inp = generic_inputs(rng, 1 << log_n_lde)
+        got = launches_of(lambda: generic_terms(inp), {"gates": 1}, "generic gates")
+        chk.same("gates", got, generic_terms(inp, "plain"), f"generic gates at n_lde 2^{log_n_lde}")
+    inp = generic_inputs(rng, n_lde)
+    launches_of(lambda: generic_terms(inp), {"gates": 1}, "generic gates at 2^21")
+    ms, plain_ms, chain_ms, chain_launches = timed_against_plain(
+        torch, chk, "gates", lambda mode: generic_terms(inp, mode),
+        f"generic gates at (184, 2^{LOG_N + RATE_BITS})")
+    scratch = [a.clone() for a in inp["accs"]]
+    launch_ms = cuda_ms(lambda: kernels.generic_gate_quotient(
+        inp["generic"], inp["wires"], inp["pre"], inp["num_sel"], inp["num_con"], inp["lr"],
+        inp["pi"], inp["pi_cols"], inp["apows"], scratch, inp["pi0"], inp["k0"]), 9)
+    del inp, scratch
+    bound = bound_of(GENERIC_ROWS * n_lde * 8, GENERIC_MADS_PER_COLUMN * n_lde)
+    out["generic_gate_quotient_kernel"] = dict(
+        ms=launch_ms, with_copies_ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+        chain_launches=chain_launches, bound_ms=bound[0], bound_by=bound[1])
+    log(f"[7] generic gates and 12 public inputs at (184, 2^{LOG_N + RATE_BITS}), 2 challenges: "
+        f"generic_gate_quotient_kernel {launch_ms:.3f} ms in 1 launch ({ms:.3f} ms with the "
+        f"accumulators' copies), its words == the plain version's ({plain_ms:.3f} ms); the eager "
+        f"chain on field.cu it replaces {chain_ms:.3f} ms in {chain_launches} launches; bound "
+        f"{bound[0]:.4f} ms by {bound[1]} ({GENERIC_ROWS} rows, {GENERIC_MADS_PER_COLUMN} "
+        f"multiply-adds a column; {bound[0] / launch_ms:.1%} of the kernel's time) [{card}]")
+
+    for num_specs in sorted(G_SPEC_TAGS):
+        inp = g_inputs(rng, 12, num_specs)
+        got = launches_of(lambda: g_terms(inp), {"field": 1}, "fri G")
+        chk.same("field", got, g_terms(inp, "plain"), f"fri G at 2^12, {num_specs} specs")
+    rows = sum(G_ROWS.values())
+    for num_specs in sorted(G_SPEC_TAGS):
+        inp = g_inputs(rng, LOG_N + RATE_BITS, num_specs)
+        launches_of(lambda: g_terms(inp), {"field": 1}, "fri G at 2^21")
+        ms, plain_ms, chain_ms, chain_launches = timed_against_plain(
+            torch, chk, "field", lambda mode: g_terms(inp, mode),
+            f"fri G at 2^{LOG_N + RATE_BITS}, {num_specs} specs")
+        del inp
+        bound = bound_of((rows + 1 + 2) * n_lde * 8,
+                         (rows * 2 * 4 + num_specs * G_MADS_PER_SPEC + G_MADS_FERMAT) * n_lde)
+        entry = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms, chain_launches=chain_launches,
+                     bound_ms=bound[0], bound_by=bound[1])
+        if num_specs == 12:
+            out["fri_g_kernel"] = entry
+        log(f"[7] fri G at 2^{LOG_N + RATE_BITS} over {rows} rows (92, 184, 20, 16), {num_specs} "
+            f"specs: fri_g_kernel {ms:.3f} ms in 1 launch, its words == the plain version's "
+            f"({plain_ms:.3f} ms); the eager chain on field.cu it replaces {chain_ms:.3f} ms in "
+            f"{chain_launches} launches; bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({bound[0] / ms:.1%} of the kernel's time) [{card}]")
+
+    for log_size in range(1, LOG_N + RATE_BITS + 1):
+        inp = fold_inputs(rng, log_size)
+        got = launches_of(lambda: fold_terms(inp), {"field": 1}, "fri fold")
+        chk.same("field", got, fold_terms(inp, "plain"), f"fri fold of 2^{log_size}")
+    ms, plain_ms, chain_ms, chain_launches = timed_against_plain(
+        torch, chk, "field", lambda mode: fold_terms(inp, mode), "fri fold of 2^21")
+    h = n_lde // 2
+    bound = bound_of(7 * h * 8, FOLD_MADS_PER_WORD * h)
+    out["fri_fold_kernel"] = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                                  chain_launches=chain_launches, bound_ms=bound[0],
+                                  bound_by=bound[1])
+    log(f"[7] fri fold 2^{LOG_N + RATE_BITS} -> 2^{LOG_N + RATE_BITS - 1}: fri_fold_kernel "
+        f"{ms:.4f} ms in 1 launch, its words == the "
+        f"plain version's ({plain_ms:.3f} ms) at every size 2^1 to 2^{LOG_N + RATE_BITS}; the eager "
+        f"chain on field.cu it replaces {chain_ms:.3f} ms in {chain_launches} launches; bound "
+        f"{bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms:.1%} of the kernel's time) [{card}]")
+    torch.cuda.synchronize()
+    return out
+
+
 def eager_chains():
-    """A context in which the two fused kernels' wrappers run the eager chains
-    of field.cu ops that they replaced (a number for the record, not a path
-    of prove)."""
+    """A context in which the fused kernels' wrappers run the eager chains of
+    field.cu ops that they replaced (a number for the record, not a path of
+    prove): the openings, the permutation terms, the generic gates with the
+    public inputs (in place, as the kernel), G and the folds."""
     import torch
 
+    from eth_lc_plonky2_tpu_torch.circuit.algebra import DeviceBaseAlgebra
     from eth_lc_plonky2_tpu_torch.ops import kernels
-    from eth_lc_plonky2_tpu_torch.prover import prove
+    from eth_lc_plonky2_tpu_torch.prover import fri, prove
+
+    def generic(gates, wires_lde, pre_lde, num_sel, num_constants, lr, pi_f, pi_cols, apows, accs,
+                pi0, k0):
+        new = prove.generic_quotient_terms_plain(
+            gates, DeviceBaseAlgebra((wires_lde.shape[1],), wires_lde.device),
+            lambda col, offset=0: wires_lde[col], lambda i: pre_lde[num_sel + i], pre_lde, lr, pi_f,
+            pi_cols.tolist(), apows, accs, pi0, k0)
+        for acc, value in zip(accs, new):
+            acc.copy_(value)
+
+    def g(ldes, apow, y, z, x, spec_batches):
+        return fri.g_plain(ldes, apow, y, z, x, dict(zip(fri.TAGS, (t.shape[0] for t in ldes))),
+                           tuple(fri.TAGS[i] for i in spec_batches))
 
     return mock.patch.multiple(
         kernels, field_open=prove._open_core_plain,
-        perm_quotient=lambda *args: torch.stack(prove.perm_quotient_terms_plain(*args)))
+        perm_quotient=lambda *args: torch.stack(prove.perm_quotient_terms_plain(*args)),
+        generic_gate_quotient=generic, fri_g=g,
+        fri_fold=lambda re, im, w_inv, scale, half, beta: fri.fold_plain(re, im, w_inv, scale, beta))
 
 
 def fused_against_eager_chains(torch, pd, witness, proof, card: str) -> None:
@@ -1558,7 +1877,7 @@ def fused_against_eager_chains(torch, pd, witness, proof, card: str) -> None:
     want = proof_dict(proof)
     for fused in (False, True, True, False):
         prof = Profiler(enabled=True)
-        before = kernels.launches["field"]
+        before, before_gates = kernels.launches["field"], kernels.launches["gates"]
         with contextlib.nullcontext() if fused else eager_chains():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1569,8 +1888,11 @@ def fused_against_eager_chains(torch, pd, witness, proof, card: str) -> None:
             fail(f"[7] the proof on the {'fused kernels' if fused else 'eager chains'} differs at {where}")
         log(f"[7] prove with the {'fused kernels' if fused else 'eager chains on field.cu'}: "
             f"{wall:.2f} ms, openings {prof.times['openings'] * 1e3:.3f} ms, quotient "
-            f"{prof.times['quotient'] * 1e3:.3f} ms, {kernels.launches['field'] - before} field "
-            f"launches; the proof is the same [{card}]")
+            f"{prof.times['quotient'] * 1e3:.3f} ms, fri_g_kernel "
+            f"{prof.times['fri_g_kernel'] * 1e3:.3f} ms, fri_folds "
+            f"{prof.times['fri_folds'] * 1e3:.3f} ms, {kernels.launches['field'] - before} field "
+            f"and {kernels.launches['gates'] - before_gates} gates launches; the proof is the "
+            f"same [{card}]")
 
 
 def forged_witness(data, witness, gate_name: str):
@@ -1612,10 +1934,7 @@ def check_forged_rejected(data, vk, pd, witness, what: str) -> None:
 
 
 def phase7(torch, chk: Checker, rng, card: str, seed: int) -> dict:
-    from eth_lc_plonky2_tpu_torch.circuit.gates_poseidon import PoseidonGate
-    from eth_lc_plonky2_tpu_torch.circuit.gates_sha256 import Sha256RoundGate
     from eth_lc_plonky2_tpu_torch.prover import prove, serialize
-    from eth_lc_plonky2_tpu_torch.prover.profiler import Profiler
 
     sources = ("ntt", "poseidon", "field", "gates")
     check_gate_kernels(torch, chk, rng)
@@ -1652,29 +1971,19 @@ def phase7(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     proof, launched = first_prove(torch, "[7]", pd, witness, card, sources)
     check_proof(data, vk, proof, witness, "[7] 2^18 rows")
     check_light_client_outputs(proof, leaves, first_state, POSEIDON_CHAIN_ROWS, "[7] 2^18 rows")
-    res = profile_prove(torch, "[7]", pd, witness, proof, card, LC_STEADY_FIELD_LAUNCHES, 2,
-                        free_runs=1)
+    res = profile_prove(torch, "[7]", pd, witness, proof, card, LC_STEADY_FIELD_LAUNCHES, 3)
     check_forged_rejected(data, vk, pd, witness, "[7] 2^18 rows")
     fused_against_eager_chains(torch, pd, witness, proof, card)
-
-    # the quotient phase with the gates on the generic loop on csrc/field.cu (a
-    # number for the record, not a path of prove): the gates' own kernels are
-    # hidden from the quotient for one prove, and the proof must not change
-    prof = Profiler(enabled=True)
-    with mock.patch.object(Sha256RoundGate, "absorb_quotient_device", None), \
-            mock.patch.object(PoseidonGate, "absorb_quotient_device", None):
-        generic_proof = prove.prove(pd, witness, prof=prof)
-    torch.cuda.synchronize()
-    if (where := first_difference(proof_dict(generic_proof), proof_dict(proof))):
-        fail(f"[7] the proof with the gates on the generic loop differs at {where}")
-    log(f"[7] phase quotient with the two gate kernels {res['phase_ms']['quotient']:.3f} ms (median "
-        f"of 3), with the gates on the generic eval loop on field.cu "
-        f"{prof.times['quotient'] * 1e3:.3f} ms (one prove); the two proofs are equal [{card}]")
     del pd
     gates_res = measure_gate_kernels(torch, chk, rng, card)
     fused_res = check_fused_field_kernels(torch, chk, rng, card)
+    fused_res.update(check_fused_quotient_fri_kernels(torch, chk, rng, card))
     return {"launches": launched, "prove_ms": res["prove_ms"], "phase_ms": res["phase_ms"],
-            "gates": gates_res, "fused": fused_res}
+            "gates": gates_res, "fused": fused_res, "traced": res["by_name"]}
+
+
+# the trace's kernel names that one entry of the kernels line stands for
+TRACED_AS = {"field_open_kernel": ("field_open_kernel", "field_open_sum_kernel")}
 
 
 def summed(parts: dict) -> dict:
@@ -1716,10 +2025,20 @@ def main() -> int:
     launches = lc["launches"]
     sha_gate, poseidon_gate = lc["gates"]["sha256"], lc["gates"]["poseidon"]
     # field.cu: the elementwise kernels at their table shape ((8, 2^21) mul),
-    # and the two fused kernels at the main path's shapes; the entry adds the
-    # three up, as the gates entry its two
+    # and the fused kernels at the main path's shapes; gates.cu: its three
+    # kernels at (184, 2^21); each entry adds its kernels up
     binary = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), whole["field"]))
-    field_parts = {"field_binary_kernel": binary, **lc["fused"]}
+    fused = dict(lc["fused"])
+    generic_gate = fused.pop("generic_gate_quotient_kernel")
+    field_parts = {"field_binary_kernel": binary, **fused}
+    gate_parts = {"sha_gate_quotient_kernel": sha_gate,
+                  "poseidon_gate_quotient_kernel": poseidon_gate,
+                  "generic_gate_quotient_kernel": generic_gate}
+    # each kernel's launches are those of phase 7's traced steady prove; the
+    # openings' entry times field_open_kernel with its column-slice sums
+    for name, part in {**field_parts, **gate_parts}.items():
+        part["launches"] = sum(lc["traced"].get(k, {}).get("launches", 0)
+                               for k in TRACED_AS.get(name, (name,)))
     kernels_line = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/ntt.cu",
          "replaces": "eth_lc_plonky2_tpu/ops/pallas/ntt_mxu.py:165",
@@ -1734,18 +2053,18 @@ def main() -> int:
          "bound_ms": res["poseidon"][2], "bound_by": res["poseidon"][3], "library_ms": None},
         {"name": "field", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/field.cu",
          "replaces": "eth_lc_plonky2_tpu/ops/goldilocks.py:143-301, "
-                     "eth_lc_plonky2_tpu/prover/prove.py:551 and :457-481 (XLA-fused, no Pallas kernel)",
+                     "eth_lc_plonky2_tpu/prover/prove.py:551 and :457-481, "
+                     "eth_lc_plonky2_tpu/prover/fri.py:72 and :170 (XLA-fused, no Pallas kernel)",
          "launches": launches["field"], "max_abs_err": chk.err["field"],
          **summed(field_parts), "library_ms": None, "by_kernel": field_parts},
-        # one source, two kernels, one launch each a proof: the times are the
-        # two kernels' at (184, 2^21) added up, and "by_kernel" has each alone
+        # one source, three kernels, one launch each a proof: the times are the
+        # three kernels' at (184, 2^21) added up, and "by_kernel" has each alone
         {"name": "gates", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/gates.cu",
-         "replaces": "eth_lc_plonky2_tpu/circuit/gates_sha256.py:223 and "
-                     "eth_lc_plonky2_tpu/circuit/gates_poseidon.py:133 (XLA-fused, no Pallas kernel)",
+         "replaces": "eth_lc_plonky2_tpu/circuit/gates_sha256.py:223, "
+                     "eth_lc_plonky2_tpu/circuit/gates_poseidon.py:133 and "
+                     "eth_lc_plonky2_tpu/prover/prove.py:484-520 (XLA-fused, no Pallas kernel)",
          "launches": launches["gates"], "max_abs_err": chk.err["gates"],
-         **summed({"sha": sha_gate, "poseidon": poseidon_gate}), "library_ms": None,
-         "by_kernel": {"sha_gate_quotient_kernel": sha_gate,
-                       "poseidon_gate_quotient_kernel": poseidon_gate}},
+         **summed(gate_parts), "library_ms": None, "by_kernel": gate_parts},
     ]}
     log(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)

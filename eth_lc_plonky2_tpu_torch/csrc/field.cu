@@ -1,5 +1,5 @@
-// Goldilocks field kernels: the elementwise operations, and two fused
-// passes of the prover that eager PyTorch would run as long chains of them.
+// Goldilocks field kernels: the elementwise operations, and fused passes of
+// the prover that eager PyTorch would run as long chains of them.
 //
 // 1. field_binary_kernel, field_inv_kernel: add, sub, mul of two operands
 //    with broadcasting, and the multiplicative inverse.  Replace
@@ -16,6 +16,9 @@
 //    (1, n) against (r, n) is (0, 1), a column (r, 1) is (1, 0), and a strided
 //    slice keeps its own strides.  Threads run along cols, so neighbouring
 //    threads read neighbouring words of every operand that has stride_c = 1.
+//    One path serves every form: a contiguous path with 16-byte word pairs
+//    and 32-bit indices ran at the same 0.140 ms a launch at (8, 2^21) on an
+//    H100 (PERF.md section 6), so it was not kept.
 //
 //    What bounds it: memory traffic.  A binary op on same-shape operands
 //    moves 24 bytes an element (0.120 ms for (8, 2^21) at 3.35 TB/s) against
@@ -63,9 +66,34 @@
 //    80 sigmas, 20 Z rows, x, l0; 3.1 GB at 2^21) against 686 products; each
 //    word is loaded one step ahead of its use.
 //
+// 4. fri_g_kernel: FRI's combined opening polynomial on the LDE coset,
+//        G(x) = sum_j a_{total+j} (B_{tag(j)}(x) - y_j) / (x - z_j),
+//        B_t(x) = sum_i a_{off_t+i} lde_t[i](x)
+//    (base rows, ext weights a, ext points z_j and values y_j).  Replaces
+//    what XLA fuses of eth_lc_plonky2_tpu/prover/fri.py:72 `make_g_kernel`
+//    (jitted at :166), which eager PyTorch ran as some 277 launches and a
+//    batched inversion of the (S, n_lde) norms.  One thread a column reads
+//    every row of the four batches once (P, W, Z, Q: 312 rows in phase 7),
+//    keeping the four ext sums in 96-bit column sums (a reduction every 128
+//    rows); the weights sit in shared memory.  Then it takes the S specs in
+//    registers: the norm (x - z_re)^2 - 7 z_im^2 of each, ONE Fermat
+//    inversion for all S by Montgomery's trick (a zero norm is skipped, so
+//    its inverse is 0, as the plain version's), and the weighted sum.  What
+//    bounds it: memory, 312 rows read a column (5.2 GB at 2^21), against
+//    about 2,500 multiply-adds a column for the sums.
+//
+// 5. fri_fold_kernel: one radix-2 FRI fold, 2h ext words to h:
+//        ((e0 + e1) / 2) + beta (e0 - e1) w^-i / (2 shift)
+//    with e0, e1 the words i and i + h.  Replaces
+//    eth_lc_plonky2_tpu/prover/fri.py:170 `_fold_core` (@jit) and the table
+//    product before it; eager PyTorch ran 18 launches a layer.  One thread an
+//    output word: five words read (re, im of both halves, w^-i from the
+//    cached table), two written; bound by memory (56 bytes an output word).
+//
 // All results are canonical and the field is exact, so every word equals
 // the plain versions' (prover/prove.py `_open_core_plain`,
-// `perm_quotient_terms_plain`) whatever the order of the sums.
+// `perm_quotient_terms_plain`, prover/fri.py `g_plain`, `fold_plain`)
+// whatever the order of the sums.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -115,21 +143,23 @@ __device__ __forceinline__ uint64_t square_times(uint64_t x, int n) {
 // comes out as 0.  The chain: a^3, a^7, a^(2^6 - 1), a^(2^12 - 1),
 // a^(2^24 - 1), a^(2^30 - 1), a^(2^31 - 1) = t31; t31^(2^32) * t31 =
 // a^((2^31 - 1)(2^32 + 1)); its square times a.
+__device__ __forceinline__ uint64_t inv_fermat(uint64_t a) {
+  const uint64_t t2 = gl::mul_lazy(square_times(a, 1), a);
+  const uint64_t t3 = gl::mul_lazy(square_times(t2, 1), a);
+  const uint64_t t6 = gl::mul_lazy(square_times(t3, 3), t3);
+  const uint64_t t12 = gl::mul_lazy(square_times(t6, 6), t6);
+  const uint64_t t24 = gl::mul_lazy(square_times(t12, 12), t12);
+  const uint64_t t30 = gl::mul_lazy(square_times(t24, 6), t6);
+  const uint64_t t31 = gl::mul_lazy(square_times(t30, 1), a);
+  const uint64_t t63 = gl::mul_lazy(square_times(t31, 32), t31);
+  return gl::canon(gl::mul_lazy(square_times(t63, 1), a));
+}
+
 __global__ void __launch_bounds__(256)
 field_inv_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long long n) {
   const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
-    const uint64_t a = in[i];
-    const uint64_t t2 = gl::mul_lazy(square_times(a, 1), a);
-    const uint64_t t3 = gl::mul_lazy(square_times(t2, 1), a);
-    const uint64_t t6 = gl::mul_lazy(square_times(t3, 3), t3);
-    const uint64_t t12 = gl::mul_lazy(square_times(t6, 6), t6);
-    const uint64_t t24 = gl::mul_lazy(square_times(t12, 12), t12);
-    const uint64_t t30 = gl::mul_lazy(square_times(t24, 6), t6);
-    const uint64_t t31 = gl::mul_lazy(square_times(t30, 1), a);
-    const uint64_t t63 = gl::mul_lazy(square_times(t31, 32), t31);
-    out[i] = gl::canon(gl::mul_lazy(square_times(t63, 1), a));
-  }
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step)
+    out[i] = inv_fermat(in[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -353,6 +383,151 @@ perm_quotient_kernel(PermArgs a, uint64_t* __restrict__ out) {
         gl::sub(gl::canon(pos[j].reduce_lazy()), gl::canon(neg[j].reduce_lazy()));
 }
 
+// ---------------------------------------------------------------------------
+// FRI's combined opening polynomial G
+// ---------------------------------------------------------------------------
+
+constexpr int G_TAGS = 4;          // batches P, W, Z, Q
+constexpr int G_MAX_SPECS = 16;    // opening points (12 in phase 7)
+constexpr int G_MAX_ROWS = 2048;   // rows of the four batches together (shared memory)
+constexpr int G_CHUNK = 128;       // rows summed before a reduction (gl::Acc takes 2^8)
+
+struct GArgs {
+  const uint64_t* lde[G_TAGS];  // batch t's row i at column x: lde[t][i * stride[t] + x]
+  long long stride[G_TAGS];
+  int rows[G_TAGS];
+  int offset[G_TAGS];           // its row i is weighted by a_{offset[t] + i}
+  int spec_tag[G_MAX_SPECS];    // the batch of spec j
+  int specs, total;
+  const uint64_t* x;            // the LDE coset's points
+  const uint64_t* a_re;         // (total + specs,) the weights a
+  const uint64_t* a_im;
+  const uint64_t* y_re;         // (specs,) the opened values y_j
+  const uint64_t* y_im;
+  const uint64_t* z_re;         // (specs,) the points z_j
+  const uint64_t* z_im;
+  long long n_lde;
+};
+
+__device__ __forceinline__ uint64_t pick(const uint64_t (&v)[G_TAGS], int t) {
+  return t == 0 ? v[0] : t == 1 ? v[1] : t == 2 ? v[2] : v[3];
+}
+
+// out_re[x], out_im[x] = G(x), canonical.  Dynamic shared memory: the
+// weights a_re, a_im of the total rows.
+__global__ void __launch_bounds__(256)
+fri_g_kernel(GArgs g, uint64_t* __restrict__ out_re, uint64_t* __restrict__ out_im) {
+  extern __shared__ uint64_t weights[];  // a_re[0..total), a_im[0..total)
+  __shared__ uint64_t s_zre[G_MAX_SPECS], s_zim[G_MAX_SPECS], s_c7[G_MAX_SPECS];
+  __shared__ uint64_t s_yre[G_MAX_SPECS], s_yim[G_MAX_SPECS];
+  __shared__ uint64_t s_are[G_MAX_SPECS], s_aim[G_MAX_SPECS], s_aim7[G_MAX_SPECS];
+  for (int t = threadIdx.x; t < g.total; t += blockDim.x) {
+    weights[t] = g.a_re[t];
+    weights[g.total + t] = g.a_im[t];
+  }
+  if (threadIdx.x < g.specs) {
+    const int j = threadIdx.x;
+    const uint64_t zi = g.z_im[j];
+    s_zre[j] = g.z_re[j];
+    s_zim[j] = zi;
+    s_c7[j] = gl::mul(gl::mul(zi, zi), 7);  // W z_im^2: the norm is (x - z_re)^2 - W z_im^2
+    s_yre[j] = g.y_re[j];
+    s_yim[j] = g.y_im[j];
+    s_are[j] = g.a_re[g.total + j];
+    s_aim[j] = g.a_im[g.total + j];
+    s_aim7[j] = gl::mul(g.a_im[g.total + j], 7);
+  }
+  __syncthreads();
+  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= g.n_lde) return;
+
+  // B_t(x) for the four batches: every row read once, down its column
+  uint64_t b_re[G_TAGS], b_im[G_TAGS];
+#pragma unroll
+  for (int t = 0; t < G_TAGS; ++t) {
+    uint64_t sum_re = 0, sum_im = 0;
+    const uint64_t* col = g.lde[t] + x;
+    const uint64_t* w_re = weights + g.offset[t];
+    const uint64_t* w_im = weights + g.total + g.offset[t];
+    for (int i0 = 0; i0 < g.rows[t]; i0 += G_CHUNK) {
+      const int i1 = min(g.rows[t], i0 + G_CHUNK);
+      gl::Acc acc_re, acc_im;
+#pragma unroll 8
+      for (int i = i0; i < i1; ++i) {
+        const uint64_t v = col[(long long)i * g.stride[t]];
+        acc_re.mac(w_re[i], v);
+        acc_im.mac(w_im[i], v);
+      }
+      sum_re = gl::add(sum_re, gl::canon(acc_re.reduce_lazy()));
+      sum_im = gl::add(sum_im, gl::canon(acc_im.reduce_lazy()));
+    }
+    b_re[t] = sum_re;
+    b_im[t] = sum_im;
+  }
+
+  // the norms' inverses by Montgomery's trick: prefix[j] is the product of
+  // the non-zero norms before spec j; one Fermat inversion of all of them
+  const uint64_t xv = g.x[x];
+  uint64_t prefix[G_MAX_SPECS];
+  uint64_t run = 1;
+#pragma unroll
+  for (int j = 0; j < G_MAX_SPECS; ++j) {
+    if (j < g.specs) {
+      const uint64_t dre = gl::sub(xv, s_zre[j]);
+      const uint64_t norm = gl::sub(gl::mul(dre, dre), s_c7[j]);
+      prefix[j] = run;
+      if (norm != 0) run = gl::mul(run, norm);
+    }
+  }
+  uint64_t inv = inv_fermat(run);
+  gl::Acc acc_re, acc_im;
+#pragma unroll
+  for (int j = G_MAX_SPECS - 1; j >= 0; --j) {
+    if (j < g.specs) {
+      const uint64_t dre = gl::sub(xv, s_zre[j]);
+      const uint64_t norm = gl::sub(gl::mul(dre, dre), s_c7[j]);
+      uint64_t ninv = 0;  // the inverse of a zero norm is 0, as the plain version's
+      if (norm != 0) {
+        ninv = gl::mul(inv, prefix[j]);
+        inv = gl::mul(inv, norm);
+      }
+      // 1 / (x - z) = (dre + z_im phi) / norm
+      const Ext den{gl::mul(dre, ninv), gl::mul(s_zim[j], ninv)};
+      const int t = g.spec_tag[j];
+      const Ext num{gl::sub(pick(b_re, t), s_yre[j]), gl::sub(pick(b_im, t), s_yim[j])};
+      const Ext q = ext_mul(num, den);
+      acc_re.mac(q.re, s_are[j]);
+      acc_re.mac(q.im, s_aim7[j]);
+      acc_im.mac(q.re, s_aim[j]);
+      acc_im.mac(q.im, s_are[j]);
+    }
+  }
+  out_re[x] = gl::canon(acc_re.reduce_lazy());
+  out_im[x] = gl::canon(acc_im.reduce_lazy());
+}
+
+// ---------------------------------------------------------------------------
+// One FRI fold
+// ---------------------------------------------------------------------------
+
+// out[i] = (e0 + e1) half + beta (e0 - e1) w_inv[i] scale, e0 and e1 the ext
+// words i and i + h of (re, im); canonical.
+__global__ void __launch_bounds__(256)
+fri_fold_kernel(const uint64_t* __restrict__ re, const uint64_t* __restrict__ im,
+                const uint64_t* __restrict__ w_inv, uint64_t scale, uint64_t half,
+                const uint64_t* __restrict__ beta_re, const uint64_t* __restrict__ beta_im,
+                uint64_t* __restrict__ out_re, uint64_t* __restrict__ out_im, long long h) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= h) return;
+  const uint64_t re0 = re[i], re1 = re[i + h], im0 = im[i], im1 = im[i + h];
+  const uint64_t hx = gl::mul(w_inv[i], scale);
+  const Ext beta{beta_re[0], beta_im[0]};
+  const Ext d{gl::mul(gl::sub(re0, re1), hx), gl::mul(gl::sub(im0, im1), hx)};
+  const Ext t = ext_mul(d, beta);
+  out_re[i] = gl::add(gl::mul(gl::add(re0, re1), half), gl::canon(t.re));
+  out_im[i] = gl::add(gl::mul(gl::add(im0, im1), half), gl::canon(t.im));
+}
+
 unsigned blocks_for(long long count, int threads, long long most) {
   long long blocks = (count + threads - 1) / threads;
   if (blocks > most) blocks = most;
@@ -431,5 +606,62 @@ extern "C" int elp_perm_quotient(const void* wires, long long wires_stride, cons
                    1ll << rate, routed, chunk};
   perm_quotient_kernel<<<blocks_for(n_lde, threads, 1ll << 30), threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(a, static_cast<uint64_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// One launch: G on the LDE coset into out_re, out_im (n_lde words each).
+// `lde`, `stride`, `rows`: the four batches P, W, Z, Q; `spec_tag`: the
+// batch of each of `specs` specs (ints, read on the host).
+extern "C" int elp_fri_g(const void* const* lde, const long long* stride, const int* rows,
+                         const int* spec_tag, int specs, const void* x, const void* a_re,
+                         const void* a_im, const void* y_re, const void* y_im, const void* z_re,
+                         const void* z_im, long long n_lde, void* out_re, void* out_im,
+                         int threads, void* stream) {
+  if (specs < 1 || specs > G_MAX_SPECS || n_lde < 1 || threads < G_MAX_SPECS || threads > 256)
+    return (int)cudaErrorInvalidValue;
+  const auto w = [](const void* p) { return static_cast<const uint64_t*>(p); };
+  GArgs g{};
+  int total = 0;
+  for (int t = 0; t < G_TAGS; ++t) {
+    if (rows[t] < 0 || (rows[t] > 0 && stride[t] < n_lde)) return (int)cudaErrorInvalidValue;
+    g.lde[t] = w(lde[t]);
+    g.stride[t] = stride[t];
+    g.rows[t] = rows[t];
+    g.offset[t] = total;
+    total += rows[t];
+  }
+  if (total > G_MAX_ROWS) return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < specs; ++j) {
+    if (spec_tag[j] < 0 || spec_tag[j] >= G_TAGS) return (int)cudaErrorInvalidValue;
+    g.spec_tag[j] = spec_tag[j];
+  }
+  g.specs = specs;
+  g.total = total;
+  g.x = w(x);
+  g.a_re = w(a_re);
+  g.a_im = w(a_im);
+  g.y_re = w(y_re);
+  g.y_im = w(y_im);
+  g.z_re = w(z_re);
+  g.z_im = w(z_im);
+  g.n_lde = n_lde;
+  const size_t shared = 2 * (size_t)total * sizeof(uint64_t);
+  fri_g_kernel<<<blocks_for(n_lde, threads, 1ll << 30), threads, shared,
+                 static_cast<cudaStream_t>(stream)>>>(g, static_cast<uint64_t*>(out_re),
+                                                      static_cast<uint64_t*>(out_im));
+  return (int)cudaGetLastError();
+}
+
+// One fold of (re, im), 2h words each, into (out_re, out_im), h words each.
+extern "C" int elp_fri_fold(const void* re, const void* im, const void* w_inv,
+                            unsigned long long scale, unsigned long long half, const void* beta_re,
+                            const void* beta_im, void* out_re, void* out_im, long long h,
+                            int threads, void* stream) {
+  if (h < 1 || threads < 1 || threads > 256) return (int)cudaErrorInvalidValue;
+  const auto w = [](const void* p) { return static_cast<const uint64_t*>(p); };
+  fri_fold_kernel<<<blocks_for(h, threads, 1ll << 30), threads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      w(re), w(im), w(w_inv), scale, half, w(beta_re), w(beta_im), static_cast<uint64_t*>(out_re),
+      static_cast<uint64_t*>(out_im), h);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,16 @@
-// The SHA-256 and Poseidon gates' share of the quotient, one launch a gate.
+// The gates' share of the quotient: the SHA-256 and Poseidon gates, one
+// launch each, and the generic gates with the public inputs, one launch.
 //
-// Replaces eth_lc_plonky2_tpu/circuit/gates_sha256.py:223 `absorb_sha_quotient`
-// and eth_lc_plonky2_tpu/circuit/gates_poseidon.py:133
-// `absorb_poseidon_quotient`.  Neither is a Pallas kernel: XLA fuses the
-// (32, L) bit blocks and the `lax.scan`s over rounds into a few programs.
-// Eager PyTorch fuses nothing, and the gates' generic `eval` is about 3,000
-// (SHA-256) and 10,000 (Poseidon) whole-domain field operations, one
-// csrc/field.cu launch each.  Here each gate is one kernel.
+// Replaces eth_lc_plonky2_tpu/circuit/gates_sha256.py:223 `absorb_sha_quotient`,
+// eth_lc_plonky2_tpu/circuit/gates_poseidon.py:133 `absorb_poseidon_quotient`
+// and the generic loop of eth_lc_plonky2_tpu/prover/prove.py:484-520 (the
+// public-input terms, and `g.eval` with `absorb` for the ArithmeticGate,
+// BaseSum2Gate and ConstantGate).  None is a Pallas kernel: XLA fuses the
+// (32, L) bit blocks, the `lax.scan`s over rounds and the generic
+// constraints into the jitted quotient (:534).  Eager PyTorch fuses nothing:
+// the gates' generic `eval` is about 3,000 (SHA-256) and 10,000 (Poseidon)
+// whole-domain field operations, the generic gates and public inputs of the
+// light-client circuit about 900, one csrc/field.cu launch each.
 //
 // What each computes.  For every column x of the LDE domain and every
 // challenge j:
@@ -26,20 +30,32 @@
 // and L2 still hold) and keeps only a few words in registers.  The alpha
 // powers (and the Poseidon gate's round constants) sit in shared memory.
 //
-// Both take exactly two challenges, the prover's configuration.
+// All take exactly two challenges, the prover's configuration.
 //
 // What bounds them.  The SHA-256 gate's polynomials are evaluated in their
 // cheapest form (xor3 as two nested xor2, ch = g + e (f - g),
 // maj = ab + c (a + b - 2 ab): the same polynomials as `eval()`'s expanded
 // ones, so the same words): 463 field products and 210 multiply-accumulates
 // a column (about 3,200 multiply-adds of 32 x 32 bits) against 111 distinct
-// words moved.  The Poseidon gate does 474 products, 30 dense MDS layers
-// (small coefficients: twelve terms are summed wide and reduced once) and 260
+// words moved.  The Poseidon gate does 474 products, 30 dense layers (small
+// coefficients: twelve terms are summed wide and reduced once) and 260
 // multiply-accumulates (about 12,500) against 147 words.  At 16.75 T
 // multiply-adds a second and 3.35 TB/s that is 0.40 against 0.56 ms (bound by
 // bytes) and 1.56 against 0.74 ms (bound by operations) for 2^21 columns.
 // Both kernels are kept simple: canonical products in the SHA-256 gate, bit
 // wires re-read for each rotation.
+//
+// The generic gates (generic_gate_quotient_kernel) visit the wire columns
+// once, in order, four at a time with the next four already loading; each
+// word goes to every generic gate that reads it (ArithmeticGate op w / 4 in
+// role w % 4, BaseSum2Gate slot w / 33 as its value or a bit, whose sum and
+// booleanity both take it, ConstantGate slot w), each gate into its own
+// 96-bit column sums a challenge.  The public-input terms
+// lr_i (w_{c_i} - pi_i) read their wire and Lagrange rows once each.  The
+// accumulators are updated in place.  What bounds it: memory, about 110 rows
+// read a column in the light-client circuit (80 wires, 3 selectors, 8
+// constant rows, 12 Lagrange rows and 12 public-input wires, 2
+// accumulators) against about 200 multiply-accumulates and 150 products.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -385,6 +401,155 @@ poseidon_gate_quotient_kernel(WireView w0, PoseidonLayout L, const uint64_t* __r
   }
 }
 
+// ---------------------------------------------------------------------------
+// The generic gates and the public inputs (circuit/gates.py)
+// ---------------------------------------------------------------------------
+
+constexpr int GEN_MAX_CONSTRAINTS = 256;  // a gate's constraints: one gl::Acc, no reduction between
+constexpr int GEN_BS_MAX_BITS = 32;       // BaseSum2Gate bits a slot (its 33 wires a slot)
+constexpr int GEN_BS_STRIDE = 33;         // wires a BaseSum2Gate slot
+
+// Each generic gate at most once; a count of 0 leaves the gate out.
+struct GenericArgs {
+  const uint64_t* wires;   // wire w at column x: wires[w * wires_stride + x]
+  long long wires_stride;
+  const uint64_t* consts;  // constant column i at column x: consts[i * consts_stride + x]
+  long long consts_stride;
+  const uint64_t* sel_arith;  // the gates' selector rows
+  const uint64_t* sel_bs;
+  const uint64_t* sel_const;
+  int arith_ops;              // ArithmeticGate(num_ops)
+  int bs_bits, bs_slots;      // BaseSum2Gate(num_bits, num_slots)
+  int const_slots;            // ConstantGate(num_slots)
+  int visit;                  // wire columns visited: the most any of the three reads
+  const uint64_t* lr;         // public input i's Lagrange row: lr[i * lr_stride + x]
+  long long lr_stride;
+  const uint64_t* pi;         // (num_pi,) the public inputs
+  const long long* pi_col;    // (num_pi,) their wire columns
+  int num_pi;
+  const uint64_t* alpha[NCH]; // alpha_j^0, alpha_j^1, ...: reads [pi0, pi0 + num_pi), [k0, k0 + slots)
+  int pi0, k0, slots;         // slots: the most constraints of the three gates
+  uint64_t* acc[NCH];         // (n_lde,) updated in place
+  long long n_lde;
+};
+
+// acc_j[x] += sum over the public inputs and the generic gates, canonical.
+// Dynamic shared memory: per challenge the alpha powers of the public
+// inputs, then of the constraint slots; then the public inputs' words.
+__global__ void __launch_bounds__(256)
+generic_gate_quotient_kernel(GenericArgs g) {
+  extern __shared__ uint64_t gen_shared[];
+  const int per = g.num_pi + g.slots;
+  uint64_t* alpha = gen_shared;                 // alpha[j * per + i]: public input i
+  uint64_t* pi = gen_shared + NCH * per;        // then slot k at j * per + num_pi + k
+  for (int t = threadIdx.x; t < per; t += blockDim.x) {
+#pragma unroll
+    for (int j = 0; j < NCH; ++j)
+      alpha[j * per + t] = t < g.num_pi ? g.alpha[j][g.pi0 + t] : g.alpha[j][g.k0 + t - g.num_pi];
+  }
+  for (int t = threadIdx.x; t < g.num_pi; t += blockDim.x) pi[t] = g.pi[t];
+  __syncthreads();
+  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= g.n_lde) return;
+  const uint64_t* ak[NCH];
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) ak[j] = alpha + j * per + g.num_pi;
+
+  uint64_t total[NCH];
+  // the public inputs: lr_i (w_{c_i} - pi_i), a reduction every 128 terms
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) total[j] = 0;
+  for (int i0 = 0; i0 < g.num_pi; i0 += 128) {
+    const int i1 = min(g.num_pi, i0 + 128);
+    gl::Acc sum[NCH];
+#pragma unroll 4
+    for (int i = i0; i < i1; ++i) {
+      const uint64_t w = g.wires[g.pi_col[i] * g.wires_stride + x];
+      const uint64_t t = gl::mul(g.lr[(long long)i * g.lr_stride + x], gl::sub(w, pi[i]));
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) sum[j].mac(alpha[j * per + i], t);
+    }
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) total[j] = gl::add(total[j], gl::canon(sum[j].reduce_lazy()));
+  }
+
+  // one pass over the wire columns
+  const uint64_t c0 = g.consts[x];
+  const uint64_t c1 = g.consts_stride ? g.consts[g.consts_stride + x] : 0;
+  gl::Acc arith[NCH], bs[NCH], cst[NCH];
+  uint64_t a = 0, ab = 0, c = 0;   // the ArithmeticGate op in progress: a, a b, c
+  uint64_t value = 0;               // the BaseSum2Gate slot in progress: its value
+  Wide bits;                        //   and sum_i bit_i 2^i
+  int slot = 0, r = 0;              // wire w is BaseSum2Gate slot `slot`, place r
+  const auto visit = [&](int w, uint64_t v) {
+    if (w < 4 * g.arith_ops) {  // op w / 4: out = c0 a b + c1 c
+      const int role = w & 3;
+      if (role == 0) {
+        a = v;
+      } else if (role == 1) {
+        ab = gl::mul(a, v);
+      } else if (role == 2) {
+        c = v;
+      } else {
+        const uint64_t con = gl::sub(gl::add(gl::mul(c0, ab), gl::mul(c1, c)), v);
+#pragma unroll
+        for (int j = 0; j < NCH; ++j) arith[j].mac(ak[j][w >> 2], con);
+      }
+    }
+    if (w < GEN_BS_STRIDE * g.bs_slots) {  // slot: [sum - value, bit_0^2 - bit_0, ...]
+      const int first = slot * (1 + g.bs_bits);
+      if (r == 0) {
+        value = v;
+        bits = Wide();
+      } else if (r <= g.bs_bits) {
+        bits.add_shl(v, r - 1);
+        const uint64_t con = gl::sub(gl::mul(v, v), v);
+#pragma unroll
+        for (int j = 0; j < NCH; ++j) bs[j].mac(ak[j][first + r], con);
+      }
+      if (r == g.bs_bits) {
+        const uint64_t con = gl::sub(bits.reduce(), value);
+#pragma unroll
+        for (int j = 0; j < NCH; ++j) bs[j].mac(ak[j][first], con);
+      }
+      if (++r == GEN_BS_STRIDE) {
+        r = 0;
+        ++slot;
+      }
+    }
+    if (w < g.const_slots) {  // wire w == constant column w
+      const uint64_t cw = w == 0 ? c0 : w == 1 ? c1 : g.consts[w * g.consts_stride + x];
+      const uint64_t con = gl::sub(v, cw);
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) cst[j].mac(ak[j][w], con);
+    }
+  };
+  // four columns at a time, the next four loading meanwhile
+  const uint64_t* col = g.wires + x;
+  const auto load4 = [&](int w0, uint64_t (&v)[4]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = w0 + q < g.visit ? col[(long long)(w0 + q) * g.wires_stride] : 0;
+  };
+  uint64_t cur[4], ahead[4];
+  load4(0, cur);
+#pragma unroll 1
+  for (int w0 = 0; w0 < g.visit; w0 += 4) {
+    load4(w0 + 4, ahead);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (w0 + q < g.visit) visit(w0 + q, cur[q]);
+      cur[q] = ahead[q];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    if (g.arith_ops) total[j] = gl::add(total[j], gl::mul(g.sel_arith[x], arith[j].reduce_lazy()));
+    if (g.bs_slots) total[j] = gl::add(total[j], gl::mul(g.sel_bs[x], bs[j].reduce_lazy()));
+    if (g.const_slots) total[j] = gl::add(total[j], gl::mul(g.sel_const[x], cst[j].reduce_lazy()));
+    g.acc[j][x] = gl::add(g.acc[j][x], total[j]);
+  }
+}
+
 unsigned blocks_for(long long count, int threads) {
   return (unsigned)((count + threads - 1) / threads);
 }
@@ -429,5 +594,60 @@ extern "C" int elp_poseidon_gate_quotient(const void* wires, long long stride, l
                                   static_cast<cudaStream_t>(stream)>>>(
       w, L, words(table), words(sel), words(alpha0), words(alpha1), words(acc0), words(acc1),
       static_cast<uint64_t*>(out0), static_cast<uint64_t*>(out1), n_lde);
+  return (int)cudaGetLastError();
+}
+
+// One launch for the two challenges; `acc0`, `acc1` are updated in place and
+// overlap no input.  `pi_col` is a device array; the gates' parameters and
+// the alpha offsets are ops/kernels.py `generic_gate_plan`'s.
+extern "C" int elp_generic_gate_quotient(const void* wires, long long wires_stride,
+                                         const void* consts, long long consts_stride,
+                                         const void* sel_arith, const void* sel_bs,
+                                         const void* sel_const, int arith_ops, int bs_bits,
+                                         int bs_slots, int const_slots, const void* lr,
+                                         long long lr_stride, const void* pi, const void* pi_col,
+                                         int num_pi, const void* alpha0, const void* alpha1,
+                                         int pi0, int k0, void* acc0, void* acc1,
+                                         long long n_lde, int threads, void* stream) {
+  const int arith = arith_ops, bs = bs_slots * (1 + bs_bits), cst = const_slots;
+  const int slots = arith > bs ? (arith > cst ? arith : cst) : (bs > cst ? bs : cst);
+  int visit = 4 * arith_ops;
+  if (GEN_BS_STRIDE * bs_slots > visit) visit = GEN_BS_STRIDE * bs_slots;
+  if (const_slots > visit) visit = const_slots;
+  if (n_lde < 1 || threads < 1 || threads > 256 || arith_ops < 0 || bs_slots < 0 ||
+      const_slots < 0 || bs_bits < 0 || bs_bits > GEN_BS_MAX_BITS || num_pi < 0 ||
+      slots >= GEN_MAX_CONSTRAINTS || (arith_ops && !sel_arith) || (bs_slots && !sel_bs) ||
+      (const_slots && !sel_const) || (const_slots > 1 && !consts_stride))
+    return (int)cudaErrorInvalidValue;
+  const size_t shared = ((size_t)NCH * (num_pi + slots) + num_pi) * sizeof(uint64_t);
+  if (shared > 48 * 1024) return (int)cudaErrorInvalidValue;
+  GenericArgs g{};
+  g.wires = words(wires);
+  g.wires_stride = wires_stride;
+  g.consts = words(consts);
+  g.consts_stride = consts_stride;
+  g.sel_arith = words(sel_arith);
+  g.sel_bs = words(sel_bs);
+  g.sel_const = words(sel_const);
+  g.arith_ops = arith_ops;
+  g.bs_bits = bs_bits;
+  g.bs_slots = bs_slots;
+  g.const_slots = const_slots;
+  g.visit = visit;
+  g.lr = words(lr);
+  g.lr_stride = lr_stride;
+  g.pi = words(pi);
+  g.pi_col = static_cast<const long long*>(pi_col);
+  g.num_pi = num_pi;
+  g.alpha[0] = words(alpha0);
+  g.alpha[1] = words(alpha1);
+  g.pi0 = pi0;
+  g.k0 = k0;
+  g.slots = slots;
+  g.acc[0] = static_cast<uint64_t*>(acc0);
+  g.acc[1] = static_cast<uint64_t*>(acc1);
+  g.n_lde = n_lde;
+  generic_gate_quotient_kernel<<<blocks_for(n_lde, threads), threads, shared,
+                                 static_cast<cudaStream_t>(stream)>>>(g);
   return (int)cudaGetLastError();
 }

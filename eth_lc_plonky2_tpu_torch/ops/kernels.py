@@ -41,6 +41,10 @@ NTT_THREADS = 256
 POSEIDON_THREADS = 256  # csrc/poseidon.cu: __launch_bounds__(256, ...), the most it takes
 FIELD_THREADS = 256  # csrc/field.cu: __launch_bounds__(256)
 FIELD_OPS = {"add": 0, "sub": 1, "mul": 2}  # csrc/field.cu: OP_ADD, OP_SUB, OP_MUL
+# csrc/field.cu's G kernel: G_TAGS batches, G_MAX_SPECS specs, G_MAX_ROWS rows in all
+G_TAGS = 4
+G_MAX_SPECS = 16
+G_MAX_ROWS = 2048
 # csrc/field.cu's openings: OPEN_WARPS warps a block, each a point and
 # OPEN_ROWS rows, 16 to OPEN_MAX_COLS columns a lane a slice of the columns
 OPEN_WARPS = 8
@@ -54,6 +58,13 @@ PERM_MAX_ROUTED = 256
 PERM_MAX_CHUNKS = 64
 GATES_THREADS = 256  # csrc/gates.cu: __launch_bounds__(256)
 GATES_CHALLENGES = 2  # csrc/gates.cu: NCH, the challenges one launch takes (the prover's 2)
+# csrc/gates.cu's generic gates: fewer than GEN_MAX_CONSTRAINTS constraints a
+# gate, at most GEN_BS_MAX_BITS bits a BaseSum2Gate slot of GEN_BS_STRIDE wires
+GEN_MAX_CONSTRAINTS = 256
+GEN_BS_MAX_BITS = 32
+GEN_BS_STRIDE = 33
+GENERIC_GATES = ("arith", "basesum2", "const")
+GEN_MAX_SHARED_BYTES = 48 * 1024
 
 launches = {"ntt": 0, "poseidon": 0, "field": 0, "gates": 0}
 build_info: dict = {}
@@ -123,11 +134,19 @@ def _libraries() -> dict:
                   "elp_field_open": [vp, ll, ll, ll, vp, vp, i32, i32, ll, i32, ll, ll, vp, vp],
                   "elp_field_open_sum": [vp, ll, ll, vp, i32, vp],
                   "elp_perm_quotient": [vp, ll, vp, ll, vp, ll, vp, vp, vp, vp, vp, vp, vp, ll,
-                                        i32, i32, i32, vp, i32, vp]},
+                                        i32, i32, i32, vp, i32, vp],
+                  "elp_fri_g": [ctypes.POINTER(vp), ctypes.POINTER(ll), ctypes.POINTER(i32),
+                                ctypes.POINTER(i32), i32, vp, vp, vp, vp, vp, vp, vp, ll, vp, vp,
+                                i32, vp],
+                  "elp_fri_fold": [vp, vp, vp, ctypes.c_ulonglong, ctypes.c_ulonglong, vp, vp, vp,
+                                   vp, ll, i32, vp]},
         "gates": {"elp_sha_gate_quotient": [vp, ll, ll, i32, ctypes.POINTER(i32), vp, vp, vp, vp,
                                             vp, vp, vp, vp, vp, vp, vp, i32, vp],
                   "elp_poseidon_gate_quotient": [vp, ll, ll, ctypes.POINTER(i32), vp, vp, vp, vp,
-                                                 vp, vp, vp, vp, i32, vp]},
+                                                 vp, vp, vp, vp, i32, vp],
+                  "elp_generic_gate_quotient": [vp, ll, vp, ll, vp, vp, vp, i32, i32, i32, i32, vp,
+                                                ll, vp, vp, i32, vp, vp, i32, i32, vp, vp, ll, i32,
+                                                vp]},
     }
     for stem, functions in signatures.items():
         for name, argtypes in functions.items():
@@ -546,3 +565,222 @@ def poseidon_gate_quotient(wires_lde, layout: tuple, table, sel, apow_rows, accs
             *alphas, *acc_in, *acc_out, GATES_THREADS, _stream(wires_lde))
 
     return _gate_launch("poseidon gate", wires_lde, {"sel": sel}, apow_rows, accs, 130, call)
+
+
+def _dense_row(t, length: int, device, name: str, what: str) -> None:
+    """``t`` must be a (length,) int64 row with unit stride on ``device``."""
+    if (t.dim() != 1 or t.shape[0] != length or (length > 1 and t.stride(0) != 1)
+            or t.dtype != torch.int64 or t.device != device):
+        raise ValueError(f"{what}: {name} of shape {tuple(t.shape)}, strides {t.stride()}, "
+                         f"{t.dtype} on {t.device}, expected a dense ({length},) row on {device}")
+
+
+def _rows_view(t, n: int, device, name: str, what: str) -> None:
+    """``t`` must be an (rows, n) int64 view with unit column stride and rows
+    that do not overlap, on ``device``."""
+    if (t.dim() != 2 or t.shape[1] != n or (n > 1 and t.stride(1) != 1)
+            or (t.shape[0] > 1 and t.stride(0) < n) or t.dtype != torch.int64 or t.device != device):
+        raise ValueError(f"{what}: {name} of shape {tuple(t.shape)}, strides {t.stride()}, "
+                         f"{t.dtype} on {t.device}, expected ({t.shape[0] if t.dim() else '?'}, {n}) "
+                         f"rows with unit column stride on {device}")
+
+
+def fri_g_plan(ldes, apow, y, z, x, spec_batches) -> dict:
+    """How ``fri_g_kernel`` reads G's arguments: checks what it assumes and
+    returns the columns, each batch's rows, row stride and first weight (the
+    weights of P, W, Z, Q follow each other), the total rows, the specs and
+    each spec's batch index.
+
+    ``ldes`` are the four batches' (rows, n_lde) LDEs in P, W, Z, Q order;
+    ``apow`` (re, im) rows of total + specs weights; ``y`` and ``z`` (re, im)
+    rows of one word a spec; ``x`` the (n_lde,) coset; ``spec_batches`` the
+    index into ``ldes`` of each spec's batch."""
+    if len(ldes) != G_TAGS:
+        raise ValueError(f"fri G: {len(ldes)} batches, the kernel takes {G_TAGS}")
+    n_lde = x.shape[0] if x.dim() == 1 else 0
+    if n_lde < 1:
+        raise ValueError(f"fri G: coset of shape {tuple(x.shape)}")
+    dev = x.device
+    rows, strides, offsets, total = [], [], [], 0
+    for t, lde in enumerate(ldes):
+        _rows_view(lde, n_lde, dev, f"batch {t}", "fri G")
+        rows.append(lde.shape[0])
+        strides.append(lde.stride(0) if lde.shape[0] > 1 else n_lde)
+        offsets.append(total)
+        total += lde.shape[0]
+    specs = len(spec_batches)
+    if not 1 <= specs <= G_MAX_SPECS or total > G_MAX_ROWS:
+        raise ValueError(f"fri G: {specs} specs and {total} rows (the kernel takes 1 to "
+                         f"{G_MAX_SPECS} specs, at most {G_MAX_ROWS} rows)")
+    if any(not 0 <= t < G_TAGS for t in spec_batches):
+        raise ValueError(f"fri G: spec batches {spec_batches}")
+    _dense_row(x, n_lde, dev, "x", "fri G")
+    for name, pair, length in (("apow", apow, total + specs), ("y", y, specs), ("z", z, specs)):
+        for part, t in zip(("re", "im"), pair):
+            _dense_row(t, length, dev, f"{name} {part}", "fri G")
+    return {"n_lde": n_lde, "rows": rows, "strides": strides, "offsets": offsets, "total": total,
+            "specs": specs, "spec_tag": list(spec_batches)}
+
+
+def fri_g(ldes, apow, y, z, x, spec_batches) -> tuple:
+    """Launch ``fri_g_kernel``: G(x) = sum_j a_{total+j} (B_{tag(j)}(x) - y_j) /
+    (x - z_j) over the coset ``x``, B_t = sum_i a_{off_t+i} lde_t[i], as
+    (re, im) rows of n_lde words (see ``fri_g_plan`` for the arguments)."""
+    for i, t in enumerate([*ldes, *apow, *y, *z, x]):
+        _check(t, f"fri G argument {i}")
+    plan = fri_g_plan(ldes, apow, y, z, x, spec_batches)
+    out = torch.empty((2, plan["n_lde"]), dtype=torch.int64, device=x.device)
+    vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    err = _libraries()["field"].elp_fri_g(
+        (vp * G_TAGS)(*[t.data_ptr() for t in ldes]), (ll * G_TAGS)(*plan["strides"]),
+        (i32 * G_TAGS)(*plan["rows"]), (i32 * G_MAX_SPECS)(*plan["spec_tag"]), plan["specs"],
+        x.data_ptr(), apow[0].data_ptr(), apow[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(),
+        z[0].data_ptr(), z[1].data_ptr(), plan["n_lde"], out[0].data_ptr(), out[1].data_ptr(),
+        FIELD_THREADS, _stream(x))
+    launches["field"] += 1
+    _raise_on(err, "fri G")
+    return out[0], out[1]
+
+
+def fri_fold_plan(re, im, w_inv, beta) -> int:
+    """What ``fri_fold_kernel`` assumes of one fold's arguments: (2h,) dense
+    ``re`` and ``im``, the (h,) table ``w_inv`` of w^-i, ``beta`` two
+    shape-() words, all on one device.  Returns h."""
+    size = re.shape[0] if re.dim() == 1 else 0
+    if size < 2 or size & 1:
+        raise ValueError(f"fri fold: a layer of shape {tuple(re.shape)}")
+    h = size // 2
+    dev = re.device
+    _dense_row(re, size, dev, "re", "fri fold")
+    _dense_row(im, size, dev, "im", "fri fold")
+    _dense_row(w_inv, h, dev, "w_inv", "fri fold")
+    for part, t in zip(("re", "im"), beta):
+        if t.dim() != 0 or t.dtype != torch.int64 or t.device != dev:
+            raise ValueError(f"fri fold: beta {part} of shape {tuple(t.shape)} on {t.device}")
+    return h
+
+
+def fri_fold(re, im, w_inv, scale: int, half: int, beta) -> tuple:
+    """Launch ``fri_fold_kernel``: one fold of the ext layer (re, im) of 2h
+    words into h, out[i] = (e0 + e1) half + beta (e0 - e1) w_inv[i] scale
+    with e0, e1 the words i and i + h; ``scale`` and ``half`` host words,
+    ``beta`` a pair of shape-() device words."""
+    for t, name in ((re, "re"), (im, "im"), (w_inv, "w_inv"), (beta[0], "beta re"),
+                    (beta[1], "beta im")):
+        _check(t, name)
+    h = fri_fold_plan(re, im, w_inv, beta)
+    out = torch.empty((2, h), dtype=torch.int64, device=re.device)
+    err = _libraries()["field"].elp_fri_fold(
+        re.data_ptr(), im.data_ptr(), w_inv.data_ptr(), int(scale), int(half), beta[0].data_ptr(),
+        beta[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), h, FIELD_THREADS, _stream(re))
+    launches["field"] += 1
+    _raise_on(err, "fri fold")
+    return out[0], out[1]
+
+
+def generic_gate_plan(gates: list, wires_lde, pre_lde, num_sel: int, num_constants: int, lr,
+                      pi_f, pi_cols, apows: list, accs: list, pi0: int, k0: int) -> dict:
+    """How ``generic_gate_quotient_kernel`` is launched: checks what it
+    assumes and returns its parameters.
+
+    ``gates`` are the circuit's (index, gate) pairs of the generic gates with
+    constraints (``GENERIC_GATES``, each at most once); ``wires_lde`` the
+    (num_wires, n_lde) LDE; ``pre_lde`` the preprocessed LDE (selector gi at
+    row gi, constant column i at row num_sel + i); ``lr`` the (num_pi, n_lde)
+    Lagrange rows, ``pi_f`` the public inputs and ``pi_cols`` their wire
+    columns; ``apows`` one row of alpha powers a challenge, read at pi0 + i
+    (public input i) and k0 + k (constraint k of a gate); ``accs`` one
+    (n_lde,) accumulator a challenge, updated in place."""
+    what = "generic gates"
+    _rows_view(wires_lde, wires_lde.shape[1] if wires_lde.dim() == 2 else 0, wires_lde.device,
+               "wires_lde", what)
+    num_wires, n_lde = wires_lde.shape
+    dev = wires_lde.device
+    if n_lde < 1:
+        raise ValueError(f"{what}: wires of shape {tuple(wires_lde.shape)}")
+    _rows_view(pre_lde, n_lde, dev, "pre_lde", what)
+    params = {"arith": None, "basesum2": None, "const": None}
+    for gi, g in gates:
+        if g.name not in params or params[g.name] is not None:
+            raise ValueError(f"{what}: gate {g.name!r} (each of {GENERIC_GATES} at most once)")
+        if not 0 <= gi < num_sel:
+            raise ValueError(f"{what}: selector row {gi} of {num_sel}")
+        if not 0 < g.num_constraints < GEN_MAX_CONSTRAINTS:
+            raise ValueError(f"{what}: {g.name} has {g.num_constraints} constraints (the kernel "
+                             f"takes fewer than {GEN_MAX_CONSTRAINTS})")
+        params[g.name] = (gi, g)
+    arith_ops = bs_bits = bs_slots = const_slots = 0
+    if params["arith"]:
+        arith_ops = params["arith"][1].num_ops
+        if 4 * arith_ops > num_wires or num_constants < 2:
+            raise ValueError(f"{what}: {arith_ops} arithmetic ops on {num_wires} wires and "
+                             f"{num_constants} constants")
+    if params["basesum2"]:
+        g = params["basesum2"][1]
+        bs_bits, bs_slots = g.num_bits, g.num_slots
+        if bs_bits > GEN_BS_MAX_BITS or GEN_BS_STRIDE * bs_slots > num_wires:
+            raise ValueError(f"{what}: {bs_slots} slots of {bs_bits} bits on {num_wires} wires "
+                             f"(at most {GEN_BS_MAX_BITS} bits a slot)")
+    if params["const"]:
+        const_slots = params["const"][1].num_slots
+        if const_slots > min(num_wires, num_constants):
+            raise ValueError(f"{what}: {const_slots} constant slots, {num_constants} constants")
+    if num_sel + num_constants > pre_lde.shape[0] or num_constants < 1:
+        raise ValueError(f"{what}: {num_sel} selectors and {num_constants} constants in "
+                         f"{pre_lde.shape[0]} preprocessed rows")
+    slots = max(arith_ops, bs_slots * (1 + bs_bits), const_slots)
+    num_pi = pi_f.shape[0] if pi_f.dim() == 1 else -1
+    if num_pi < 0 or tuple(lr.shape) != (num_pi, n_lde) or tuple(pi_cols.shape) != (num_pi,):
+        raise ValueError(f"{what}: public inputs {tuple(pi_f.shape)}, Lagrange rows "
+                         f"{tuple(lr.shape)}, columns {tuple(pi_cols.shape)}")
+    if num_pi:
+        _rows_view(lr, n_lde, dev, "lr", what)
+    _dense_row(pi_f, num_pi, dev, "pi_f", what)
+    _dense_row(pi_cols, num_pi, dev, "pi_cols", what)
+    if len(apows) != GATES_CHALLENGES or len(accs) != GATES_CHALLENGES:
+        raise ValueError(f"{what}: {len(apows)} alpha rows and {len(accs)} accumulators, the "
+                         f"kernel takes {GATES_CHALLENGES} challenges")
+    for j, (a, acc) in enumerate(zip(apows, accs)):
+        _dense_row(a, a.shape[0] if a.dim() == 1 else -1, dev, f"alpha row {j}", what)
+        if pi0 < 0 or k0 < 0 or a.shape[0] < max(pi0 + num_pi, k0 + slots):
+            raise ValueError(f"{what}: alpha row {j} of {a.shape[0]} powers, the kernel reads "
+                             f"{pi0}..{pi0 + num_pi} and {k0}..{k0 + slots}")
+        _dense_row(acc, n_lde, dev, f"acc {j}", what)
+    shared = (GATES_CHALLENGES * (num_pi + slots) + num_pi) * 8
+    if shared > GEN_MAX_SHARED_BYTES:
+        raise ValueError(f"{what}: {num_pi} public inputs and {slots} slots need {shared} bytes "
+                         f"of shared memory")
+    return {"n_lde": n_lde, "wires_stride": wires_lde.stride(0), "consts_stride": pre_lde.stride(0),
+            "sel": {name: p[0] for name, p in params.items() if p}, "arith_ops": arith_ops,
+            "bs_bits": bs_bits, "bs_slots": bs_slots, "const_slots": const_slots,
+            "visit": max(4 * arith_ops, GEN_BS_STRIDE * bs_slots, const_slots), "slots": slots,
+            "num_pi": num_pi, "lr_stride": lr.stride(0) if num_pi > 1 else n_lde,
+            "shared_bytes": shared}
+
+
+def generic_gate_quotient(gates: list, wires_lde, pre_lde, num_sel: int, num_constants: int, lr,
+                          pi_f, pi_cols, apows: list, accs: list, pi0: int, k0: int) -> None:
+    """Launch ``generic_gate_quotient_kernel``: accs[j] += sum_i
+    apows[j][pi0 + i] lr_i (w_{c_i} - pi_i) + sum over the generic gates of
+    sel * sum_k apows[j][k0 + k] C_k, in place (see ``generic_gate_plan``)."""
+    for t, name in ((wires_lde, "wires_lde"), (pre_lde, "pre_lde"), (lr, "lr"), (pi_f, "pi_f"),
+                    (pi_cols, "pi_cols"), *((a, f"alpha row {j}") for j, a in enumerate(apows)),
+                    *((a, f"acc {j}") for j, a in enumerate(accs))):
+        _check(t, name)
+    plan = generic_gate_plan(gates, wires_lde, pre_lde, num_sel, num_constants, lr, pi_f, pi_cols,
+                             apows, accs, pi0, k0)
+    if not gates and not plan["num_pi"]:
+        return  # nothing to add
+
+    def sel(name):
+        return pre_lde[plan["sel"][name]].data_ptr() if name in plan["sel"] else None
+
+    err = _libraries()["gates"].elp_generic_gate_quotient(
+        wires_lde.data_ptr(), plan["wires_stride"], pre_lde[num_sel].data_ptr(),
+        plan["consts_stride"], sel("arith"), sel("basesum2"), sel("const"), plan["arith_ops"],
+        plan["bs_bits"], plan["bs_slots"], plan["const_slots"], lr.data_ptr(), plan["lr_stride"],
+        pi_f.data_ptr(), pi_cols.data_ptr(), plan["num_pi"], apows[0].data_ptr(),
+        apows[1].data_ptr(), pi0, k0, accs[0].data_ptr(), accs[1].data_ptr(), plan["n_lde"],
+        GATES_THREADS, _stream(wires_lde))
+    launches["gates"] += 1
+    _raise_on(err, "generic gates")

@@ -8,7 +8,9 @@ extension field; the combined opening polynomial
 is evaluated on the whole LDE coset (the per-point denominators share ONE
 Fermat inversion of the (num_specs, n_lde) norm matrix), committed in
 pair-leaves [G(j), G(j+N/2)], then folded with per-layer transcript
-challenges.
+challenges.  On the card G is one launch of csrc/field.cu ``fri_g_kernel``
+and each fold one of ``fri_fold_kernel``; a CPU tensor runs the eager
+chains ``g_plain`` and ``fold_plain``.
 
 Device discipline: fold layers and their Merkle trees stay on the device;
 the host sees caps, the final polynomial, the PoW result, and one batched
@@ -25,6 +27,7 @@ import torch
 from ..ops import goldilocks as gl
 from ..ops import goldilocks_ext as ge
 from ..ops import host_field as hf
+from ..ops import kernels
 from ..ops import ntt as nttm
 from ..ops import poseidon as pos
 from .merkle import MerkleTree, _levels_core, gather_rows_and_paths
@@ -36,6 +39,7 @@ SHIFT = gl.MULTIPLICATIVE_GENERATOR
 TAGS = ("P", "W", "Z", "Q")
 
 _SUM_CHUNK = 16  # rows of an LDE per weighted-sum pass (bounds the product)
+INV2 = gl.h_inv(2)
 
 
 @dataclasses.dataclass
@@ -84,40 +88,51 @@ def _weighted_sum(lde: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def g_plain(ldes, apow_f, y_f, z_f, x_dev, counts: dict, spec_tags: tuple):
+    """G(x) over the LDE coset ``x_dev`` as eager field ops: the plain version
+    of ``kernels.fri_g`` (csrc/field.cu ``fri_g_kernel``), the CPU path.
+
+    apow_f: (re, im) field tensors of shape (total + num_specs,); y_f and z_f:
+    (re, im) of shape (num_specs,).  All per-spec work is batched over a
+    (num_specs, n_lde) axis."""
+    offsets_g, total = _tag_offsets(counts)
+    apre, apim = apow_f
+    b_tag = {}
+    for ti, t in enumerate(TAGS):
+        c0 = offsets_g[t]
+        c1 = c0 + counts[t]
+        b_tag[t] = (_weighted_sum(ldes[ti], apre[c0:c1]), _weighted_sum(ldes[ti], apim[c0:c1]))
+    yre, yim = y_f
+    zre, zim = z_f
+    # denominators (x - z_j), batched; ONE Fermat inversion of the
+    # (S, n_lde) norm matrix
+    dre = gl.sub(x_dev[None, :], zre[:, None])
+    dim = gl.neg(zim)  # (S,): the imaginary part does not depend on x
+    norms = gl.sub(gl.square(dre), gl.mul_small(gl.square(dim), ge.W)[:, None])
+    ninv = gl.inv(norms)
+    inv_denom = (gl.mul(dre, ninv), gl.mul(ninv, gl.neg(dim)[:, None]))
+    del norms, ninv
+    b_re = torch.stack([b_tag[t][0] for t in spec_tags])
+    b_im = torch.stack([b_tag[t][1] for t in spec_tags])
+    numer = (gl.sub(b_re, yre[:, None]), gl.sub(b_im, yim[:, None]))
+    term = _ext_mul(numer, inv_denom)
+    del numer, inv_denom, b_re, b_im
+    term = _ext_mul(term, (apre[total:, None], apim[total:, None]))
+    return nttm.sum_field(term[0], axis=0), nttm.sum_field(term[1], axis=0)
+
+
 def make_g_kernel(pd, counts: dict, num_specs: int, spec_tags: tuple):
-    """G(x) over the LDE domain; all proof scalars are arguments."""
+    """G(x) over the LDE domain; all proof scalars are arguments: one launch
+    of ``fri_g_kernel`` for CUDA tensors, ``g_plain`` for CPU tensors."""
     data = pd.data
     cfg = data.config
-    offsets_g, total = _tag_offsets(counts)
     x_dev = gl.from_u64(_lde_x(data.log_n, cfg.rate_bits), pd.device)
+    spec_batches = tuple(TAGS.index(t) for t in spec_tags)
 
     def kernel(ldes, apow_f, y_f, z_f):
-        # apow_f: (re, im) field tensors of shape (total + num_specs,); y_f and
-        # z_f: (re, im) of shape (num_specs,).  All per-spec work is batched
-        # over a (num_specs, n_lde) axis.
-        apre, apim = apow_f
-        b_tag = {}
-        for ti, t in enumerate(TAGS):
-            c0 = offsets_g[t]
-            c1 = c0 + counts[t]
-            b_tag[t] = (_weighted_sum(ldes[ti], apre[c0:c1]), _weighted_sum(ldes[ti], apim[c0:c1]))
-        yre, yim = y_f
-        zre, zim = z_f
-        # denominators (x - z_j), batched; ONE Fermat inversion of the
-        # (S, n_lde) norm matrix
-        dre = gl.sub(x_dev[None, :], zre[:, None])
-        dim = gl.neg(zim)  # (S,): the imaginary part does not depend on x
-        norms = gl.sub(gl.square(dre), gl.mul_small(gl.square(dim), ge.W)[:, None])
-        ninv = gl.inv(norms)
-        inv_denom = (gl.mul(dre, ninv), gl.mul(ninv, gl.neg(dim)[:, None]))
-        del norms, ninv
-        b_re = torch.stack([b_tag[t][0] for t in spec_tags])
-        b_im = torch.stack([b_tag[t][1] for t in spec_tags])
-        numer = (gl.sub(b_re, yre[:, None]), gl.sub(b_im, yim[:, None]))
-        term = _ext_mul(numer, inv_denom)
-        del numer, inv_denom, b_re, b_im
-        term = _ext_mul(term, (apre[total:, None], apim[total:, None]))
-        return nttm.sum_field(term[0], axis=0), nttm.sum_field(term[1], axis=0)
+        if kernels.on_card(x_dev):
+            return kernels.fri_g(ldes, apow_f, y_f, z_f, x_dev, spec_batches)
+        return g_plain(ldes, apow_f, y_f, z_f, x_dev, counts, spec_tags)
 
     return kernel
 
@@ -134,6 +149,24 @@ def _fold_core(re, im, hx, half, beta_f):
     dd = (gl.mul(gl.sub(re0, re1), hx), gl.mul(gl.sub(im0, im1), hx))
     term2 = _ext_mul(dd, beta_f)
     return (gl.add(term1[0], term2[0]), gl.add(term1[1], term2[1]))
+
+
+def fold_plain(re, im, w_inv, scale: int, beta_f):
+    """One fold with the half inverse points w_inv * scale made first, as
+    eager field ops: the plain version of ``kernels.fri_fold`` (csrc/field.cu
+    ``fri_fold_kernel``), the CPU path."""
+    half_xinv = gl.mul(w_inv, gl.full((), scale, re.device))
+    return _fold_core(re, im, half_xinv, gl.full((), INV2, re.device), beta_f)
+
+
+def fold_layer(re, im, w_inv, scale: int, beta_f):
+    """One radix-2 fold of the ext layer (re, im) of 2h words: w_inv is the
+    (h,) table of w^-i, scale = 1 / (2 shift) and beta_f a pair of shape-()
+    field tensors.  One launch of ``fri_fold_kernel`` for CUDA tensors,
+    ``fold_plain`` for CPU tensors."""
+    if kernels.on_card(re):
+        return kernels.fri_fold(re, im, w_inv, scale, INV2, beta_f)
+    return fold_plain(re, im, w_inv, scale, beta_f)
 
 
 def _layer_tree_core(g_re, g_im, cap_height: int):
@@ -200,8 +233,6 @@ def fri_prove(pd, batches, openings, point_specs, zeta, fri_alpha, ch: Challenge
     evals = g
     size = n_lde
     shift = SHIFT
-    inv2 = gl.h_inv(2)
-    half = scalar_f(inv2, dev)
     stop_size = 1 << (fri_cfg.final_poly_bits + fri_cfg.rate_bits)
     while size > stop_size:
         tree = _layer_tree(evals, layer_cap_height(size // 2))
@@ -210,10 +241,10 @@ def fri_prove(pd, batches, openings, point_specs, zeta, fri_alpha, ch: Challenge
         beta = ch.challenge_ext()
         h = size // 2
         w = gl.primitive_root_of_unity(size.bit_length() - 1)
-        # (1/2) * (shift * w^i)^-1, the table of w^-i cached on the device
-        half_xinv = gl.mul(nttm._powers_on(gl.h_inv(w), h, str(dev)),
-                           scalar_f(inv2 * gl.h_inv(shift), dev))
-        evals = _fold_core(evals[0], evals[1], half_xinv, half,
+        # (1/2) * (shift * w^i)^-1 = w^-i * scale, from the table of w^-i
+        # cached on the device
+        scale = INV2 * gl.h_inv(shift) % P
+        evals = fold_layer(evals[0], evals[1], nttm._powers_on(gl.h_inv(w), h, str(dev)), scale,
                            (scalar_f(beta[0], dev), scalar_f(beta[1], dev)))
         size = h
         shift = (shift * shift) % P

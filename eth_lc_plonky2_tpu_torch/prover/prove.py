@@ -10,11 +10,13 @@ Port of ``eth_lc_plonky2_tpu/prover/prove.py``:
 Goldilocks arithmetic is exact, so a proof equals the JAX package's byte for
 byte.  There is no ``jit`` and no executable cache here: PyTorch runs
 eagerly, and each field operation on a CUDA tensor is one launch of
-``csrc/field.cu``; two chains that XLA fuses for the JAX package are one
-fused kernel of ``csrc/field.cu`` each on the card (the quotient's
-permutation terms, one launch a proof; the openings, at most two a batch),
-and the SHA-256 and Poseidon gates' share of the quotient is one launch of
-``csrc/gates.cu`` each.  The sharded prover's ``put`` argument is not ported.
+``csrc/field.cu``; chains that XLA fuses for the JAX package are one fused
+kernel of ``csrc/field.cu`` each on the card (the quotient's permutation
+terms, one launch a proof; the openings, at most two a batch; FRI's G and
+each fold, in ``prover/fri.py``), and the gates' share of the quotient is
+one launch of ``csrc/gates.cu`` for the SHA-256 gate, one for the Poseidon
+gate and one for the generic gates with the public inputs.  The sharded
+prover's ``put`` argument is not ported.
 
 Host and device traffic: commitments (LDEs, Merkle levels) stay on the
 device for the whole prove; the host sees Merkle caps (for the
@@ -346,6 +348,43 @@ def perm_quotient_terms_plain(w_all, sigma_all, zs_lde, x_dev, l0, ks_dev, betas
     return accs
 
 
+def split_gates(data: CircuitData) -> tuple:
+    """The (selector index, gate) pairs of the circuit's gates that have
+    constraints, as (generic, own): the generic gates, whose share
+    ``kernels.generic_gate_quotient`` computes, and the gates with a kernel of
+    their own (``Gate.absorb_quotient_device``)."""
+    generic, own = [], []
+    for gi, g in enumerate(data.gates):
+        if g.num_constraints:
+            (generic if g.name in kernels.GENERIC_GATES else own).append((gi, g))
+    return generic, own
+
+
+def generic_quotient_terms_plain(generic: list, A, wires, consts, pre_lde, lr_rows, pi_f,
+                                 pi_cols, apows, accs, pi0: int, k0: int) -> list:
+    """The public-input terms apows[j][pi0 + i] * lr_i * (w_{c_i} - pi_i)
+    (c_i = pi_cols[i], host ints) and the share sel * sum_k apows[j][k0 + k]
+    * C_k of each (selector index, gate) pair of ``generic``, added to
+    ``accs`` (one (n_lde,) accumulator a challenge) one field operation at a
+    time.  The plain version of ``kernels.generic_gate_quotient``
+    (csrc/gates.cu ``generic_gate_quotient_kernel``), on eager field ops; the
+    CPU path."""
+    accs = list(accs)
+
+    def absorb(j: int, idx: int, t):
+        accs[j] = gl.add(accs[j], gl.mul(t, apows[j][idx]))
+
+    for i, col in enumerate(pi_cols):
+        t = gl.mul(lr_rows[i], gl.sub(wires(col), pi_f[i]))
+        for j in range(len(accs)):
+            absorb(j, pi0 + i, t)
+    for gi, g in generic:
+        s = pre_lde[gi]
+        apow_rows = [apows[j][k0 : k0 + g.num_constraints] for j in range(len(accs))]
+        accs[:] = absorb_quotient_generic(g, A, wires, consts, s, apow_rows, accs)
+    return accs
+
+
 def make_quotient_kernel(pd: ProverData):
     data = pd.data
     cfg = data.config
@@ -375,9 +414,15 @@ def make_quotient_kernel(pd: ProverData):
     l0 = gl.mul(gl.mul(zh, inv_all[1]), scalar_f(n_inv, dev))
     lr_rows = [gl.mul(gl.mul(zh, inv_all[2 + k]), scalar_f((wr * n_inv) % P, dev))
                for k, wr in enumerate(pi_roots)]
+    # the public inputs' Lagrange rows as one (num_pi, n_lde) table, and their
+    # wire columns, for the generic gates' kernel
+    lr_rows = torch.stack(lr_rows) if lr_rows else gl.zeros((0, n_lde), dev)
+    pi_cols_host = [t.col for t in data.public_input_targets]
+    pi_cols = torch.tensor(pi_cols_host, dtype=torch.int64, device=dev)
     del denoms, inv_all
     ks_dev = gl.from_u64(np.asarray(data.k_shifts[:nr], dtype=np.uint64), dev)
     A = DeviceBaseAlgebra((n_lde,), dev)
+    generic, own = split_gates(data)
 
     def kernel(wires_lde, zs_lde, pre_lde, pi_f, betas_f, gammas_f, alphas_f):
         def wires(col, offset=0):
@@ -397,9 +442,6 @@ def make_quotient_kernel(pd: ProverData):
         n_terms = 1 + m + num_pi + max_con
         apows = [nttm.powers_device(alphas_f[j], n_terms) for j in range(cfg.num_challenges)]
 
-        def absorb(j: int, idx: int, t):
-            accs[j] = gl.add(accs[j], gl.mul(t, apows[j][idx]))
-
         # the permutation terms 0..m: one launch of csrc/field.cu for both
         # challenges on the card, the eager chain on the CPU
         if kernels.on_card(wires_lde):
@@ -409,16 +451,17 @@ def make_quotient_kernel(pd: ProverData):
             accs = perm_quotient_terms_plain(w_all, sigma_all, zs_lde, x_dev, l0, ks_dev, betas_f,
                                              gammas_f, apows, cs, rate)
 
-        for i in range(num_pi):
-            c = data.public_input_targets[i].col
-            t = gl.mul(lr_rows[i], gl.sub(wires(c), pi_f[i]))
-            for j in range(cfg.num_challenges):
-                absorb(j, 1 + m + i, t)
-
+        # the public inputs 1+m.. and the generic gates from k0: one launch of
+        # csrc/gates.cu on the card (in place), the eager loop on the CPU
         k0 = 1 + m + num_pi
-        for gi, g in enumerate(data.gates):
-            if g.num_constraints == 0:
-                continue
+        if kernels.on_card(wires_lde):
+            kernels.generic_gate_quotient(generic, wires_lde, pre_lde, num_sel, num_con, lr_rows,
+                                          pi_f, pi_cols, apows, accs, 1 + m, k0)
+        else:
+            accs = generic_quotient_terms_plain(generic, A, wires, consts, pre_lde, lr_rows, pi_f,
+                                                pi_cols_host, apows, accs, 1 + m, k0)
+
+        for gi, g in own:
             s = pre_lde[gi]
             apow_rows = [apows[j][k0 : k0 + g.num_constraints] for j in range(cfg.num_challenges)]
             absorber = getattr(g, "absorb_quotient_device", None)

@@ -133,7 +133,7 @@ def test_dryrun_proof_on_card_matches_reference(dev):
     before = dict(kernels.launches)
     got = chip_smoke.proof_dict(prove.prove(pd, witness))
     assert all(kernels.launches[k] > before[k] for k in ("ntt", "poseidon", "field"))
-    assert kernels.launches["gates"] == before["gates"]  # generic gates only
+    assert kernels.launches["gates"] == before["gates"] + 1  # the generic gates' one launch
     with open(os.path.join(chip_smoke.REPO, "assets", "dryrun", "ref_proof.json")) as f:
         assert chip_smoke.first_difference(got, json.load(f)) is None
     from unittest import mock
@@ -172,9 +172,10 @@ def test_gate_kernel_matches_generic_loop(dev, gate_name, n_lde):
 
 
 def test_sha_and_poseidon_proof_on_card_verifies(dev):
-    """A proof of SHA-256 and Poseidon rows made on the card: two launches of
-    csrc/gates.cu, equal to the proof on the plain versions, accepted by the
-    port's verifier; a forged witness of either gate is rejected."""
+    """A proof of SHA-256 and Poseidon rows made on the card: three launches of
+    csrc/gates.cu (the two gates and the generic gates), equal to the proof on
+    the plain versions, accepted by the port's verifier; a forged witness of
+    either gate is rejected."""
     import chip_smoke
     from eth_lc_plonky2_tpu_torch.prover.verify import VerificationError, verify
 
@@ -182,7 +183,7 @@ def test_sha_and_poseidon_proof_on_card_verifies(dev):
     pd, vk = prove.preprocess(data)
     before = kernels.launches["gates"]
     proof = prove.prove(pd, witness)
-    assert kernels.launches["gates"] == before + 2
+    assert kernels.launches["gates"] == before + 3
     verify(data, vk, proof)
     chip_smoke.check_light_client_outputs(proof, leaves, first_state, 3, "card test")
     got = chip_smoke.prove_kernels_and_plain(torch, pd, witness, "card test",
@@ -240,3 +241,72 @@ def test_perm_quotient_kernel_matches_plain(dev, log_n_lde):
     got = chip_smoke.perm_terms(inputs)
     assert kernels.launches["field"] == before + 1
     assert torch.equal(got, chip_smoke.perm_terms(inputs, plain=True))
+
+
+@pytest.mark.parametrize("log_n_lde", [7, 12, 21])
+def test_generic_gate_kernel_matches_plain(dev, log_n_lde):
+    """generic_gate_quotient_kernel against the plain generic loop with the
+    public inputs on the card: phase 7's gates and 12 public inputs, rows of a
+    (184, n_lde) wires LDE and a (92, n_lde) preprocessed LDE, random and edge
+    words; the accumulators are updated in place."""
+    import chip_smoke
+
+    inp = chip_smoke.generic_inputs(np.random.default_rng(log_n_lde), 1 << log_n_lde)
+    want = chip_smoke.generic_terms(inp, "plain")
+    before = dict(kernels.launches)
+    accs = [a.clone() for a in inp["accs"]]
+    kernels.generic_gate_quotient(inp["generic"], inp["wires"], inp["pre"], inp["num_sel"],
+                                  inp["num_con"], inp["lr"], inp["pi"], inp["pi_cols"],
+                                  inp["apows"], accs, inp["pi0"], inp["k0"])
+    assert kernels.launches["gates"] == before["gates"] + 1
+    assert kernels.launches["field"] == before["field"]
+    assert torch.equal(torch.stack(accs), want)
+
+
+@pytest.mark.parametrize("num_specs", [5, 12])
+@pytest.mark.parametrize("log_n_lde", [12, 21])
+def test_fri_g_kernel_matches_plain(dev, log_n_lde, num_specs):
+    """fri_g_kernel against the plain G on the card: phase 7's batches (92,
+    184, 20, 16 rows), 5 or 12 specs, one norm zero at one column, edge
+    words; one launch."""
+    import chip_smoke
+
+    inp = chip_smoke.g_inputs(np.random.default_rng(log_n_lde + num_specs), log_n_lde, num_specs)
+    before = kernels.launches["field"]
+    got = chip_smoke.g_terms(inp)
+    assert kernels.launches["field"] == before + 1
+    assert torch.equal(got, chip_smoke.g_terms(inp, "plain"))
+
+
+def test_fri_fold_kernel_matches_plain(dev):
+    """fri_fold_kernel against the plain fold at every layer size 2^1 to
+    2^21, one launch each."""
+    import chip_smoke
+
+    rng = np.random.default_rng(21)
+    for log_size in range(1, 22):
+        inp = chip_smoke.fold_inputs(rng, log_size)
+        before = kernels.launches["field"]
+        got = chip_smoke.fold_terms(inp)
+        assert kernels.launches["field"] == before + 1
+        assert torch.equal(got, chip_smoke.fold_terms(inp, "plain")), log_size
+
+
+@pytest.mark.parametrize("op", sorted(FIELD_OPS))
+@pytest.mark.parametrize("n", [1, 2, 3, 1023, 1 << 16, (1 << 16) + 1])
+def test_field_kernel_views_match_plain(dev, op, n):
+    """field_binary_kernel against the plain op on the views the prover
+    gives it: runs of odd and even length, views at an odd word offset, one
+    word broadcast (at an even or odd offset), strided views, rows of a
+    wider array; one launch each."""
+    kernel, plain = FIELD_OPS[op]
+    a = gl.from_u64(_rand((2 * n + 4,), n), dev)
+    b = gl.from_u64(_rand((2 * n + 4,), n + 1), dev)
+    wide = gl.from_u64(_rand((4, n + 2), n + 2), dev)
+    pairs = [(a[:n], b[:n]), (a[:n], b[1]), (a[3], b[:n]), (a[2:n + 2], b[2:n + 2]),
+             (a[:n], b[5:6].expand(n)), (a[1:n + 1], b[1:n + 1]), (a[:n], b[1:n + 1]),
+             (a[1:n + 1], b[0]), (a[:2 * n:2], b[1:2 * n + 1:2]), (wide[:, :n], wide[:, 1:n + 1])]
+    before = kernels.launches["field"]
+    for u, v in pairs:
+        assert torch.equal(kernel(u, v), plain(u, v)), (u.shape, u.stride(), v.stride())
+    assert kernels.launches["field"] == before + len(pairs)

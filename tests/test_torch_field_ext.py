@@ -148,6 +148,13 @@ FORMS = {
     "column of a narrow array": lambda a, b: (a.T[:, :1], b.T[:, 1:2]),
     "narrow last axis": lambda a, b: (a.T.contiguous(), b.T.contiguous()),
     "0-d": lambda a, b: (a[1, 1], b[2, 2]),
+    "odd word offset": lambda a, b: (a.reshape(-1)[1:], b.reshape(-1)[1:]),
+    "one operand at an odd offset": lambda a, b: (a.reshape(-1)[:-1], b.reshape(-1)[1:]),
+    "odd offset against one word": lambda a, b: (a.reshape(-1)[3:], b[1, 0]),
+    "odd length": lambda a, b: (a.reshape(-1)[:-1], b.reshape(-1)[:-1]),
+    "one word broadcast by expand": lambda a, b: (a.reshape(-1), b[2, 3:4].expand(60)),
+    "strided 1-D": lambda a, b: (a.reshape(-1)[::3], b.reshape(-1)[1::3]),
+    "column at an odd offset": lambda a, b: (a.T[1:, :1], b.T[1:, 1:2]),
     "empty": lambda a, b: (a[:0], b[:0]),
 }
 
