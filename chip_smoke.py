@@ -17,7 +17,9 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      of 2^20 pair leaves, coset_intt of (2, 2^21) and (2, 2^8)); the field kernel's add, sub, mul and inv
      in every broadcast form at sizes 1, 1023 and 2^21 (views at an odd word
      offset and of odd length among them), on edge and seeded words, and
-     inv(x) * x == 1;
+     inv(x) * x == 1; the batched inverse at lengths around its runs of 16
+     words and tiles of 4,096 (1 to 12,345, at an odd offset, one shorter)
+     with zeros at every place of a run;
   3. commit_values on assets/dryrun/pre.npz must reproduce its stored
      coefficients, LDE and every Merkle level;
   4. one proof's three commitments at the flagship width (CircuitConfig
@@ -44,7 +46,8 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      at zeta, all Merkle paths, FRI's folds, the final polynomial, the PoW).
      The same circuit at 2^12 rows is proved on the kernels and on the plain
      versions, both on the card, and the two proofs must be equal; the field
-     kernel's (8, 2^21) product is timed as one call and ten back to back;
+     kernel's (8, 2^21) product is timed as one call and ten back to back,
+     and the inverse at (5, 2^21) beside its bound and its plain version;
   7. a light-client-shaped circuit built with the port's own CircuitBuilder at the
      same widths: the SHA-256 Merkle root of 1,024 seeded leaves (1,023
      two-to-one hashes, 139,128 SHA-256 segment rows and their feed-forward
@@ -61,17 +64,22 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      chain, proofs from a forged SHA-256 bit wire and from a forged Poseidon
      s-box output must be rejected, the launches must be the plan's (three of
      csrc/gates.cu: the two gates and the generic gates with the public
-     inputs; csrc/field.cu's fused kernels, one or two an opening batch, one
-     for the permutation terms, one for FRI's G and one a FRI fold, also by
-     name in the trace), and the proof is made in turns with the fused
-     kernels and with the eager chains of field.cu ops they replaced (the
-     proof must not change).  Last, the fused kernels against their plain
+     inputs; csrc/field.cu's fused kernels, one or two an opening batch, three
+     for the permutation rows (perm_z_kernel, its scan and its fix-up, counted
+     around their call too: no elementwise launch there), one for the
+     permutation terms, one for FRI's G and one a FRI fold, also by name in
+     the trace, and of the elementwise kernels only the quotient's product by
+     1 / Z_H), and the proof is made in turns with the fused kernels and with
+     the eager chains of field.cu ops they replaced (the proof must not
+     change).  Last, the fused kernels against their plain
      versions at the main path's shapes: the four opening batches at 2^18
      coefficients (12 points), the permutation terms at (80, 2^21) with 2
      challenges and chunk 8, the generic gates and 12 public inputs at (184,
      2^21), G over the four batches at 2^21 with 5 and 12 specs (a zero norm
      among them) and the fold at every size 2^1 to 2^21, edge words included
-     (and edge points at 2^12, a wrapping roll at 2^7, the small sizes), each
+     (and edge points at 2^12, a wrapping roll at 2^7, the small sizes), and
+     the permutation rows of both challenges at (80, 2^18) with zero den
+     chunks (then at 2^12 with one and two challenges, and at 2^4), each
      timed beside its bound, its plain version and the eager chain it replaced.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on the main path, its error against the plain
@@ -80,7 +88,8 @@ the card could take (bound_ms: the larger of bytes over 3.35 TB/s and 32-bit
 integer multiply-adds, counted in the cheapest form known, over 16.75 T/s).
 The launches are phase 7's first prove; the gates entry adds up its three
 kernels (one launch each a proof) and the field entry its elementwise
-product and its four fused kernels, and each lists them under by_kernel.  No
+product, its batched inverse and its five fused passes, and each lists them
+under by_kernel.  No
 PyTorch call computes any of these functions, so library_ms is null.
 
 It needs a CUDA device, and no JAX: the port imports neither jax nor the JAX
@@ -131,8 +140,13 @@ DEVICE = "cuda"
 # G and the folds were fused and the generic gates went to csrc/gates.cu:
 # less the generic gates' and public inputs' 836 eager ops, G's 270 (its
 # batched inversion among them) and 13 folds of 18, plus 1 + 13
-# (1,460 - 836 - 270 - 234 + 14).
-STEADY_FIELD_LAUNCHES = 134
+# (1,460 - 836 - 270 - 234 + 14); and when Z and the partials were fused and
+# the alpha powers came from the host: less the 84 eager ops and 2 inversions
+# of the permutation rows and the 24 of the alpha powers' log-doubling, plus
+# the 3 launches of perm_z_kernel, its scan and its fix-up (134 - 110 + 3).
+# What is left: the quotient's product by 1 / Z_H, the permutation rows (3),
+# the openings (4 + 4), the permutation terms, G and the 13 folds.
+STEADY_FIELD_LAUNCHES = 27
 
 # The card's peaks (NVIDIA H100 SXM data sheet): 3.35 TB/s of device memory,
 # and 67 TFLOP/s of float32 = 33.5 T multiply-adds/s on 128 lanes an SM, of
@@ -146,6 +160,12 @@ PEAK_INT32_MADS_PER_S = 67e12 / 2 / 2
 # the 22 sparse partial rounds (an 11 x 11 matrix, then 23 products of
 # 64 x 64 bits a round).
 MADS_PER_PERMUTATION = 118 * (2 * 3 + 2 * 4) + 8 * (72 * 4 + 4) + (121 + 22 * 23) * 4
+
+
+# The batched inverse per word, Montgomery's trick over a run of 16 words
+# (ops/kernels.py FIELD_INV_RUN): one product into the running product, two
+# on the way back, and a 16th of the Fermat power's 72.
+INV_PRODUCTS_PER_WORD = 3 + 72 / 16
 
 
 def bound_of(nbytes: int, mads: int) -> tuple:
@@ -584,6 +604,27 @@ def phase4(torch, chk: Checker, rng, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 FIELD_SIZES = (1, 1023, 1 << 21)
+# field_inv_kernel's runs (ops/kernels.py field_inv_plan: 16 words a thread at
+# a stride of 256, 4,096 a block): within one run, one tile, past a tile
+INV_LENGTHS = (1, 7, 8, 9, 15, 16, 17, 255, 1023, 4095, 4096, 4097, 12_345)
+
+
+def inverse_words(rng, n: int) -> np.ndarray:
+    """Seeded words with the edge words first and zeros at every seventh
+    word, at the last word of every run of the first tile, at one word of a
+    run in every tile and along a whole run of the second tile."""
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, kernels
+
+    plan = kernels.field_inv_plan(n)
+    threads, tile = plan["threads"], plan["tile"]
+    x = rng.integers(0, gl.P, size=n, dtype=np.uint64)
+    edge = field_edge_words()
+    x[: min(n, len(edge))] = edge[: min(n, len(edge))]
+    x[3::7] = 0
+    x[threads * (plan["run"] - 1) : threads * plan["run"]] = 0
+    x[threads * 2 + 5 :: tile] = 0
+    x[tile + 9 :: threads][: plan["run"]] = 0
+    return x
 
 
 def field_edge_words() -> np.ndarray:
@@ -644,9 +685,19 @@ def check_field_kernel(torch, chk: Checker, rng) -> None:
         if not torch.equal(gl.mul_plain(full_inv, a), (a != 0).to(torch.int64)):
             fail(f"field inv: inv(x) * x != 1 over the whole ({rows}, {n}) array")
         torch.cuda.synchronize()
+    for n in INV_LENGTHS:
+        x = gl.from_u64(inverse_words(rng, n), dev)
+        for form, t in (("contiguous", x), ("odd word offset", x[1:]), ("odd length", x[:-1])):
+            if t.numel():
+                inv = gl.inv(t)
+                chk.same("field", inv, gl.inv_plain(t), f"field inv, {form}, {n} words")
+                if not torch.equal(gl.mul_plain(inv, t), (t != 0).to(torch.int64)):
+                    fail(f"field inv: inv(x) * x != 1, {form}, {n} words")
+    torch.cuda.synchronize()
     log(f"[2] field add, sub, mul == plain on all pairs of {len(edge)} edge words and at sizes "
         f"{FIELD_SIZES} in {len(forms)} broadcast forms; "
-        f"square, neg, inv == plain; inv(x) * x == 1")
+        f"square, neg, inv == plain; inv(x) * x == 1; inv at {INV_LENGTHS} words (and at an odd "
+        f"offset, one word shorter) with zeros at every place of a thread's run == plain")
 
 
 # ---------------------------------------------------------------------------
@@ -907,6 +958,7 @@ BY_SOURCE = {"ntt_pass_kernel": "ntt", "sponge_kernel": "poseidon",
              "field_binary_kernel": "field", "field_inv_kernel": "field",
              "field_open_kernel": "field", "field_open_sum_kernel": "field",
              "perm_quotient_kernel": "field", "fri_g_kernel": "field", "fri_fold_kernel": "field",
+             "perm_z_kernel": "field", "perm_z_scan_kernel": "field", "perm_z_fixup_kernel": "field",
              "sha_gate_quotient_kernel": "gates", "poseidon_gate_quotient_kernel": "gates",
              "generic_gate_quotient_kernel": "gates"}
 
@@ -964,16 +1016,33 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
     for name, ms in sorted(phase_ms.items(), key=lambda kv: -kv[1]):
         log(f"{tag} phase {name}: {ms:.3f} ms (median of {len(phases)}) [{card}]")
 
-    # a steady-state prove with the count of launches, and the peak memory
+    # a steady-state prove with the count of launches, and the peak memory;
+    # the permutation rows' own launches are counted around their call
+    perm_launches = []
+    permutation_polys = prove.permutation_polys
+
+    def counted(*args):
+        before = dict(kernels.launches)
+        out = permutation_polys(*args)
+        perm_launches.append({k: v - before[k] for k, v in kernels.launches.items() if v != before[k]})
+        return out
+
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    prove.prove(pd, witness)
+    with mock.patch.object(prove, "permutation_polys", counted):
+        prove.prove(pd, witness)
     torch.cuda.synchronize()
     steady = dict(kernels.launches)
     steady_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     plan = launch_plan(pd.data, first_proof.fri_proof.pow_witness, field_plan, gates_plan)
     if steady != plan:
         fail(f"{tag} a steady prove launched {steady}, the plan is {plan}")
+    cfg = pd.data.config
+    perm_plan = kernels.perm_z_plan(cfg.num_routed_wires, pd.data.n, cfg.permutation_chunk_size,
+                                    cfg.num_challenges)
+    if perm_launches != [{"field": perm_plan["launches"]}]:
+        fail(f"{tag} the permutation rows launched {perm_launches}, the plan is one call of "
+             f"csrc/field.cu's perm_z_kernel, its scan and its fix-up")
     log(f"{tag} a steady prove launches {steady} (as planned: three commitments, the quotient's "
         f"and the final polynomial's inverse transforms; three trees, "
         f"{pd.data.log_n - pd.data.config.fri.final_poly_bits} FRI layer trees, the grind; the eager "
@@ -1020,23 +1089,24 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
     log(f"{tag} profile: busy {busy_ms:.3f} ms of a {window_ms:.3f} ms window, idle share "
         f"{1 - busy_ms / window_ms:.3f}, one trace's reading, {attempt} incomplete traces "
         f"discarded before it [{card}]")
-    inv_plan = pd.data.config.num_challenges  # a (m, n) batch a challenge set
-    if by_name.get("field_inv_kernel", {}).get("launches", 0) != inv_plan:
-        fail(f"the profile shows {by_name.get('field_inv_kernel')} inversions, the plan is {inv_plan}")
     fused = fused_launch_plan(pd)
     seen = {name: by_name.get(name, {}).get("launches", 0) for name in fused}
     if seen != fused:
-        fail(f"the profile shows fused field launches {seen}, the plan is {fused}")
+        fail(f"the profile shows field launches {seen}, the plan is {fused}")
     log(f"{tag} the profile's launches by kernel source == the wrappers' counts {steady}; "
-        f"{inv_plan} batched inversions and the fused field kernels {fused} as planned")
+        f"the field kernels by name {fused} as planned (the permutation rows: "
+        f"{perm_launches[0]} launches, none of field_binary_kernel or field_inv_kernel)")
     return {"prove_ms": prove_ms, "phase_ms": phase_ms, "by_name": by_name}
 
 
 def fused_launch_plan(pd) -> dict:
-    """The launches of the fused kernels in one prove: per opening batch one
-    field_open_kernel and, with more than one slice, one
+    """The launches of the fused kernels in one steady prove: per opening
+    batch one field_open_kernel and, with more than one slice, one
     field_open_sum_kernel; one perm_quotient_kernel, one fri_g_kernel, one
-    fri_fold_kernel a FRI layer; one generic_gate_quotient_kernel."""
+    fri_fold_kernel a FRI layer; one generic_gate_quotient_kernel; one each of
+    perm_z_kernel, perm_z_scan_kernel and perm_z_fixup_kernel; and of the
+    elementwise kernels only the quotient's product by 1 / Z_H (the inverse
+    runs in the first prove, for the circuit's tables)."""
     from eth_lc_plonky2_tpu_torch.ops import kernels
     from eth_lc_plonky2_tpu_torch.prover import prove
 
@@ -1052,7 +1122,8 @@ def fused_launch_plan(pd) -> dict:
             "field_open_sum_kernel": sum(p["launches"] - 1 for p in plans),
             "perm_quotient_kernel": 1, "fri_g_kernel": 1,
             "fri_fold_kernel": pd.data.log_n - cfg.fri.final_poly_bits,
-            "generic_gate_quotient_kernel": 1}
+            "generic_gate_quotient_kernel": 1, "perm_z_kernel": 1, "perm_z_scan_kernel": 1,
+            "perm_z_fixup_kernel": 1, "field_binary_kernel": 1, "field_inv_kernel": 0}
 
 
 def first_prove(torch, tag: str, pd, witness, card: str, sources: tuple):
@@ -1118,19 +1189,24 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     add_ms = cuda_ms(lambda: gl.add(a, b), 9)
     row_ms = cuda_ms(lambda: gl.mul(a, b[0]), 9)
     inv_in = a[:5]  # the table's shape since the inverse kernel came: (5, 2^21)
-    inv_ms = cuda_ms(lambda: gl.inv(inv_in), 5)
+    inv_ms = cuda_ms(lambda: gl.inv(inv_in), 9)
+    inv_plain_ms = cuda_ms(lambda: gl.inv_plain(inv_in), 1)
+    chk.same("field", gl.inv(inv_in), gl.inv_plain(inv_in), "timed field inv")
     # a 64 x 64 product is 4 multiply-adds of 32 x 32 bits, its reduction one more
     field_bound = bound_of(3 * a.numel() * 8, a.numel() * 5)
-    inv_bound_ms = max(2 * inv_in.numel() * 8 / PEAK_BYTES_PER_S,
-                       inv_in.numel() * 72 * 5 / PEAK_INT32_MADS_PER_S) * 1e3
+    inv_bound = bound_of(2 * inv_in.numel() * 8, inv_in.numel() * INV_PRODUCTS_PER_WORD * 5)
     log(f"[6] field: mul (8, 2^21) x (8, 2^21): kernel {field_ms:.3f} ms, plain "
         f"{field_plain_ms:.3f} ms, bound {field_bound[0]:.4f} ms by {field_bound[1]} "
         f"({field_bound[0] / field_ms:.1%} of the kernel's time); ten launches back to back: "
         f"{back10_ms:.4f} ms a launch ({field_bound[0] / back10_ms:.1%} of its bound); add "
-        f"{add_ms:.3f} ms; mul by a row (2^21,) {row_ms:.3f} ms; inv (5, 2^21) {inv_ms:.3f} ms against a bound of "
-        f"{inv_bound_ms:.4f} ms by operations (72 products a word) [{card}]")
+        f"{add_ms:.3f} ms; mul by a row (2^21,) {row_ms:.3f} ms [{card}]")
+    log(f"[6] field inv (5, 2^21): field_inv_kernel {inv_ms:.4f} ms, plain {inv_plain_ms:.3f} ms, "
+        f"bound {inv_bound[0]:.4f} ms by {inv_bound[1]} (16 bytes and {INV_PRODUCTS_PER_WORD} "
+        f"products a word: {kernels.FIELD_INV_RUN} words a Fermat power; "
+        f"{inv_bound[0] / inv_ms:.1%} of the kernel's time) [{card}]")
     return {"launches": launched, "prove_ms": res["prove_ms"], "phase_ms": res["phase_ms"],
             "field": (field_ms, field_plain_ms, *field_bound),
+            "field_inv": (inv_ms, inv_plain_ms, *inv_bound),
             "field_back_to_back_ms": back10_ms}
 
 
@@ -1147,8 +1223,9 @@ GATE_SIZES = (1 << 7, 1 << 8, 1 << 9, 1 << 12, 1 << 15)
 # csrc/field.cu launches of one steady prove of phase 7's circuit (12 opening
 # points), counted as STEADY_FIELD_LAUNCHES: 5,187 - 12 x 276 - 358 + 9 =
 # 1,526, then 1,526 - 896 (generic gates and 12 public inputs) - 272 (G) -
-# 234 (folds) + 14.
-LC_STEADY_FIELD_LAUNCHES = 138
+# 234 (folds) + 14, then 138 - 86 (the permutation rows) - 28 (the alpha
+# powers) + 3: the same launches as phase 6's.
+LC_STEADY_FIELD_LAUNCHES = 27
 
 # 32 x 32 multiply-adds a column of each gate, two challenges, each polynomial
 # in the cheapest form known (which is also csrc/gates.cu's): a field product
@@ -1892,11 +1969,157 @@ def check_fused_quotient_fri_kernels(torch, chk: Checker, rng, card: str) -> dic
     return out
 
 
+def perm_z_inputs(rng, log_n: int, zeros: tuple = ()) -> tuple:
+    """The permutation rows' arguments at 2^log_n rows on the card, as prove
+    passes them: the 80 routed rows of a (184, n) wires matrix (read through
+    its row stride), 80 sigma rows, the subgroup's points, the k shifts, two
+    betas and gammas, chunk 8; seeded words with the edge words in the first
+    columns.  Each (challenge j, chunk k, column x) of ``zeros`` sets the
+    wire x % 8 of chunk k at column x to -(beta_j sigma + gamma_j): chunk k's
+    den is 0 there, so challenge j's Z is 0 from column x + 1 on."""
+    from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, host_field as hf
+
+    n = 1 << log_n
+    edge = field_edge_words()
+    wires = rng.integers(0, gl.P, size=(NUM_WIRES, n), dtype=np.uint64)
+    sigma = rng.integers(0, gl.P, size=(NUM_ROUTED, n), dtype=np.uint64)
+    wires[:, : min(n, len(edge))] = edge[: min(n, len(edge))]
+    sigma[::3, : min(n, len(edge))] = edge[::-1][: min(n, len(edge))]
+    betas = rng.integers(0, gl.P, size=2, dtype=np.uint64)
+    gammas = rng.integers(0, gl.P, size=2, dtype=np.uint64)
+    for j, k, x in zeros:
+        i = k * PERM_CHUNK + x % PERM_CHUNK
+        wires[i, x] = (gl.P - (int(betas[j]) * int(sigma[i, x]) + int(gammas[j])) % gl.P) % gl.P
+    dev = lambda a: gl.from_u64(a, DEVICE)  # noqa: E731
+    return (dev(wires)[:NUM_ROUTED], dev(sigma), dev(hf.powers(gl.primitive_root_of_unity(log_n), n)),
+            dev(hf.powers(gl.MULTIPLICATIVE_GENERATOR, NUM_ROUTED)), dev(betas), dev(gammas),
+            PERM_CHUNK)
+
+
+def perm_rows(inputs, mode: str = "kernel"):
+    """The permutation rows of every challenge of ``inputs``: ``kernels.perm_z``,
+    or the plain version stacked the same way (mode "plain": plain PyTorch
+    ops on the card), or the eager chain of field.cu ops it replaced
+    ("eager")."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    if mode == "kernel":
+        return kernels.perm_z(*inputs)
+    if mode == "plain":
+        return on_plain(lambda: prove.perm_rows_plain(*inputs))
+    return prove.perm_rows_plain(*inputs)
+
+
+# Z and the partials per column at (80, 2^18), two challenges, in the
+# cheapest form known: per wire and challenge two multiply-adds (w + beta k_i
+# omega + gamma, w + beta sigma + gamma) and two running products; per chunk
+# and challenge the batch trick's four products (two in, two back) and one
+# Fermat power (72) for all 20 chunks; per challenge m - 1 products for the
+# running product over the chunks, m - 1 for the partials Z rat_pref[k] and
+# one for the prefix product along the subgroup.
+PERM_Z_CHUNKS = NUM_ROUTED // PERM_CHUNK
+PERM_Z_PRODUCTS_PER_COLUMN = 2 * (NUM_ROUTED * 4 + PERM_Z_CHUNKS * 4 + 2 * (PERM_Z_CHUNKS - 1) + 1) + 72
+
+
+def check_perm_z_kernel(torch, chk: Checker, rng, card: str) -> dict:
+    """perm_z_kernel, its scan and its fix-up against the plain permutation
+    rows and the eager chain of field.cu ops they replaced, both challenges at
+    (80, 2^18) with zero den chunks near the end (challenge 0's chunk 3 at
+    column n - 300, challenge 1's chunk 9 at n - 2), timed beside the bound,
+    the plain version and the eager chain; then at 2^12 with zeros in the first
+    block, one challenge, and at 2^4 (less than a block).  Each call launches
+    the plan's 3 field kernels and nothing else."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    def launches_of(fn, what: str):
+        before = dict(kernels.launches)
+        out = fn()
+        delta = {k: kernels.launches[k] - before[k] for k in before if kernels.launches[k] != before[k]}
+        if delta != {"field": 3}:
+            fail(f"{what}: launches {delta}, the plan is 3 of csrc/field.cu")
+        return out
+
+    n = 1 << LOG_N
+    inputs = perm_z_inputs(rng, LOG_N, ((0, 3, n - 300), (1, 9, n - 2)))
+    got = launches_of(lambda: perm_rows(inputs), f"permutation rows at (80, 2^{LOG_N})")
+    chk.same("field", got, perm_rows(inputs, "eager"), f"permutation rows at (80, 2^{LOG_N}) against "
+             f"the eager chain")
+    zs = got.cpu().numpy().view(np.uint64)
+    if zs[0, 0] != 1 or zs[0, -1] != 0 or zs[PERM_Z_CHUNKS, -1] != 0 or zs[PERM_Z_CHUNKS, n - 2] == 0:
+        fail("permutation rows: the zero den chunks did not end the grand products where placed")
+    del got, zs
+    ms, plain_ms, chain_ms, chain_launches = timed_against_plain(
+        torch, chk, "field", lambda mode: perm_rows(inputs, mode),
+        f"permutation rows at (80, 2^{LOG_N}), 2 challenges")
+    del inputs
+    bound = bound_of((2 * NUM_ROUTED + 1 + NUM_Z) * n * 8, PERM_Z_PRODUCTS_PER_COLUMN * 5 * n)
+    plan = kernels.perm_z_plan(NUM_ROUTED, n, PERM_CHUNK, 2)
+    log(f"[7] permutation rows at (80, 2^{LOG_N}), 2 challenges, chunk 8, zero den chunks: "
+        f"perm_z_kernel + scan + fix-up {ms:.4f} ms in 3 launches ({plan['blocks']} blocks of "
+        f"{plan['threads']}, {plan['shared_bytes']} bytes of shared memory), its words == the plain "
+        f"version's ({plain_ms:.3f} ms) and the eager chain's; the eager chain on field.cu it replaces "
+        f"{chain_ms:.3f} ms in {chain_launches} launches; bound {bound[0]:.4f} ms by {bound[1]} "
+        f"({2 * NUM_ROUTED + 1} rows read, {NUM_Z} written; {PERM_Z_PRODUCTS_PER_COLUMN} products a "
+        f"column; {bound[0] / ms:.1%} of the kernels' time) [{card}]")
+    small = perm_z_inputs(rng, 12, ((0, 0, 5), (1, 4, 300)))
+    chk.same("field", launches_of(lambda: perm_rows(small), "permutation rows at 2^12"),
+             perm_rows(small, "plain"), "permutation rows at (80, 2^12), zeros in the first block")
+    one = small[:4] + (small[4][1:], small[5][1:], PERM_CHUNK)
+    chk.same("field", launches_of(lambda: perm_rows(one), "one challenge's rows at 2^12"),
+             perm_rows(one, "plain"), "permutation rows at (80, 2^12), one challenge")
+    tiny = perm_z_inputs(rng, 4, ((0, 2, 3),))
+    chk.same("field", launches_of(lambda: perm_rows(tiny), "permutation rows at 2^4"),
+             perm_rows(tiny, "plain"), "permutation rows at (80, 2^4), less than a block")
+    torch.cuda.synchronize()
+    return {"perm_z_kernel": dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                                  chain_launches=chain_launches, bound_ms=bound[0],
+                                  bound_by=bound[1])}
+
+
+def measure_perm_polys(torch, rng, card: str) -> dict:
+    """The permutation rows of both challenges at (80 of 184, 2^18), through
+    ``prove.compute_permutation_polys`` a challenge and ``torch.cat``, as the
+    prove of every checkout since the rows were ported called them (an entry
+    both sides of a comparison have), timed with CUDA events; with the field
+    launches of one call.  Where the package has ``prove.permutation_polys``,
+    its one call for both challenges is timed too (``both_ms``)."""
+    import types
+
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    wires, sigma, omega, k_shifts, betas, gammas, chunk = perm_z_inputs(rng, LOG_N)
+    cfg = types.SimpleNamespace(num_routed_wires=NUM_ROUTED, permutation_chunk_size=chunk)
+    pd = types.SimpleNamespace(data=types.SimpleNamespace(config=cfg), dev={
+        "sigma": sigma, "omega_pows": omega, "k_shifts": k_shifts})
+    b, g = ([int(v) for v in t.cpu().numpy().view(np.uint64)] for t in (betas, gammas))
+
+    def per_challenge():
+        return torch.cat([prove.compute_permutation_polys(pd, wires, b[j], g[j]) for j in range(2)])
+
+    before = kernels.launches["field"]
+    want = per_challenge()
+    launched = kernels.launches["field"] - before
+    ms = cuda_ms(per_challenge, 9)
+    res = {"perm_polys_ms": ms, "perm_polys_field_launches": launched, "both_ms": None}
+    if hasattr(prove, "permutation_polys"):
+        both = prove.permutation_polys(pd, wires, b, g)
+        if not torch.equal(both, want):
+            fail("permutation_polys of both challenges differs from one call a challenge")
+        res["both_ms"] = cuda_ms(lambda: prove.permutation_polys(pd, wires, b, g), 9)
+    log(f"[m] permutation rows (80, 2^{LOG_N}), 2 challenges: compute_permutation_polys a challenge "
+        f"and a cat {ms:.4f} ms in {launched} field launches; both challenges in one call "
+        f"{res['both_ms'] if res['both_ms'] is None else round(res['both_ms'], 4)} ms [{card}]")
+    return res
+
+
 def eager_chains():
     """A context in which the fused kernels' wrappers run the eager chains of
     field.cu ops that they replaced (a number for the record, not a path of
-    prove): the openings, the permutation terms, the generic gates with the
-    public inputs (in place, as the kernel), G and the folds."""
+    prove): the openings, the permutation rows, the permutation terms, the
+    generic gates with the public inputs (in place, as the kernel), G and the
+    folds."""
     import torch
 
     from eth_lc_plonky2_tpu_torch.circuit.algebra import DeviceBaseAlgebra
@@ -1917,7 +2140,7 @@ def eager_chains():
                            tuple(fri.TAGS[i] for i in spec_batches))
 
     return mock.patch.multiple(
-        kernels, field_open=prove._open_core_plain,
+        kernels, field_open=prove._open_core_plain, perm_z=prove.perm_rows_plain,
         perm_quotient=lambda *args: torch.stack(prove.perm_quotient_terms_plain(*args)),
         generic_gate_quotient=generic, fri_g=g,
         fri_fold=lambda re, im, w_inv, scale, half, beta: fri.fold_plain(re, im, w_inv, scale, beta))
@@ -1946,7 +2169,8 @@ def fused_against_eager_chains(torch, pd, witness, proof, card: str) -> None:
         if (where := first_difference(proof_dict(got), want)):
             fail(f"[7] the proof on the {'fused kernels' if fused else 'eager chains'} differs at {where}")
         log(f"[7] prove with the {'fused kernels' if fused else 'eager chains on field.cu'}: "
-            f"{wall:.2f} ms, openings {prof.times['openings'] * 1e3:.3f} ms, quotient "
+            f"{wall:.2f} ms, perm_polys {prof.times['perm_polys'] * 1e3:.3f} ms, openings "
+            f"{prof.times['openings'] * 1e3:.3f} ms, quotient "
             f"{prof.times['quotient'] * 1e3:.3f} ms, fri_g_kernel "
             f"{prof.times['fri_g_kernel'] * 1e3:.3f} ms, fri_folds "
             f"{prof.times['fri_folds'] * 1e3:.3f} ms, {kernels.launches['field'] - before} field "
@@ -2037,12 +2261,14 @@ def phase7(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     gates_res = measure_gate_kernels(torch, chk, rng, card)
     fused_res = check_fused_field_kernels(torch, chk, rng, card)
     fused_res.update(check_fused_quotient_fri_kernels(torch, chk, rng, card))
+    fused_res.update(check_perm_z_kernel(torch, chk, rng, card))
     return {"launches": launched, "prove_ms": res["prove_ms"], "phase_ms": res["phase_ms"],
             "gates": gates_res, "fused": fused_res, "traced": res["by_name"]}
 
 
 # the trace's kernel names that one entry of the kernels line stands for
-TRACED_AS = {"field_open_kernel": ("field_open_kernel", "field_open_sum_kernel")}
+TRACED_AS = {"field_open_kernel": ("field_open_kernel", "field_open_sum_kernel"),
+             "perm_z_kernel": ("perm_z_kernel", "perm_z_scan_kernel", "perm_z_fixup_kernel")}
 
 
 def summed(parts: dict) -> dict:
@@ -2087,14 +2313,18 @@ def main() -> int:
     # and the fused kernels at the main path's shapes; gates.cu: its three
     # kernels at (184, 2^21); each entry adds its kernels up
     binary = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), whole["field"]))
+    inverse = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), whole["field_inv"]))
     fused = dict(lc["fused"])
     generic_gate = fused.pop("generic_gate_quotient_kernel")
-    field_parts = {"field_binary_kernel": binary, **fused}
+    field_parts = {"field_binary_kernel": binary, "field_inv_kernel": inverse, **fused}
     gate_parts = {"sha_gate_quotient_kernel": sha_gate,
                   "poseidon_gate_quotient_kernel": poseidon_gate,
                   "generic_gate_quotient_kernel": generic_gate}
-    # each kernel's launches are those of phase 7's traced steady prove; the
-    # openings' entry times field_open_kernel with its column-slice sums
+    # each kernel's launches are those of phase 7's traced steady prove (the
+    # inverse's are 0 there: it runs in the first prove, for the circuit's
+    # tables); the openings' entry times field_open_kernel with its
+    # column-slice sums, the permutation rows' perm_z_kernel with its scan and
+    # fix-up
     for name, part in {**field_parts, **gate_parts}.items():
         part["launches"] = sum(lc["traced"].get(k, {}).get("launches", 0)
                                for k in TRACED_AS.get(name, (name,)))
@@ -2112,7 +2342,7 @@ def main() -> int:
          "bound_ms": res["poseidon"][2], "bound_by": res["poseidon"][3], "library_ms": None},
         {"name": "field", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/field.cu",
          "replaces": "eth_lc_plonky2_tpu/ops/goldilocks.py:143-301, "
-                     "eth_lc_plonky2_tpu/prover/prove.py:551 and :457-481, "
+                     "eth_lc_plonky2_tpu/prover/prove.py:551, :457-481 and :264-363, "
                      "eth_lc_plonky2_tpu/prover/fri.py:72 and :170 (XLA-fused, no Pallas kernel)",
          "launches": launches["field"], "max_abs_err": chk.err["field"],
          **summed(field_parts), "library_ms": None, "by_kernel": field_parts},

@@ -23,10 +23,13 @@
 //    What bounds it: memory traffic.  A binary op on same-shape operands
 //    moves 24 bytes an element (0.120 ms for (8, 2^21) at 3.35 TB/s) against
 //    one 64 x 64 product and its reduction, about 20 integer instructions.
-//    The inverse is bound by operations: the Fermat power a^(p-2) is 63
-//    squarings and 9 products in registers (the addition chain through
-//    a^(2^31 - 1)), against 16 bytes an element; as tensor ops it was about
-//    125 products of 35 passes each.
+//    The inverse is Montgomery's batch trick (gl::batch_div): a thread takes
+//    a run of INV_RUN = 16 words, their prefix products, ONE Fermat power
+//    a^(p-2) (63 squarings and 9 products) and the walk back, so about 3 +
+//    72 / 16 products a word instead of 72 (a zero word is skipped and its
+//    inverse is 0).  That makes it bound by memory, 16 bytes a word, where
+//    the word-by-word Fermat power of earlier versions was bound by
+//    operations at 3.3 times the time.
 //
 // 2. field_open_kernel (+ field_open_sum_kernel): the openings, the values of
 //    (rows, n) base-field coefficient rows at k points of the quadratic
@@ -77,8 +80,10 @@
 //    keeping the four ext sums in 96-bit column sums (a reduction every 128
 //    rows); the weights sit in shared memory.  Then it takes the S specs in
 //    registers: the norm (x - z_re)^2 - 7 z_im^2 of each, ONE Fermat
-//    inversion for all S by Montgomery's trick (a zero norm is skipped, so
-//    its inverse is 0, as the plain version's), and the weighted sum.  What
+//    inversion for all S by Montgomery's trick (gl::batch_prefix, then
+//    gl::batch_back a spec on the way back, each inverse consumed as it
+//    comes; a zero norm is skipped, so its inverse is 0, as the plain
+//    version's), and the weighted sum.  What
 //    bounds it: memory, 312 rows read a column (5.2 GB at 2^21), against
 //    about 2,500 multiply-adds a column for the sums.
 //
@@ -90,10 +95,31 @@
 //    output word: five words read (re, im of both halves, w^-i from the
 //    cached table), two written; bound by memory (56 bytes an output word).
 //
+// 6. perm_z_kernel, perm_z_scan_kernel, perm_z_fixup_kernel: the permutation
+//    argument's rows [Z, p_0, ..., p_{m-2}] on the subgroup, for every
+//    challenge, in three launches: with num_k and den_k the products over
+//    chunk k of (w_i + beta k_i omega^x + gamma) and (w_i + beta sigma_i +
+//    gamma), rat_pref[k] = prod_{l <= k} num_l / den_l, Z(x) = prod_{y < x}
+//    rat_pref[m - 1](y) and p_k = Z rat_pref[k].  Replaces what XLA fuses of
+//    eth_lc_plonky2_tpu/prover/prove.py:264 `_prefix_mul`, :296 `_perm_core`
+//    and :351 `compute_permutation_polys` (one jitted program a challenge),
+//    which eager PyTorch ran as 42 launches a challenge (a doubling scan of
+//    18 shifted products at 2^18 among them) and an inversion.  Reduce, then
+//    scan: pass 1 takes a column a thread for all challenges, reading each
+//    routed wire and sigma word once, with ONE Fermat power for its
+//    challenges * m quotients (gl::batch_div over shared memory), parks the
+//    unscaled rat_pref rows in the partials' rows of the output, and scans
+//    the row ratios across its block (warp shuffles, then the warps' products
+//    in shared memory), writing each block's product; pass 2 scans the block
+//    products of each challenge in one block; pass 3 multiplies each column's
+//    Z by its block's offset and the parked rows by Z.  What bounds it:
+//    memory, 161 rows read and 20 written a column at (80, 2^18) with two
+//    challenges (0.11 ms at 3.35 TB/s), against about 830 products a column.
+//
 // All results are canonical and the field is exact, so every word equals
 // the plain versions' (prover/prove.py `_open_core_plain`,
-// `perm_quotient_terms_plain`, prover/fri.py `g_plain`, `fold_plain`)
-// whatever the order of the sums.
+// `perm_quotient_terms_plain`, `_perm_core`, prover/fri.py `g_plain`,
+// `fold_plain`) whatever the order of the sums and products.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -133,33 +159,30 @@ field_binary_kernel(Operand a, Operand b, uint64_t* __restrict__ out, long long 
   }
 }
 
-// x^(2^n), lazy -> lazy.
-__device__ __forceinline__ uint64_t square_times(uint64_t x, int n) {
-  for (int i = 0; i < n; ++i) x = gl::mul_lazy(x, x);
-  return x;
-}
-
-// canonical -> canonical a^(p-2), p - 2 = 2^64 - 2^32 - 1; the inverse of 0
-// comes out as 0.  The chain: a^3, a^7, a^(2^6 - 1), a^(2^12 - 1),
-// a^(2^24 - 1), a^(2^30 - 1), a^(2^31 - 1) = t31; t31^(2^32) * t31 =
-// a^((2^31 - 1)(2^32 + 1)); its square times a.
-__device__ __forceinline__ uint64_t inv_fermat(uint64_t a) {
-  const uint64_t t2 = gl::mul_lazy(square_times(a, 1), a);
-  const uint64_t t3 = gl::mul_lazy(square_times(t2, 1), a);
-  const uint64_t t6 = gl::mul_lazy(square_times(t3, 3), t3);
-  const uint64_t t12 = gl::mul_lazy(square_times(t6, 6), t6);
-  const uint64_t t24 = gl::mul_lazy(square_times(t12, 12), t12);
-  const uint64_t t30 = gl::mul_lazy(square_times(t24, 6), t6);
-  const uint64_t t31 = gl::mul_lazy(square_times(t30, 1), a);
-  const uint64_t t63 = gl::mul_lazy(square_times(t31, 32), t31);
-  return gl::canon(gl::mul_lazy(square_times(t63, 1), a));
-}
+// A block takes tiles of blockDim.x * INV_RUN words; thread t of a tile at
+// word b takes the run b + t + i * blockDim.x, i < INV_RUN (neighbouring
+// threads on neighbouring words at every i).  Words past n load as 0 and are
+// not stored.  ops/kernels.py `field_inv_plan` mirrors it.
+constexpr int INV_RUN = 16;
 
 __global__ void __launch_bounds__(256)
 field_inv_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long long n) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step)
-    out[i] = inv_fermat(in[i]);
+  const long long tile = (long long)blockDim.x * INV_RUN;
+  for (long long b = (long long)blockIdx.x * tile; b < n; b += (long long)gridDim.x * tile) {
+    const long long at = b + threadIdx.x;
+    uint64_t v[INV_RUN], inv[INV_RUN];
+#pragma unroll
+    for (int i = 0; i < INV_RUN; ++i) {
+      const long long w = at + (long long)i * blockDim.x;
+      v[i] = w < n ? in[w] : 0;
+    }
+    gl::batch_div<INV_RUN>(inv, INV_RUN, [&](int i) { return v[i]; });
+#pragma unroll
+    for (int i = 0; i < INV_RUN; ++i) {
+      const long long w = at + (long long)i * blockDim.x;
+      if (w < n) out[w] = inv[i];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -384,6 +407,217 @@ perm_quotient_kernel(PermArgs a, uint64_t* __restrict__ out) {
 }
 
 // ---------------------------------------------------------------------------
+// The permutation argument's Z and partial products
+// ---------------------------------------------------------------------------
+
+constexpr int PERM_Z_MAX_THREADS = 256;
+// the block scan's shared words: one a warp, and the last for the block's product
+static_assert(PERM_Z_MAX_THREADS / 32 < 32, "a block's warps and its product fit one warp's lanes");
+
+struct PermZArgs {
+  const uint64_t* wires;  // routed wire i at column x: wires[i * wires_stride + x]
+  long long wires_stride;
+  const uint64_t* sigma;  // sigma_i at column x: sigma[i * sigma_stride + x]
+  long long sigma_stride;
+  const uint64_t* omega;     // (n,) the subgroup's points
+  const uint64_t* k_shifts;  // (routed,)
+  const uint64_t* betas;     // (challenges,)
+  const uint64_t* gammas;
+  uint64_t* out;     // (challenges * m, n), rows of n words: challenge j's Z at
+                     // row j * m, its partial k at row j * m + 1 + k
+  uint64_t* totals;  // (challenges, blocks) the block totals, then their offsets
+  long long n;
+  int routed, chunk, challenges;
+};
+
+// v[j] -> the product of the v[j] of the block's threads before this one (an
+// exclusive scan by field products, in thread order), for j < NC; total[j]
+// -> the product over the whole block.  Every thread of the block calls it.
+// A warp scans its lanes with shuffles (lane l takes the product of lanes
+// l - off .. l at off = 1, 2, 4, 8, 16), the first warp scans the warps'
+// products in shared memory the same way, and a thread's exclusive product
+// is its warp's offset times its left neighbour's inclusive one.
+template <int NC>
+__device__ __forceinline__ void block_scan(uint64_t (&v)[NC], uint64_t (&total)[NC],
+                                           uint64_t (&warp_sums)[NC][32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint64_t y = __shfl_up_sync(0xffffffffu, (unsigned long long)v[j], off);
+      if (lane >= off) v[j] = gl::mul(v[j], y);
+    }
+    if (lane == 31) warp_sums[j][warp] = v[j];
+    const uint64_t left = __shfl_up_sync(0xffffffffu, (unsigned long long)v[j], 1);
+    v[j] = lane ? left : 1;
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      uint64_t s = lane < warps ? warp_sums[j][lane] : 1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const uint64_t y = __shfl_up_sync(0xffffffffu, (unsigned long long)s, off);
+        if (lane >= off) s = gl::mul(s, y);
+      }
+      const uint64_t left = __shfl_up_sync(0xffffffffu, (unsigned long long)s, 1);
+      if (lane < warps) warp_sums[j][lane] = lane ? left : 1;
+      if (lane == 31) warp_sums[j][31] = s;  // the block's product (lanes past the warps are 1)
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    v[j] = gl::mul(warp_sums[j][warp], v[j]);
+    total[j] = warp_sums[j][31];
+  }
+}
+
+// Pass 1 of 3: thread x of the grid takes column x for every challenge.  It
+// reads each routed wire and sigma word once (words loaded one group of
+// PERM_Z_GROUP wires ahead), keeps num_k = prod (w + beta k_i omega^x +
+// gamma) and den_k = prod (w + beta sigma_i + gamma) of each chunk k in
+// shared memory (dynamic: q[j * m + k][thread], then d[...] after the
+// challenges * m rows of q), turns all challenges * m quotients num_k / den_k
+// into words with ONE Fermat power (gl::batch_div: a zero den_k gives 0, as
+// the plain inverse), and their running product rat_pref[k].  It parks
+// rat_pref[k], k < m - 1, unscaled in the partials' rows of `out`, scans the
+// row ratio rat_pref[m - 1] across the block (block_scan) into the Z row, and
+// writes the block's product to totals[j * gridDim.x + blockIdx.x].
+constexpr int PERM_Z_GROUP = 4;
+
+__global__ void __launch_bounds__(PERM_Z_MAX_THREADS)
+perm_z_kernel(PermZArgs a) {
+  constexpr int NC = PERM_CHALLENGES;
+  extern __shared__ uint64_t quot[];  // q: challenges * m rows of blockDim.x, then d: as many
+  __shared__ uint64_t beta_k[NC][PERM_MAX_ROUTED];
+  __shared__ uint64_t beta[NC], gamma[NC];
+  __shared__ uint64_t warp_sums[NC][32];
+  const int nc = a.challenges, m = a.routed / a.chunk, T = blockDim.x, t = threadIdx.x;
+  for (int i = t; i < nc * a.routed; i += T)
+    beta_k[i / a.routed][i % a.routed] = gl::mul(a.betas[i / a.routed], a.k_shifts[i % a.routed]);
+  if (t < nc) {
+    beta[t] = a.betas[t];
+    gamma[t] = a.gammas[t];
+  }
+  __syncthreads();
+  const long long x = (long long)blockIdx.x * T + t;
+  const bool live = x < a.n;
+  uint64_t* q = quot + t;                             // q[r * T]: row r's word of this thread
+  uint64_t* d = quot + (long long)nc * m * T + t;
+  uint64_t row_ratio[NC] = {1, 1};                    // 1 for a column past n: it leaves the scan as it is
+  if (live) {
+    const uint64_t om = a.omega[x];
+    uint64_t w[PERM_Z_GROUP], s[PERM_Z_GROUP];
+    const auto load = [&](int c0, uint64_t (&wg)[PERM_Z_GROUP], uint64_t (&sg)[PERM_Z_GROUP]) {
+#pragma unroll
+      for (int u = 0; u < PERM_Z_GROUP; ++u) {
+        const int col = c0 + u;
+        wg[u] = col < a.routed ? a.wires[(long long)col * a.wires_stride + x] : 0;
+        sg[u] = col < a.routed ? a.sigma[(long long)col * a.sigma_stride + x] : 0;
+      }
+    };
+    load(0, w, s);
+    uint64_t num[NC], den[NC];
+    int i = 0, k = 0;  // the wire's place in its chunk, the chunk
+    for (int c0 = 0; c0 < a.routed; c0 += PERM_Z_GROUP) {
+      uint64_t w_ahead[PERM_Z_GROUP], s_ahead[PERM_Z_GROUP];
+      load(c0 + PERM_Z_GROUP, w_ahead, s_ahead);
+#pragma unroll
+      for (int u = 0; u < PERM_Z_GROUP; ++u) {
+        const int col = c0 + u;
+        if (col < a.routed) {
+#pragma unroll
+          for (int j = 0; j < NC; ++j) {
+            if (j < nc) {
+              const uint64_t wg = gl::add_lazy(w[u], gamma[j]);
+              const uint64_t nt = gl::mul_add_lazy(beta_k[j][col], om, wg);  // w + beta k_i x + gamma
+              const uint64_t dt = gl::mul_add_lazy(beta[j], s[u], wg);      // w + beta sigma_i + gamma
+              num[j] = i ? gl::mul_lazy(num[j], nt) : nt;
+              den[j] = i ? gl::mul_lazy(den[j], dt) : dt;
+            }
+          }
+          if (++i == a.chunk) {
+#pragma unroll
+            for (int j = 0; j < NC; ++j) {
+              if (j < nc) {
+                q[(long long)(j * m + k) * T] = num[j];
+                d[(long long)(j * m + k) * T] = gl::canon(den[j]);  // compared with 0
+              }
+            }
+            i = 0;
+            ++k;
+          }
+        }
+        w[u] = w_ahead[u];
+        s[u] = s_ahead[u];
+      }
+    }
+    // q[r] = num_r / den_r for the challenges * m rows r, with one Fermat power
+    const gl::Strided qs{q, T}, ds{d, T};
+    gl::batch_div<NC * PERM_MAX_CHUNKS, 1>(qs, nc * m, [&](int r) { return ds[r]; },
+                                           [&](int r) { return qs[r]; });
+    // rat_pref[k] = prod_{l <= k} ratio_l: the partials' rows get it unscaled
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      if (j < nc) {
+        uint64_t pref = qs[j * m];
+        for (int kk = 1; kk < m; ++kk) {
+          a.out[((long long)j * m + kk) * a.n + x] = pref;
+          pref = gl::mul(pref, qs[j * m + kk]);
+        }
+        row_ratio[j] = pref;
+      }
+    }
+  }
+  uint64_t total[NC];
+  block_scan(row_ratio, total, warp_sums);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    if (j < nc) {
+      if (live) a.out[(long long)j * m * a.n + x] = row_ratio[j];
+      if (t == 0) a.totals[(long long)j * gridDim.x + blockIdx.x] = total[j];
+    }
+  }
+}
+
+// Pass 2 of 3: block j turns totals[j * blocks ...] into the exclusive
+// products of the block totals before each block, in place.  Thread t takes
+// the run of `run` totals from t * run, its product goes through block_scan,
+// and it walks its run again writing the offsets.
+__global__ void __launch_bounds__(PERM_Z_MAX_THREADS)
+perm_z_scan_kernel(uint64_t* __restrict__ totals, long long blocks, long long run) {
+  __shared__ uint64_t warp_sums[1][32];
+  uint64_t* tot = totals + (long long)blockIdx.x * blocks;
+  const long long b0 = (long long)threadIdx.x * run;
+  const long long b1 = b0 + run < blocks ? b0 + run : blocks;
+  uint64_t v[1] = {1}, total[1];
+  for (long long b = b0; b < b1; ++b) v[0] = gl::mul(v[0], tot[b]);
+  block_scan(v, total, warp_sums);
+  for (long long b = b0; b < b1; ++b) {
+    const uint64_t t = tot[b];
+    tot[b] = v[0];
+    v[0] = gl::mul(v[0], t);
+  }
+}
+
+// Pass 3 of 3: column x of challenge blockIdx.y: Z = offset of its pass-1
+// block (of `tile` columns) times the block's exclusive product, and the
+// partial k = Z * rat_pref[k], in place.
+__global__ void __launch_bounds__(256)
+perm_z_fixup_kernel(uint64_t* __restrict__ out, const uint64_t* __restrict__ totals,
+                    long long n, long long tile, long long blocks, int m) {
+  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= n) return;
+  uint64_t* z = out + (long long)blockIdx.y * m * n + x;
+  const uint64_t zv = gl::mul(totals[(long long)blockIdx.y * blocks + x / tile], z[0]);
+  z[0] = zv;
+  for (int k = 1; k < m; ++k) z[(long long)k * n] = gl::mul(zv, z[(long long)k * n]);
+}
+
+// ---------------------------------------------------------------------------
 // FRI's combined opening polynomial G
 // ---------------------------------------------------------------------------
 
@@ -407,6 +641,17 @@ struct GArgs {
   const uint64_t* z_re;         // (specs,) the points z_j
   const uint64_t* z_im;
   long long n_lde;
+};
+
+// The norm (x - z_re)^2 - 7 z_im^2 of spec j (c7[j] = 7 z_im^2), canonical.
+struct NormOf {
+  uint64_t x;
+  const uint64_t* z_re;
+  const uint64_t* c7;
+  __device__ __forceinline__ uint64_t operator()(int j) const {
+    const uint64_t dre = gl::sub(x, z_re[j]);
+    return gl::sub(gl::mul(dre, dre), c7[j]);
+  }
 };
 
 __device__ __forceinline__ uint64_t pick(const uint64_t (&v)[G_TAGS], int t) {
@@ -465,32 +710,20 @@ fri_g_kernel(GArgs g, uint64_t* __restrict__ out_re, uint64_t* __restrict__ out_
     b_im[t] = sum_im;
   }
 
-  // the norms' inverses by Montgomery's trick: prefix[j] is the product of
-  // the non-zero norms before spec j; one Fermat inversion of all of them
+  // the norms' inverses by Montgomery's trick, one Fermat inversion of all
+  // of them (a zero norm's inverse is 0, as the plain version's), each
+  // consumed as the walk back makes it; a norm is recomputed where the trick
+  // reads it again rather than kept
   const uint64_t xv = g.x[x];
+  const NormOf norm_of{xv, s_zre, s_c7};
   uint64_t prefix[G_MAX_SPECS];
-  uint64_t run = 1;
-#pragma unroll
-  for (int j = 0; j < G_MAX_SPECS; ++j) {
-    if (j < g.specs) {
-      const uint64_t dre = gl::sub(xv, s_zre[j]);
-      const uint64_t norm = gl::sub(gl::mul(dre, dre), s_c7[j]);
-      prefix[j] = run;
-      if (norm != 0) run = gl::mul(run, norm);
-    }
-  }
-  uint64_t inv = inv_fermat(run);
+  uint64_t inv = gl::inv_fermat(gl::batch_prefix<G_MAX_SPECS>(prefix, g.specs, norm_of));
   gl::Acc acc_re, acc_im;
 #pragma unroll
   for (int j = G_MAX_SPECS - 1; j >= 0; --j) {
     if (j < g.specs) {
       const uint64_t dre = gl::sub(xv, s_zre[j]);
-      const uint64_t norm = gl::sub(gl::mul(dre, dre), s_c7[j]);
-      uint64_t ninv = 0;  // the inverse of a zero norm is 0, as the plain version's
-      if (norm != 0) {
-        ninv = gl::mul(inv, prefix[j]);
-        inv = gl::mul(inv, norm);
-      }
+      const uint64_t ninv = gl::batch_back(inv, prefix[j], norm_of(j));
       // 1 / (x - z) = (dre + z_im phi) / norm
       const Ext den{gl::mul(dre, ninv), gl::mul(s_zim[j], ninv)};
       const int t = g.spec_tag[j];
@@ -557,8 +790,8 @@ extern "C" int elp_field_binary(int op, const void* a, long long a_r, long long 
 }
 
 extern "C" int elp_field_inv(const void* in, void* out, long long n, int threads, void* stream) {
-  // the chain is 72 dependent products a word: many blocks of few words each
-  field_inv_kernel<<<blocks_for(n, threads, 1ll << 30), threads, 0,
+  if (n < 1 || threads < 1 || threads > 256) return (int)cudaErrorInvalidValue;
+  field_inv_kernel<<<blocks_for(n, threads * INV_RUN, 1ll << 30), threads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out), n);
   return (int)cudaGetLastError();
@@ -606,6 +839,43 @@ extern "C" int elp_perm_quotient(const void* wires, long long wires_stride, cons
                    1ll << rate, routed, chunk};
   perm_quotient_kernel<<<blocks_for(n_lde, threads, 1ll << 30), threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(a, static_cast<uint64_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The three launches of Z and the partials for `challenges` challenges into
+// `out` ((challenges * m, n), contiguous; it overlaps no input), with the
+// (challenges, blocks) scratch `totals`: perm_z_kernel in blocks of
+// `threads` columns with `shared` bytes of dynamic shared memory, then
+// perm_z_scan_kernel (one block a challenge, `run` totals a thread), then
+// perm_z_fixup_kernel.  ops/kernels.py `perm_z_plan` computes the sizes.
+extern "C" int elp_perm_z(const void* wires, long long wires_stride, const void* sigma,
+                          long long sigma_stride, const void* omega, const void* k_shifts,
+                          const void* betas, const void* gammas, long long n, int routed, int chunk,
+                          int challenges, void* out, void* totals, int threads, long long blocks,
+                          long long shared, long long run, int scan_threads, void* stream) {
+  const int m = chunk > 0 ? routed / chunk : 0;
+  if (n < 1 || chunk < 1 || routed < chunk || routed % chunk || routed > PERM_MAX_ROUTED ||
+      m > PERM_MAX_CHUNKS || challenges < 1 || challenges > PERM_CHALLENGES || threads < 32 ||
+      threads > PERM_Z_MAX_THREADS || threads % 32 || blocks != (n + threads - 1) / threads ||
+      blocks > 0x7FFFFFFFll || shared != 2ll * challenges * m * threads * 8 ||
+      shared > 227 * 1024 || scan_threads < 32 || scan_threads > PERM_Z_MAX_THREADS ||
+      scan_threads % 32 || run < 1 || run * scan_threads < blocks)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(perm_z_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)shared);
+  if (err != cudaSuccess) return (int)err;
+  const auto w = [](const void* p) { return static_cast<const uint64_t*>(p); };
+  uint64_t* o = static_cast<uint64_t*>(out);
+  uint64_t* t = static_cast<uint64_t*>(totals);
+  const PermZArgs a{w(wires), wires_stride, w(sigma), sigma_stride, w(omega), w(k_shifts),
+                    w(betas), w(gammas), o, t, n, routed, chunk, challenges};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  perm_z_kernel<<<(unsigned)blocks, threads, (size_t)shared, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  perm_z_scan_kernel<<<challenges, scan_threads, 0, s>>>(t, blocks, run);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 grid(blocks_for(n, 256, 1ll << 30), challenges);
+  perm_z_fixup_kernel<<<grid, 256, 0, s>>>(o, t, n, threads, blocks, m);
   return (int)cudaGetLastError();
 }
 

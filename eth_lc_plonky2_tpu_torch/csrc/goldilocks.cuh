@@ -16,6 +16,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 namespace gl {
 
@@ -253,6 +254,93 @@ __device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
 __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
   const uint64_t d = a - b;
   return a < b ? d + P : d;  // borrow: d + p wraps to d - EPSILON
+}
+
+// x^(2^n), lazy -> lazy.
+__device__ __forceinline__ uint64_t square_times(uint64_t x, int n) {
+  for (int i = 0; i < n; ++i) x = mul_lazy(x, x);
+  return x;
+}
+
+// lazy -> canonical a^(p-2), p - 2 = 2^64 - 2^32 - 1; the inverse of 0
+// comes out as 0.  The chain: a^3, a^7, a^(2^6 - 1), a^(2^12 - 1),
+// a^(2^24 - 1), a^(2^30 - 1), a^(2^31 - 1) = t31; t31^(2^32) * t31 =
+// a^((2^31 - 1)(2^32 + 1)); its square times a: 63 squarings, 9 products.
+__device__ __forceinline__ uint64_t inv_fermat(uint64_t a) {
+  const uint64_t t2 = mul_lazy(square_times(a, 1), a);
+  const uint64_t t3 = mul_lazy(square_times(t2, 1), a);
+  const uint64_t t6 = mul_lazy(square_times(t3, 3), t3);
+  const uint64_t t12 = mul_lazy(square_times(t6, 6), t6);
+  const uint64_t t24 = mul_lazy(square_times(t12, 12), t12);
+  const uint64_t t30 = mul_lazy(square_times(t24, 6), t6);
+  const uint64_t t31 = mul_lazy(square_times(t30, 1), a);
+  const uint64_t t63 = mul_lazy(square_times(t31, 32), t31);
+  return canon(mul_lazy(square_times(t63, 1), a));
+}
+
+// The numerator of a quotient that is an inverse: 1, costing no product.
+struct One {
+  __device__ __forceinline__ uint64_t operator()(int) const { return 1; }
+};
+
+// Word i of a row of shared memory with a stride (one thread's column of
+// a table laid out [row][thread]).
+struct Strided {
+  uint64_t* base;
+  int stride;
+  __device__ __forceinline__ uint64_t& operator[](int i) const { return base[(long long)i * stride]; }
+};
+
+// Montgomery's trick: out[i] = num(i) / den(i) for i < count <= K, with ONE
+// Fermat power for all of them, and 0 where den(i) = 0, which is the a^(p-2)
+// of 0 that every plain inverse of the repo gives.  den(i) is a canonical
+// word and is called twice for each i (forward, then backward), so a caller
+// may recompute it rather than keep it; num(i) (lazy) is called once, in the
+// forward pass, before out[i] is written, so it may read out[i] itself.
+// Products: 3 a word (4 with a numerator) and 72 for the power; out[] is
+// canonical.  `out` is a register array of K words (the loops unrolled, so
+// that its words stay in registers), or a view of shared memory with
+// UNROLL 1: rolled loops over the count words.  A caller that consumes each
+// quotient as it comes takes the two halves: batch_prefix, then inv_fermat
+// of its result and batch_back for i = count - 1 down to 0.
+
+// The forward pass: out[i] = num(i) times the product of the non-zero
+// den(j), j < i; returns the product of all the non-zero den(i), which is
+// never 0 (the field has no zero divisors).
+template <int K, int UNROLL = K, class Out, class Den, class Num = One>
+__device__ __forceinline__ uint64_t batch_prefix(Out&& out, int count, Den den, Num num = Num()) {
+  const int words = UNROLL == 1 ? count : K;  // a constant where unrolled
+  uint64_t run = 1;
+#pragma unroll (UNROLL)
+  for (int i = 0; i < words; ++i) {
+    if (i < count) {
+      const uint64_t d = den(i);
+      out[i] = std::is_same<Num, One>::value ? run : mul_lazy(num(i), run);
+      if (d != 0) run = mul_lazy(run, d);
+    }
+  }
+  return run;
+}
+
+// One backward step, for i from the last word down: `inv` is 1 / (the
+// product of the non-zero den(j), j <= i), `prefix` batch_prefix's out[i]
+// and d = den(i); returns num(i) / d (canonical; 0 where d = 0) and leaves
+// in `inv` the inverse of the product for j < i.
+__device__ __forceinline__ uint64_t batch_back(uint64_t& inv, uint64_t prefix, uint64_t d) {
+  if (d == 0) return 0;
+  const uint64_t q = mul(inv, prefix);
+  inv = mul_lazy(inv, d);
+  return q;
+}
+
+template <int K, int UNROLL = K, class Out, class Den, class Num = One>
+__device__ __forceinline__ void batch_div(Out&& out, int count, Den den, Num num = Num()) {
+  const int words = UNROLL == 1 ? count : K;
+  uint64_t inv = inv_fermat(batch_prefix<K, UNROLL>(out, count, den, num));
+#pragma unroll (UNROLL)
+  for (int i = words - 1; i >= 0; --i) {
+    if (i < count) out[i] = batch_back(inv, out[i], den(i));
+  }
 }
 
 }  // namespace gl

@@ -41,6 +41,7 @@ NTT_THREADS = 256
 POSEIDON_THREADS = 256  # csrc/poseidon.cu: __launch_bounds__(256, ...), the most it takes
 FIELD_THREADS = 256  # csrc/field.cu: __launch_bounds__(256)
 FIELD_OPS = {"add": 0, "sub": 1, "mul": 2}  # csrc/field.cu: OP_ADD, OP_SUB, OP_MUL
+FIELD_INV_RUN = 16  # csrc/field.cu: INV_RUN, the words a thread inverts together
 # csrc/field.cu's G kernel: G_TAGS batches, G_MAX_SPECS specs, G_MAX_ROWS rows in all
 G_TAGS = 4
 G_MAX_SPECS = 16
@@ -56,6 +57,13 @@ OPEN_MIN_BLOCKS = 2 * 132  # two blocks for each of the H100's 132 SMs, where th
 PERM_CHALLENGES = 2
 PERM_MAX_ROUTED = 256
 PERM_MAX_CHUNKS = 64
+# csrc/field.cu's Z and partials: perm_z_kernel's block of PERM_Z_THREADS
+# columns, halved while its dynamic shared memory (two words a chunk,
+# challenge and thread) would pass PERM_Z_SHARED_TARGET, two blocks an SM;
+# perm_z_scan_kernel's one block of PERM_Z_SCAN_THREADS a challenge
+PERM_Z_THREADS = 256
+PERM_Z_SCAN_THREADS = 256
+PERM_Z_SHARED_TARGET = 96 * 1024
 GATES_THREADS = 256  # csrc/gates.cu: __launch_bounds__(256, ...)
 GATES_CHALLENGES = 2  # csrc/gates.cu: NCH, the challenges one launch takes (the prover's 2)
 # csrc/gates.cu's SHA-256 gate: SHA_TILE columns a block, each staged column
@@ -140,6 +148,8 @@ def _libraries() -> dict:
                   "elp_field_open_sum": [vp, ll, ll, vp, i32, vp],
                   "elp_perm_quotient": [vp, ll, vp, ll, vp, ll, vp, vp, vp, vp, vp, vp, vp, ll,
                                         i32, i32, i32, vp, i32, vp],
+                  "elp_perm_z": [vp, ll, vp, ll, vp, vp, vp, vp, ll, i32, i32, i32, vp, vp, i32, ll,
+                                 ll, ll, i32, vp],
                   "elp_fri_g": [ctypes.POINTER(vp), ctypes.POINTER(ll), ctypes.POINTER(i32),
                                 ctypes.POINTER(i32), i32, vp, vp, vp, vp, vp, vp, vp, ll, vp, vp,
                                 i32, vp],
@@ -336,15 +346,28 @@ def field_binary(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def field_inv_plan(n: int) -> dict:
+    """How ``field_inv_kernel`` inverts n words: a block of ``threads`` takes
+    tiles of ``tile`` words, ``blocks`` of them (the grid), and thread t of
+    the tile at word b inverts its ``run`` words b + t + i * threads, i <
+    run, together (one Fermat power; words at n or past it are absent)."""
+    if n < 1:
+        raise ValueError(f"field inv: {n} words")
+    tile = FIELD_THREADS * FIELD_INV_RUN
+    return {"threads": FIELD_THREADS, "run": FIELD_INV_RUN, "tile": tile, "blocks": -(-n // tile)}
+
+
 def field_inv(a: torch.Tensor) -> torch.Tensor:
-    """Launch ``field_inv_kernel``: a^(p-2) elementwise (0 stays 0)."""
+    """Launch ``field_inv_kernel``: a^(p-2) elementwise (0 stays 0), a run of
+    words a thread by Montgomery's trick (``field_inv_plan``)."""
     _check(a, "a")
     x = a.contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    plan = field_inv_plan(x.numel())
     err = _libraries()["field"].elp_field_inv(x.data_ptr(), out.data_ptr(), x.numel(),
-                                              FIELD_THREADS, _stream(x))
+                                              plan["threads"], _stream(x))
     launches["field"] += 1
     _raise_on(err, "field inv")
     return out
@@ -477,6 +500,81 @@ def perm_quotient(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas: list
         _stream(wires))
     launches["field"] += 1
     _raise_on(err, "perm quotient")
+    return out
+
+
+def perm_z_plan(routed: int, n: int, chunk: int, challenges: int) -> dict:
+    """How the three launches of csrc/field.cu's Z and partials are sized, for
+    ``routed`` wires in chunks of ``chunk`` (m = routed / chunk) on an n-point
+    subgroup, ``challenges`` challenges.  perm_z_kernel: blocks of
+    ``threads`` columns (PERM_Z_THREADS, halved while its ``shared_bytes`` of
+    dynamic shared memory, challenges * m words of num and of den a thread,
+    pass PERM_Z_SHARED_TARGET: 256 up to m = 12 at two challenges, 32 at
+    m = PERM_MAX_CHUNKS), ``blocks`` of them; it
+    writes the block-local Z into ``z_rows`` and parks the unscaled running
+    products rat_pref[k], k < m - 1, in ``parked_rows`` (row j * m + 1 + k
+    takes challenge j's rat_pref[k]) of the (challenges * m, n) output, and
+    each block's product into a (challenges, blocks) scratch.
+    perm_z_scan_kernel: one block of ``scan_threads`` a challenge, ``run``
+    block products a thread.  perm_z_fixup_kernel: a thread a column and
+    challenge."""
+    if n < 1 or chunk < 1 or routed < chunk or routed % chunk or routed > PERM_MAX_ROUTED:
+        raise ValueError(f"perm Z: {routed} routed wires in chunks of {chunk} on {n} points (at "
+                         f"most {PERM_MAX_ROUTED} wires)")
+    m = routed // chunk
+    if m > PERM_MAX_CHUNKS or not 1 <= challenges <= PERM_CHALLENGES:
+        raise ValueError(f"perm Z: {m} chunks, {challenges} challenges (at most {PERM_MAX_CHUNKS} "
+                         f"chunks, 1 to {PERM_CHALLENGES} challenges)")
+
+    def shared(t):
+        return 2 * challenges * m * t * 8
+
+    threads = PERM_Z_THREADS
+    while shared(threads) > PERM_Z_SHARED_TARGET:  # m <= PERM_MAX_CHUNKS stops at 32 or more
+        threads //= 2
+    blocks = -(-n // threads)
+    if blocks >= 1 << 31:
+        raise ValueError(f"perm Z: a grid of {blocks} blocks")
+    return {"m": m, "threads": threads, "blocks": blocks, "shared_bytes": shared(threads),
+            "scan_threads": PERM_Z_SCAN_THREADS, "run": max(1, -(-blocks // PERM_Z_SCAN_THREADS)),
+            "z_rows": [j * m for j in range(challenges)],
+            "parked_rows": [j * m + 1 + k for j in range(challenges) for k in range(m - 1)],
+            "launches": 3}
+
+
+def perm_z(wires, sigma, omega, k_shifts, betas, gammas, chunk: int) -> torch.Tensor:
+    """Launch ``perm_z_kernel``, ``perm_z_scan_kernel`` and
+    ``perm_z_fixup_kernel``: the permutation argument's rows [Z_j, p_j0, ...,
+    p_j(m-2)] of every challenge j, as one (challenges * m, n) tensor.
+    ``wires`` and ``sigma`` are (routed, n) views with unit column stride
+    (the routed rows of the wires, read through their row stride), ``omega``
+    the (n,) subgroup, ``k_shifts`` (routed,), ``betas`` and ``gammas`` one
+    word a challenge; see ``perm_z_plan``."""
+    for t, name in ((wires, "wires"), (sigma, "sigma"), (omega, "omega"), (k_shifts, "k_shifts"),
+                    (betas, "betas"), (gammas, "gammas")):
+        _check(t, name)
+    routed, n = wires.shape if wires.dim() == 2 else (0, 0)
+    dev = wires.device
+    _rows_view(wires, n, dev, "wires", "perm Z")
+    _rows_view(sigma, n, dev, "sigma", "perm Z")
+    if sigma.shape[0] != routed:
+        raise ValueError(f"perm Z: {sigma.shape[0]} sigma rows for {routed} routed wires")
+    challenges = betas.shape[0] if betas.dim() == 1 else 0
+    plan = perm_z_plan(routed, n, chunk, challenges)
+    _dense_row(omega, n, dev, "omega", "perm Z")
+    _dense_row(k_shifts, routed, dev, "k_shifts", "perm Z")
+    _dense_row(betas, challenges, dev, "betas", "perm Z")
+    _dense_row(gammas, challenges, dev, "gammas", "perm Z")
+    out = torch.empty((challenges * plan["m"], n), dtype=torch.int64, device=dev)
+    totals = torch.empty((challenges, plan["blocks"]), dtype=torch.int64, device=dev)
+    err = _libraries()["field"].elp_perm_z(
+        wires.data_ptr(), wires.stride(0) if routed > 1 else n, sigma.data_ptr(),
+        sigma.stride(0) if routed > 1 else n, omega.data_ptr(), k_shifts.data_ptr(),
+        betas.data_ptr(), gammas.data_ptr(), n, routed, chunk, challenges, out.data_ptr(),
+        totals.data_ptr(), plan["threads"], plan["blocks"], plan["shared_bytes"], plan["run"],
+        plan["scan_threads"], _stream(wires))
+    launches["field"] += plan["launches"]
+    _raise_on(err, "perm Z")
     return out
 
 

@@ -11,9 +11,10 @@ Goldilocks arithmetic is exact, so a proof equals the JAX package's byte for
 byte.  There is no ``jit`` and no executable cache here: PyTorch runs
 eagerly, and each field operation on a CUDA tensor is one launch of
 ``csrc/field.cu``; chains that XLA fuses for the JAX package are one fused
-kernel of ``csrc/field.cu`` each on the card (the quotient's permutation
-terms, one launch a proof; the openings, at most two a batch; FRI's G and
-each fold, in ``prover/fri.py``), and the gates' share of the quotient is
+kernel of ``csrc/field.cu`` each on the card (Z and the partial products of
+both challenges, three launches a proof; the quotient's permutation terms,
+one; the openings, at most two a batch; FRI's G and each fold, in
+``prover/fri.py``), and the gates' share of the quotient is
 one launch of ``csrc/gates.cu`` for the SHA-256 gate, one for the Poseidon
 gate and one for the generic gates with the public inputs.  The sharded
 prover's ``put`` argument is not ported.
@@ -259,7 +260,9 @@ def _perm_core(wires, sigma, omega_pows, k_shifts, beta_f, gamma_f, chunk_size: 
     beta_f/gamma_f: shape-() field tensors.  Returns the (m, n) field rows
     [Z, p_0, ..., p_{m-2}] evaluated on H: one batched (m, n) Fermat
     inversion, pairwise tree products over each chunk, a running product
-    over the m rows and a prefix product along n.
+    over the m rows and a prefix product along n.  The plain version of
+    ``kernels.perm_z`` (csrc/field.cu ``perm_z_kernel`` and its scan and
+    fix-up), on eager field ops: the CPU path.
     """
     nr, n = wires.shape
     cs = chunk_size
@@ -283,19 +286,32 @@ def _perm_core(wires, sigma, omega_pows, k_shifts, beta_f, gamma_f, chunk_size: 
     return torch.cat([z[None], rest])
 
 
-def compute_permutation_polys(pd: ProverData, wires_dev, beta: int, gamma: int):
-    """Field rows [Z, p_0, ..., p_{m-2}] of shape (m, n) on the wires' device."""
+def perm_rows_plain(wires, sigma, omega_pows, k_shifts, betas_f, gammas_f, chunk_size: int):
+    """The plain version of ``kernels.perm_z``, on its arguments: the rows of
+    ``_perm_core`` for each challenge j (betas_f[j], gammas_f[j]), one after
+    another."""
+    return torch.cat([_perm_core(wires, sigma, omega_pows, k_shifts, betas_f[j], gammas_f[j],
+                                 chunk_size) for j in range(betas_f.shape[0])])
+
+
+def permutation_polys(pd: ProverData, wires_dev, betas: list, gammas: list):
+    """Field rows [Z_j, p_j0, ..., p_j(m-2)] of each challenge j (host ints
+    betas[j], gammas[j]), one after another: shape (len(betas) * m, n) on
+    the wires' device.  On the card: the three launches of csrc/field.cu's
+    ``perm_z_kernel`` for all the challenges, straight into the rows that
+    the Z commitment takes; a CPU tensor runs ``perm_rows_plain``."""
     cfg = pd.data.config
     dev = wires_dev.device
-    return _perm_core(
-        wires_dev[: cfg.num_routed_wires],
-        pd.dev["sigma"],
-        pd.dev["omega_pows"],
-        pd.dev["k_shifts"],
-        scalar_f(beta, dev),
-        scalar_f(gamma, dev),
-        cfg.permutation_chunk_size,
-    )
+    args = (wires_dev[: cfg.num_routed_wires], pd.dev["sigma"], pd.dev["omega_pows"],
+            pd.dev["k_shifts"])
+    rows = kernels.perm_z if kernels.on_card(wires_dev) else perm_rows_plain
+    return rows(*args, scalars_f(betas, dev), scalars_f(gammas, dev), cfg.permutation_chunk_size)
+
+
+def compute_permutation_polys(pd: ProverData, wires_dev, beta: int, gamma: int):
+    """Field rows [Z, p_0, ..., p_{m-2}] of shape (m, n) on the wires' device,
+    for one challenge (as the JAX package's)."""
+    return permutation_polys(pd, wires_dev, [beta], [gamma])
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +440,7 @@ def make_quotient_kernel(pd: ProverData):
     A = DeviceBaseAlgebra((n_lde,), dev)
     generic, own = split_gates(data)
 
-    def kernel(wires_lde, zs_lde, pre_lde, pi_f, betas_f, gammas_f, alphas_f):
+    def kernel(wires_lde, zs_lde, pre_lde, pi_f, betas_f, gammas_f, alphas: list):
         def wires(col, offset=0):
             return _roll_lde(wires_lde[col], offset, rate)
 
@@ -439,8 +455,10 @@ def make_quotient_kernel(pd: ProverData):
         # freed, never all 1 + m + num_pi + max_con of them at once.
         # Exponents: permutation terms 0..m, public inputs, then one slot a
         # constraint index (shared across gates).
+        # The powers of each host alpha (int) on the host, uploaded as one
+        # (num_challenges, n_terms) table whose rows the kernels read.
         n_terms = 1 + m + num_pi + max_con
-        apows = [nttm.powers_device(alphas_f[j], n_terms) for j in range(cfg.num_challenges)]
+        apows = list(gl.from_u64(np.stack([hf.powers(a, n_terms) for a in alphas]), dev))
 
         # the permutation terms 0..m: one launch of csrc/field.cu for both
         # challenges on the card, the eager chain on the CPU
@@ -571,10 +589,7 @@ def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Pro
     for _ in range(cfg.num_challenges):
         betas.append(ch.challenge())
         gammas.append(ch.challenge())
-    zs_vals = torch.cat([
-        compute_permutation_polys(pd, wires_dev, betas[j], gammas[j])
-        for j in range(cfg.num_challenges)
-    ])
+    zs_vals = permutation_polys(pd, wires_dev, betas, gammas)
     prof.phase("commit_zs")
     zs_batch = commit_field_values(zs_vals, rate, cap_h)
     ch.observe_cap(zs_batch.cap)  # [device sync]
@@ -590,7 +605,7 @@ def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Pro
         scalars_f(pi_values, dev),
         scalars_f(betas, dev),
         scalars_f(gammas, dev),
-        scalars_f(alphas, dev),
+        alphas,
     )
     prof.phase("commit_quotient")
     quotient_batch = commit_coeffs(chunk_coeffs, rate, cap_h)

@@ -314,3 +314,40 @@ def test_field_kernel_views_match_plain(dev, op, n):
     for u, v in pairs:
         assert torch.equal(kernel(u, v), plain(u, v)), (u.shape, u.stride(), v.stride())
     assert kernels.launches["field"] == before + len(pairs)
+
+
+@pytest.mark.parametrize("challenges", [1, 2])
+@pytest.mark.parametrize("log_n", [4, 8, 12, 18])
+def test_perm_z_kernel_matches_plain(dev, log_n, challenges):
+    """perm_z_kernel, its scan and its fix-up against the plain permutation
+    rows: 80 routed rows of a 184-row wires matrix, chunk 8, edge words, a
+    zero den chunk of each challenge (the grand product ends there); 2^4 is
+    less than a block, 2^8 one block, 2^18 the flagship's 1,024 blocks."""
+    import chip_smoke
+
+    n = 1 << log_n
+    zeros = ((0, 1, n // 3),) + (((1, 9, n - 2),) if challenges == 2 else ())
+    inputs = chip_smoke.perm_z_inputs(np.random.default_rng(log_n), log_n, zeros)
+    if challenges == 1:
+        inputs = inputs[:4] + (inputs[4][:1], inputs[5][:1], inputs[6])
+    before = kernels.launches["field"]
+    got = chip_smoke.perm_rows(inputs)
+    assert kernels.launches["field"] == before + 3
+    assert got.shape == (10 * challenges, n)
+    assert torch.equal(got, chip_smoke.perm_rows(inputs, "plain"))
+    assert int(got[0, -1]) == 0 and int(got[0, 0]) == 1
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 1023, 4097, 1 << 21])
+def test_field_inv_kernel_runs_match_plain(dev, n):
+    """field_inv_kernel's runs of 16 words against the plain inverse at
+    lengths inside one run, one tile and many, zeros at every place of a run
+    (``chip_smoke.inverse_words``); one launch."""
+    import chip_smoke
+
+    x = gl.from_u64(chip_smoke.inverse_words(np.random.default_rng(n), n), dev)
+    before = kernels.launches["field"]
+    inv = gl.inv(x)
+    assert kernels.launches["field"] == before + 1
+    assert torch.equal(inv, gl.inv_plain(x))
+    assert torch.equal(gl.mul(inv, x), (x != 0).to(torch.int64))

@@ -301,7 +301,7 @@ def test_quotient_with_a_broken_copy_constraint_equals_the_jax_packages():
     alphas = _rand((2,), 23)
     got = pr.make_quotient_kernel(pd)(
         wires_lde, zs_lde, pd.pre_batch.lde, gl.from_u64(pis), gl.from_u64(betas),
-        gl.from_u64(gammas), gl.from_u64(alphas))
+        gl.from_u64(gammas), [int(a) for a in alphas])
     want = jpr.make_quotient_kernel(jpd)(
         jgl.from_u64(gl.to_u64(wires_lde)), jgl.from_u64(gl.to_u64(zs_lde)), jpd.pre_batch.lde,
         jgl.from_u64(pis), jgl.from_u64(betas), jgl.from_u64(gammas), jgl.from_u64(alphas))

@@ -228,7 +228,7 @@ def test_quotient_chunks(which):
     betas, gammas, alphas = (_rand((cfg.num_challenges,), s) for s in (14, 15, 16))
     got = pr.make_quotient_kernel(pd)(
         gl.from_u64(wires), gl.from_u64(zs), pd.pre_batch.lde, gl.from_u64(pis),
-        gl.from_u64(betas), gl.from_u64(gammas), gl.from_u64(alphas))
+        gl.from_u64(betas), gl.from_u64(gammas), [int(a) for a in alphas])
     want = jpr.make_quotient_kernel(jpd)(
         jgl.from_u64(wires), jgl.from_u64(zs), jpd.pre_batch.lde, jgl.from_u64(pis),
         jgl.from_u64(betas), jgl.from_u64(gammas), jgl.from_u64(alphas))

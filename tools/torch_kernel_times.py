@@ -10,8 +10,10 @@ same card under the same power limit.  The measurement is ``chip_smoke.py``'s
 own (``measure``: one proof's three commitments at the flagship width, each
 kernel at one main-path shape, and the ``torch.profiler`` split by kernel
 name; then ``measure_gate_kernels``: the SHA-256 and Poseidon gates' kernels
-at (184, 2^21) against the generic loop); a turn prints its log lines and
-then one JSON line of the numbers.
+at (184, 2^21) against the generic loop; then ``measure_perm_polys``: the
+permutation rows of both challenges at (80, 2^18) through
+``prove.compute_permutation_polys``); a turn prints its log lines and then
+one JSON line of the numbers.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ def turn(tag: str, root: str) -> None:
     chk = smoke.Checker()
     res = smoke.measure(torch, chk, rng, card, smoke.flagship_inputs(rng))
     res["gates"] = smoke.measure_gate_kernels(torch, chk, rng, card)
+    res["perm_polys"] = smoke.measure_perm_polys(torch, rng, card)
     print(json.dumps({"tag": tag, "build_s": build["seconds"], **res}), flush=True)
 
 
