@@ -80,14 +80,30 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      (and edge points at 2^12, a wrapping roll at 2^7, the small sizes), and
      the permutation rows of both challenges at (80, 2^18) with zero den
      chunks (then at 2^12 with one and two challenges, and at 2^4), each
-     timed beside its bound, its plain version and the eager chain it replaced.
+     timed beside its bound, its plain version and the eager chain it replaced;
+  8. the flagship itself through the CLI's entry point: cli.run at
+     --synthetic 512 --bls dummy --seed N, nothing cut (committee 512, 184
+     wires, 16 PoW bits, 28 queries).  It proves the dummy BLS circuit on the
+     card (142 wires, 2^12 rows, 8 PoW bits, 12 queries; that proof is also
+     made on the plain versions on the card and through the circuit cache,
+     and must be equal), builds the light-client circuit with the inner proof
+     verified in-circuit (166,704 of 2^18 rows, as the JAX package's),
+     generates its witness, preprocesses, proves, exports the portable bundle
+     and verifies, the public inputs against the host SSZ contract_state_root
+     of the pair; the bundle's config and circuit sections must equal
+     lc512_bls_bundle.json's (its vk is compared and the outcome logged),
+     tools/verify_standalone.py must accept it and reject a tampered copy;
+     then a warm-up, three timed proves whose median is full512_prove_wall_s,
+     a traced prove as in phase 6, and two forged witnesses rejected.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on the main path, its error against the plain
 version, and its time beside the plain version's and beside the least time
 the card could take (bound_ms: the larger of bytes over 3.35 TB/s and 32-bit
 integer multiply-adds, counted in the cheapest form known, over 16.75 T/s).
-The launches are phase 7's first prove; the gates entry adds up its three
-kernels (one launch each a proof) and the field entry its elementwise
+The launches are phase 8's cli.run (the inner proof, preprocess and the
+first flagship proof), by_kernel's phase 8's traced steady prove; the gates
+entry adds up its three kernels (one launch each a proof) and the field
+entry its elementwise
 product, its batched inverse and its five fused passes, and each lists them
 under by_kernel.  No
 PyTorch call computes any of these functions, so library_ms is null.
@@ -100,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.metadata
+import importlib.util
 import json
 import os
 import re
@@ -251,6 +268,11 @@ def phase0(torch) -> str:
     except importlib.metadata.PackageNotFoundError:
         triton = "absent"
     log(f"[0] triton: {triton} (the port's kernels are CUDA C++)")
+    try:
+        pickler = importlib.metadata.version("cloudpickle")
+    except importlib.metadata.PackageNotFoundError:
+        pickler = "absent"
+    log(f"[0] cloudpickle: {pickler} (prover/serialize.py's circuit cache needs it)")
     return card
 
 
@@ -2266,6 +2288,199 @@ def phase7(torch, chk: Checker, rng, card: str, seed: int) -> dict:
             "gates": gates_res, "fused": fused_res, "traced": res["by_name"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the light-client circuit itself, through the CLI's entry point
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_COMMITTEE = 512
+FLAGSHIP_BUNDLE = os.path.join(REPO, "lc512_bls_bundle.json")  # the JAX package's flagship bundle
+
+
+class CliLog:
+    """A text stream for ``cli.run``'s ``out=``: each line it prints is logged."""
+
+    def __init__(self, tag: str):
+        self.tag, self.buf = tag, ""
+
+    def write(self, text: str) -> None:
+        self.buf += text
+        while "\n" in self.buf:
+            line, self.buf = self.buf.split("\n", 1)
+            log(f"{self.tag} cli: {line}")
+
+    def flush(self) -> None:
+        pass
+
+
+def check_inner_proof(torch, cli_inner, kw: dict, card: str) -> None:
+    """The dummy BLS circuit (142 wires, a small domain, 8 PoW bits, 12
+    queries): its proof on the kernels equals the one on the plain versions
+    on the card and the one the CLI made, the port's verifier accepts it, and
+    where cloudpickle is present the circuit cache gives the same proof."""
+    import tempfile
+
+    from eth_lc_plonky2_tpu_torch.models import bls
+    from eth_lc_plonky2_tpu_torch.prover import prove, serialize
+    from eth_lc_plonky2_tpu_torch.prover.verify import verify
+
+    data, cli_proof, cli_vk = cli_inner
+    w = bls.dummy_bls_witness(data, kw["signing_root"], kw["signature"],
+                              kw["sync_committee_pubkeys"], kw["sync_committee_bits"])
+    pd, vk = prove.preprocess(data)
+    if not np.array_equal(vk.pre_cap, cli_vk.pre_cap):
+        fail("[8] the inner circuit's preprocessed cap differs from the CLI's")
+    cfg = data.config
+    got = prove_kernels_and_plain(
+        torch, pd, w, f"[8] the dummy BLS circuit ({cfg.num_wires} wires, {data.num_rows_used} "
+        f"of 2^{data.log_n} rows, "
+        f"{cfg.fri.proof_of_work_bits} PoW bits, {cfg.fri.num_query_rounds} queries)",
+        ("ntt", "poseidon", "field", "gates"))
+    if (where := first_difference(got, proof_dict(cli_proof))):
+        fail(f"[8] the inner proof differs from the CLI's at {where}")
+    verify(data, vk, cli_proof)
+    if importlib.util.find_spec("cloudpickle") is None:
+        log("[8] cloudpickle is absent: the circuit cache (serialize.save_circuit) is not run")
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        serialize.save_circuit(tmp, data, pd, extras=("inner", data.num_rows_used))
+        extras, data2, pd2, vk2 = serialize.load_circuit(tmp)
+        w2 = bls.dummy_bls_witness(data2, kw["signing_root"], kw["signature"],
+                                   kw["sync_committee_pubkeys"], kw["sync_committee_bits"])
+        again = proof_dict(prove.prove(pd2, w2))
+    if pd2.device.type != "cuda" or not np.array_equal(vk2.pre_cap, vk.pre_cap) \
+            or extras != ("inner", data.num_rows_used) or first_difference(again, got):
+        fail("[8] the circuit cache does not give the same circuit and proof on the card")
+    log("[8] the inner circuit saved and loaded through the circuit cache (cloudpickle) gives "
+        "the same proof on the card")
+
+
+def check_bundle(bundle_path: str, report: dict) -> None:
+    """tools/verify_standalone.py (standard library only) accepts the bundle
+    and rejects a tampered copy; its config and circuit sections must equal
+    the committed flagship bundle's; the vk comparison is logged."""
+    import tempfile
+
+    with open(bundle_path) as f:
+        bundle = json.load(f)
+    with open(FLAGSHIP_BUNDLE) as f:
+        committed = json.load(f)
+    for key in ("config", "circuit"):
+        if bundle[key] != committed[key]:
+            fail(f"[8] the bundle's {key} section differs from lc512_bls_bundle.json's "
+                 f"(at {first_difference(bundle[key], committed[key], key)})")
+    vk_equal = bundle["vk"] == committed["vk"]
+    log(f"[8] the bundle's config and circuit sections == lc512_bls_bundle.json's; vk.pre_cap "
+        f"{'==' if vk_equal else '!='} the committed bundle's vk")
+    tool = os.path.join(REPO, "tools", "verify_standalone.py")
+    t0 = time.perf_counter()
+    ok = subprocess.run([sys.executable, tool, bundle_path], capture_output=True, text=True,
+                        timeout=600)
+    standalone_s = time.perf_counter() - t0
+    if ok.returncode != 0:
+        fail(f"[8] tools/verify_standalone.py rejects the port's bundle: {ok.stdout}{ok.stderr}")
+    bad = json.loads(json.dumps(bundle))
+    pi0 = int(bad["proof"]["public_inputs"][0], 16)
+    bad["proof"]["public_inputs"][0] = hex(pi0 + 1 if pi0 < 0xFFFF_FFFF else pi0 - 1)
+    with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+        json.dump(bad, f)
+    try:
+        rej = subprocess.run([sys.executable, tool, f.name], capture_output=True, text=True,
+                             timeout=600)
+    finally:
+        os.unlink(f.name)
+    if rej.returncode == 0:
+        fail("[8] tools/verify_standalone.py accepts a bundle with a tampered public input")
+    log(f"[8] tools/verify_standalone.py accepts the bundle in {standalone_s:.1f} s "
+        f"({ok.stdout.strip().splitlines()[-1] if ok.stdout.strip() else 'rc 0'}) and rejects "
+        f"the copy with a tampered public input (rc {rej.returncode}); bundle exported in "
+        f"{report.get('bundle_export_s')} s, {os.path.getsize(bundle_path) / 1e6:.2f} MB")
+
+
+def phase8(torch, card: str, seed: int) -> dict:
+    """``cli.run`` at --synthetic 512 --bls dummy, nothing cut: the inner
+    proof, the outer circuit's build and witness, preprocess, a first prove,
+    export and verify (the public inputs against the host's SSZ roots), then
+    the steady proves, the trace, forged witnesses and the bundle."""
+    import tempfile
+
+    from eth_lc_plonky2_tpu_torch import cli
+    from eth_lc_plonky2_tpu_torch.eth.synthetic import make_synthetic_update_pair
+    from eth_lc_plonky2_tpu_torch.models.lc_circuit import default_threshold
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    syn = make_synthetic_update_pair(FLAGSHIP_COMMITTEE, seed=seed)
+    if syn.threshold != default_threshold(FLAGSHIP_COMMITTEE):
+        fail(f"[8] the synthetic pair's threshold {syn.threshold} is not the default")
+    keep: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle_path = os.path.join(tmp, "lc512_bundle.json")
+        # the main path: the counts are set to 0 just before the CLI's entry
+        # point and read just after it
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = cli.run(syn.witness_kwargs, FLAGSHIP_COMMITTEE, syn.threshold, bls_mode="dummy",
+                         export_bundle_path=bundle_path, out=CliLog("[8]"), keep=keep)
+        torch.cuda.synchronize()
+        launched = dict(kernels.launches)
+        run_s = time.perf_counter() - t0
+        log(f"[8] cli.run --synthetic {FLAGSHIP_COMMITTEE} --bls dummy --seed {seed} in "
+            f"{run_s:.1f} s, launches {launched}: {json.dumps(report)} [{card}]")
+        for name in ("ntt", "poseidon", "field", "gates"):
+            if launched[name] <= 0:
+                fail(f"[8] the main path never launched the {name} kernel")
+        if (report["rows_used"], report["degree_bits"]) != (FLAGSHIP_ROWS_USED, LOG_N):
+            fail(f"[8] the flagship circuit has {report['rows_used']} rows on "
+                 f"2^{report['degree_bits']}, the JAX package's {FLAGSHIP_ROWS_USED} on 2^{LOG_N}")
+        if (report["cur_state"], report["new_state"]) != (syn.cur_state.hex(), syn.new_state.hex()):
+            fail("[8] the public inputs are not the host SSZ contract_state_root of the pair")
+        check_bundle(bundle_path, report)
+    data, witness, pd, vk, proof = (keep[k] for k in ("data", "witness", "pd", "vk", "proof"))
+    log(f"[8] {data.config.num_wires} wires, {len(data.public_input_targets)} public inputs, "
+        f"{len(pd.pre_values)} preprocessed polys, "
+        f"{len(prove.opening_point_specs(data))} opening points, gates {report['gate_counts']}")
+    check_inner_proof(torch, keep["bls_inners"][0], syn.witness_kwargs, card)
+    res = profile_prove(torch, "[8]", pd, witness, proof, card, LC_STEADY_FIELD_LAUNCHES, 3)
+    check_forged_rejected(data, vk, pd, witness, "[8] the flagship")
+    log(f"[8] full512_prove_wall_s {res['prove_ms'] / 1e3:.5f} (median of 3 steady proves) "
+        f"[{card}]")
+    return {"launches": launched, "traced": res["by_name"]}
+
+
+def measure_flagship(torch, card: str, seed: int = 0) -> dict:
+    """The flagship's entry for timing two checkouts in turns
+    (tools/torch_kernel_times.py --flagship): cli.run --synthetic 512 --bls
+    dummy with skip_prove (the inner proof, build and witness), then
+    preprocess, a first prove and three timed proves; their median is
+    full512_prove_wall_s."""
+    import io
+
+    from eth_lc_plonky2_tpu_torch import cli
+    from eth_lc_plonky2_tpu_torch.eth.synthetic import make_synthetic_update_pair
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    syn = make_synthetic_update_pair(FLAGSHIP_COMMITTEE, seed=seed)
+    keep: dict = {}
+    report = cli.run(syn.witness_kwargs, FLAGSHIP_COMMITTEE, syn.threshold, bls_mode="dummy",
+                     skip_prove=True, out=io.StringIO(), keep=keep)
+    t0 = time.perf_counter()
+    pd, _ = prove.preprocess(keep["data"])
+    torch.cuda.synchronize()
+    preprocess_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(4):  # the first makes the per-circuit tables
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prove.prove(pd, keep["witness"])
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    wall = statistics.median(runs[1:])
+    log(f"flagship: full512_prove_wall_s {wall:.5f} (median of {runs[1:]}), first prove "
+        f"{runs[0]:.3f} s, preprocess {preprocess_s:.3f} s, {json.dumps(report)} [{card}]")
+    return {"full512_prove_wall_s": wall, "first_prove_s": runs[0], "preprocess_s": preprocess_s,
+            **{k: report[k] for k in ("bls_inner_prove_s", "build_s", "witness_s", "rows_used")}}
+
+
 # the trace's kernel names that one entry of the kernels line stands for
 TRACED_AS = {"field_open_kernel": ("field_open_kernel", "field_open_sum_kernel"),
              "perm_z_kernel": ("perm_z_kernel", "perm_z_scan_kernel", "perm_z_fixup_kernel")}
@@ -2305,9 +2520,11 @@ def main() -> int:
     timed(5, phase5, torch)
     whole = timed(6, phase6, torch, chk, rng, card, args.seed)
     lc = timed(7, phase7, torch, chk, rng, card, args.seed)
-    # the launches are those of the newest main path, phase 7's first prove (it
-    # runs every kernel source); phases 4 and 6 have held their own above
-    launches = lc["launches"]
+    flagship = timed(8, phase8, torch, card, args.seed)
+    # the launches are those of the newest main path, phase 8's cli.run (the
+    # inner proof, preprocess and the first outer proof: every kernel source);
+    # phases 4, 6 and 7 have held their own above
+    launches = flagship["launches"]
     sha_gate, poseidon_gate = lc["gates"]["sha256"], lc["gates"]["poseidon"]
     # field.cu: the elementwise kernels at their table shape ((8, 2^21) mul),
     # and the fused kernels at the main path's shapes; gates.cu: its three
@@ -2320,13 +2537,13 @@ def main() -> int:
     gate_parts = {"sha_gate_quotient_kernel": sha_gate,
                   "poseidon_gate_quotient_kernel": poseidon_gate,
                   "generic_gate_quotient_kernel": generic_gate}
-    # each kernel's launches are those of phase 7's traced steady prove (the
-    # inverse's are 0 there: it runs in the first prove, for the circuit's
-    # tables); the openings' entry times field_open_kernel with its
+    # each kernel's launches are those of phase 8's traced steady prove of the
+    # flagship (the inverse's are 0 there: it runs in the first prove, for the
+    # circuit's tables); the openings' entry times field_open_kernel with its
     # column-slice sums, the permutation rows' perm_z_kernel with its scan and
     # fix-up
     for name, part in {**field_parts, **gate_parts}.items():
-        part["launches"] = sum(lc["traced"].get(k, {}).get("launches", 0)
+        part["launches"] = sum(flagship["traced"].get(k, {}).get("launches", 0)
                                for k in TRACED_AS.get(name, (name,)))
     kernels_line = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/ntt.cu",
@@ -2355,7 +2572,7 @@ def main() -> int:
          "launches": launches["gates"], "max_abs_err": chk.err["gates"],
          **summed(gate_parts), "library_ms": None, "by_kernel": gate_parts},
     ]}
-    log(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"[9] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

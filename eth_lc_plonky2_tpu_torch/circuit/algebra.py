@@ -6,8 +6,10 @@ two worlds:
   * HostExtAlgebra: scalar GF(p^2) Python-int pairs at the opening point
     zeta (a verifier's constraint check).
 
-Port of ``eth_lc_plonky2_tpu/circuit/algebra.py`` (without the symbolic
-algebra of the proof-bundle exporter, which is not ported).
+A third, ``SymbolicAlgebra``, records a gate's constraints as an expression
+DAG for the proof-bundle exporter (``prover/serialize.py``).
+
+Port of ``eth_lc_plonky2_tpu/circuit/algebra.py``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,78 @@ class HostExtAlgebra:
     def mul_small(self, c: int, x):
         """c * x for a small non-negative int constant c < 2^16."""
         return ((c * x[0]) % P, (c * x[1]) % P)
+
+
+class SymbolicAlgebra:
+    """Records a gate's constraint polynomials as an expression DAG.
+
+    Used by the proof-format exporter (prover/serialize.py
+    export_proof_bundle): gate semantics ship WITH the proof bundle as
+    data, so the standalone second-implementation verifier
+    (tools/verify_standalone.py) interprets them instead of importing
+    this package.  Node kinds:
+
+      ["const", c]          field constant
+      ["wire", col, off]    wire opening at row offset `off`
+      ["ccol", i]           constant-column opening i
+      ["add"|"sub"|"mul", a, b]   refs to earlier node ids
+
+    Nodes are deduplicated; ids are topologically ordered by
+    construction.
+    """
+
+    def __init__(self):
+        self.nodes: list = []
+        self._cache: dict = {}
+
+    def _node(self, key):
+        idx = self._cache.get(key)
+        if idx is None:
+            idx = len(self.nodes)
+            self.nodes.append(list(key))
+            self._cache[key] = idx
+        return idx
+
+    def wire(self, col: int, offset: int = 0):
+        return self._node(("wire", int(col), int(offset)))
+
+    def const_col(self, i: int):
+        return self._node(("ccol", int(i)))
+
+    def constant(self, c: int):
+        return self._node(("const", int(c) % P))
+
+    def add(self, x, y):
+        return self._node(("add", x, y))
+
+    def sub(self, x, y):
+        return self._node(("sub", x, y))
+
+    def mul(self, x, y):
+        return self._node(("mul", x, y))
+
+    def zero(self):
+        return self.constant(0)
+
+    def one(self):
+        return self.constant(1)
+
+    def add_many(self, xs):
+        acc = self.zero()
+        for x in xs:
+            acc = self.add(acc, x)
+        return acc
+
+    def mul_small(self, c: int, x):
+        return self.mul(self.constant(c), x)
+
+
+def gate_expression(gate) -> dict:
+    """Serialize one gate's constraints as an expression DAG."""
+    A = SymbolicAlgebra()
+    outputs = gate.eval(A, lambda col, offset=0: A.wire(col, offset), A.const_col)
+    assert len(outputs) == gate.num_constraints
+    return {"name": gate.name, "nodes": A.nodes, "outputs": list(outputs)}
 
 
 class DeviceBaseAlgebra:

@@ -7,8 +7,8 @@ through ``np.asarray``.
   ndarray becomes an int64 field tensor, and back;
 * a JAX ``MerkleTree`` / ``CommitmentBatch`` becomes the port's, on the
   CPU (the card has no JAX; ``.to("cuda")`` moves a tensor there);
-* a JAX ``CircuitData``, witness or ``Proof`` becomes the port's, and a
-  proof of the port one that the JAX package's verifier reads.
+* a JAX ``CircuitData``, witness, ``Proof`` or ``VerifierKey`` becomes the
+  port's, and a proof of the port one that the JAX package's verifier reads.
 """
 
 from __future__ import annotations
@@ -16,13 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .circuit.builder import CircuitData, Target
+from .circuit.builder import CircuitData, Target, Witness
 from .circuit.gates import gate_from_spec
 from .ops import goldilocks as gl
 from .prover.config import CircuitConfig, FriConfig
 from .prover.fri import FriProof, FriQueryProof
 from .prover.merkle import MerkleTree
-from .prover.prove import CommitmentBatch, OpeningSet, Proof
+from .prover.prove import CommitmentBatch, OpeningSet, Proof, VerifierKey
 
 
 def field_to_torch(f) -> torch.Tensor:
@@ -111,6 +111,15 @@ class MatrixWitness:
         return int(self.matrix[t[1], t[0]])
 
 
+def witness_from_jax(witness, data: CircuitData) -> Witness:
+    """A JAX-package ``Witness`` -> the port's ``Witness`` of ``data`` (the
+    port's copy of the same circuit): its slot values and known flags."""
+    w = Witness(data)
+    w.values[:] = np.asarray(witness.values, dtype=np.uint64)
+    w.known[:] = np.asarray(witness.known, dtype=bool)
+    return w
+
+
 def witness_matrix(witness) -> MatrixWitness:
     """A generated witness of either package -> one the port's ``prove`` takes."""
     return MatrixWitness(np.asarray(witness.full_matrix(), dtype=np.uint64))
@@ -138,6 +147,11 @@ def _copy_proof(proof) -> Proof:
 def proof_from_jax(proof) -> Proof:
     """A JAX-package ``Proof`` -> the port's (numpy arrays and ints only)."""
     return _copy_proof(proof)
+
+
+def verifier_key_from_jax(vk) -> VerifierKey:
+    """A JAX-package ``VerifierKey`` -> the port's."""
+    return VerifierKey(pre_cap=np.array(vk.pre_cap, dtype=np.uint64))
 
 
 def proof_to_jax(proof: Proof) -> Proof:

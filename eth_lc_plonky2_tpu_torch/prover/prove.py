@@ -169,13 +169,19 @@ def preprocess(data: CircuitData, device="cuda") -> tuple[ProverData, VerifierKe
         data.sigma.astype(np.uint64),
     ])
     batch = commit_values(pre, data.config.rate_bits, data.config.cap_height, device=device)
-    pd = ProverData(data=data, pre_values=pre, pre_batch=batch)
+    return prover_data(data, pre, batch), VerifierKey(pre_cap=batch.cap)
+
+
+def prover_data(data: CircuitData, pre_values: np.ndarray, batch: CommitmentBatch) -> ProverData:
+    """The ``ProverData`` of a committed preprocess, with the permutation's
+    tables on the batch's device (``preprocess`` and the circuit cache)."""
+    pd = ProverData(data=data, pre_values=pre_values, pre_batch=batch)
     nr = data.config.num_routed_wires
     dev = pd.device
     pd.dev["sigma"] = gl.from_u64(data.sigma[:nr], dev)
     pd.dev["omega_pows"] = nttm._powers_on(gl.primitive_root_of_unity(data.log_n), data.n, str(dev))
     pd.dev["k_shifts"] = gl.from_u64(data.k_shifts[:nr], dev)
-    return pd, VerifierKey(pre_cap=batch.cap)
+    return pd
 
 
 # ---------------------------------------------------------------------------

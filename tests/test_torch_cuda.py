@@ -351,3 +351,67 @@ def test_field_inv_kernel_runs_match_plain(dev, n):
     assert kernels.launches["field"] == before + 1
     assert torch.equal(inv, gl.inv_plain(x))
     assert torch.equal(gl.mul(inv, x), (x != 0).to(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# The light-client circuit and the CLI on the card
+# ---------------------------------------------------------------------------
+
+
+def _dummy_inner(size: int):
+    from eth_lc_plonky2_tpu_torch.eth.synthetic import make_synthetic_update_pair
+    from eth_lc_plonky2_tpu_torch.models import bls
+    from eth_lc_plonky2_tpu_torch.prover.config import FriConfig
+
+    kw = make_synthetic_update_pair(size, seed=7).witness_kwargs
+    data = bls.build_dummy_bls_circuit(size, fri=FriConfig(proof_of_work_bits=4,
+                                                           num_query_rounds=4))
+    args = [kw[k] for k in ("signing_root", "signature", "sync_committee_pubkeys",
+                            "sync_committee_bits")]
+    return data, args
+
+
+def test_dummy_inner_proof_on_the_card_equals_the_cpus(dev):
+    """The dummy BLS circuit (142 wires, 2^6 rows at committee 4) proved on
+    the kernels and on the plain versions on the CPU: the same bytes."""
+    from eth_lc_plonky2_tpu_torch.models import bls
+    from eth_lc_plonky2_tpu_torch.prover import serialize
+    from eth_lc_plonky2_tpu_torch.prover.verify import verify
+
+    data, args = _dummy_inner(4)
+    before = dict(kernels.launches)
+    proof, vk = bls.prove_dummy_bls(data, *args)
+    assert all(kernels.launches[k] > before[k] for k in ("ntt", "poseidon", "field", "gates"))
+    cpu_proof, cpu_vk = bls.prove_dummy_bls(data, *args, device="cpu")
+    assert np.array_equal(vk.pre_cap, cpu_vk.pre_cap)
+    assert serialize.proof_to_dict(proof, True) == serialize.proof_to_dict(cpu_proof, True)
+    verify(data, vk, proof)
+
+
+def test_cli_run_proves_and_verifies_on_the_card(dev, tmp_path):
+    """cli.run at --synthetic 4 --bls dummy with a reduced FRI, on the card by
+    default: proved, exported, verified by the port and by
+    tools/verify_standalone.py, the public inputs the host SSZ roots."""
+    import io
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from eth_lc_plonky2_tpu_torch import cli
+    from eth_lc_plonky2_tpu_torch.eth.synthetic import make_synthetic_update_pair
+
+    syn = make_synthetic_update_pair(4, seed=3)
+    path = str(tmp_path / "bundle.json")
+    keep = {}
+    report = cli.run(syn.witness_kwargs, 4, syn.threshold, pow_bits=4, query_rounds=4,
+                     bls_mode="dummy", export_bundle_path=path, out=io.StringIO(), keep=keep)
+    assert keep["pd"].device.type == "cuda"
+    assert (report["rows_used"], report["degree_bits"]) == (9341, 14)
+    assert (report["cur_state"], report["new_state"]) == (syn.cur_state.hex(), syn.new_state.hex())
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tool = os.path.join(repo, "tools", "verify_standalone.py")
+    res = subprocess.run([sys.executable, tool, path], capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    with open(path) as f:
+        assert json.load(f)["circuit"]["log_n"] == 14

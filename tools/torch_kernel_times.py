@@ -14,6 +14,13 @@ at (184, 2^21) against the generic loop; then ``measure_perm_polys``: the
 permutation rows of both challenges at (80, 2^18) through
 ``prove.compute_permutation_polys``); a turn prints its log lines and then
 one JSON line of the numbers.
+
+    python3 tools/torch_kernel_times.py --parent DIR --flagship
+
+adds the flagship's entry (``measure_flagship``: ``cli.run --synthetic 512
+--bls dummy`` with ``skip_prove``, then preprocess and timed proves, whose
+median is ``full512_prove_wall_s``) to each turn of a checkout that has
+``eth_lc_plonky2_tpu_torch/cli.py``; about two minutes a turn.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def turn(tag: str, root: str) -> None:
+def turn(tag: str, root: str, flagship: bool) -> None:
     sys.path.insert(0, root)  # the package under test; chip_smoke.py is always this checkout's
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -47,23 +54,27 @@ def turn(tag: str, root: str) -> None:
     res = smoke.measure(torch, chk, rng, card, smoke.flagship_inputs(rng))
     res["gates"] = smoke.measure_gate_kernels(torch, chk, rng, card)
     res["perm_polys"] = smoke.measure_perm_polys(torch, rng, card)
+    if flagship and importlib.util.find_spec("eth_lc_plonky2_tpu_torch.cli") is not None:
+        res["flagship"] = smoke.measure_flagship(torch, card)
     print(json.dumps({"tag": tag, "build_s": build["seconds"], **res}), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="the second checkout")
+    ap.add_argument("--flagship", action="store_true",
+                    help="also time the flagship through cli.run (where the checkout has it)")
     ap.add_argument("--turn", nargs=2, metavar=("TAG", "ROOT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn:
-        turn(*args.turn)
+        turn(*args.turn, args.flagship)
         return 0
     if not args.parent:
         ap.error("--parent is required")
     parent = os.path.abspath(args.parent)
     for tag, root in (("parent", parent), ("change", HERE), ("change", HERE), ("parent", parent)):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", tag, root],
-                             cwd=root, timeout=1500)
+        cmd = [sys.executable, os.path.abspath(__file__), "--turn", tag, root]
+        res = subprocess.run(cmd + ["--flagship"] * args.flagship, cwd=root, timeout=1500)
         if res.returncode != 0:
             return res.returncode
     return 0
