@@ -40,7 +40,7 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      basesum2, const and noop, public inputs, and copy constraints on 79 of
      the 80 routed columns.  The tables and a satisfying witness are written
      directly with numpy from --seed.  preprocess, a first prove (launch counts
-     and peak memory), a warm-up, three timed proves, the phases' times, a
+     and peak memory), a warm-up, one timed prove, the phases' times, a
      torch.profiler split by kernel name with the idle share, and the port's
      verifier on the proof (every challenge re-derived, the constraint identity
      at zeta, all Merkle paths, FRI's folds, the final polynomial, the PoW).
@@ -94,16 +94,37 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      lc512_bls_bundle.json's (its vk is compared and the outcome logged),
      tools/verify_standalone.py must accept it and reject a tampered copy;
      then a warm-up, three timed proves whose median is full512_prove_wall_s,
-     a traced prove as in phase 6, and two forged witnesses rejected.
+     a traced prove as in phase 6, and two forged witnesses rejected; last,
+     prove_stream over three more synthetic pairs (seeds 1 to 3, their inner
+     dummy proofs made on the card first; the worker thread makes the outer
+     witnesses only): each streamed proof must equal a sequential prove of its
+     witness byte for byte and pass verify, and the stream's wall is logged
+     beside the sequential sum of witness and prove;
+  9. the in-circuit BLS12-381 aggregate through the CLI's entry point: cli.run
+     at --synthetic 512 --bls aggregate:slices=8 --seed N with keys on the
+     curve, nothing cut (inner: 184 wires, 8 PoW bits, 12 queries, 64 members
+     a slice; outer: 184 wires, 16 PoW bits, 28 queries).  The aggregate inner
+     circuit is built once (221,832 of 2^18 rows, the JAX package's rows and
+     gate counts, or it fails), preprocessed once and proved for each of the 8
+     slices on the card; the outer circuit verifies all 8 in-circuit; witness,
+     preprocess, prove, export, verify, the public inputs against the host SSZ
+     roots, tools/verify_standalone.py on the bundle and a tampered copy.  Then
+     one slice again: its constrained aggregate must be host_aggregate of its
+     64 keys and bits, its proof the CLI's byte for byte and accepted by
+     verify, and a steady inner prove launches its own plan (no SHA-256 gate:
+     two gate kernels); slices 0 and 1 swapped in the outer witness must be
+     refused; one timed and traced steady outer prove held to the plan; the
+     2-member aggregate circuit (8,946 of 2^14 rows) on the kernels against
+     the plain versions on the card.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on the main path, its error against the plain
 version, and its time beside the plain version's and beside the least time
 the card could take (bound_ms: the larger of bytes over 3.35 TB/s and 32-bit
 integer multiply-adds, counted in the cheapest form known, over 16.75 T/s).
-The launches are phase 8's cli.run (the inner proof, preprocess and the
-first flagship proof), by_kernel's phase 8's traced steady prove; the gates
-entry adds up its three kernels (one launch each a proof) and the field
-entry its elementwise
+The launches are phase 9's cli.run (the eight inner proofs, both
+preprocesses and the first outer proof), by_kernel's phase 9's traced steady
+outer prove; the gates entry adds up its three kernels (one launch each a
+proof) and the field entry its elementwise
 product, its batched inverse and its five fused passes, and each lists them
 under by_kernel.  No
 PyTorch call computes any of these functions, so library_ms is null.
@@ -1006,8 +1027,8 @@ def launch_plan(data, pow_witness: int, field: int, gates: int) -> dict:
 
 
 def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_plan: int,
-                  gates_plan: int) -> dict:
-    """A warm-up, three timed proves with the phase marks, a steady prove whose
+                  gates_plan: int, timed: int = 3) -> dict:
+    """A warm-up, ``timed`` proves with the phase marks, a steady prove whose
     launches must be the plan's, and a scheduled trace split by kernel name
     whose launches must be the wrappers' counts."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1018,7 +1039,7 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
 
     prove.prove(pd, witness)  # warm-up: every table is cached now
     runs, phases, proofs = [], [], []
-    for _ in range(3):
+    for _ in range(timed):
         prof = Profiler(enabled=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1196,7 +1217,7 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     if launched["gates"] != 1:
         fail(f"[6] a circuit of generic gates launched {launched['gates']} gate kernels, not 1")
     check_proof(data, vk, proof, witness, "[6] 2^18 rows")
-    res = profile_prove(torch, "[6]", pd, witness, proof, card, STEADY_FIELD_LAUNCHES, 1)
+    res = profile_prove(torch, "[6]", pd, witness, proof, card, STEADY_FIELD_LAUNCHES, 1, timed=1)
     n_lde = data.n << cfg.rate_bits
 
     # the field kernel beside its plain version at a main-path shape: one
@@ -2276,7 +2297,7 @@ def phase7(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     proof, launched = first_prove(torch, "[7]", pd, witness, card, sources)
     check_proof(data, vk, proof, witness, "[7] 2^18 rows")
     check_light_client_outputs(proof, leaves, first_state, POSEIDON_CHAIN_ROWS, "[7] 2^18 rows")
-    res = profile_prove(torch, "[7]", pd, witness, proof, card, LC_STEADY_FIELD_LAUNCHES, 3)
+    res = profile_prove(torch, "[7]", pd, witness, proof, card, LC_STEADY_FIELD_LAUNCHES, 3, timed=1)
     check_forged_rejected(data, vk, pd, witness, "[7] 2^18 rows")
     fused_against_eager_chains(torch, pd, witness, proof, card)
     del pd
@@ -2355,11 +2376,9 @@ def check_inner_proof(torch, cli_inner, kw: dict, card: str) -> None:
 
 
 def check_bundle(bundle_path: str, report: dict) -> None:
-    """tools/verify_standalone.py (standard library only) accepts the bundle
-    and rejects a tampered copy; its config and circuit sections must equal
-    the committed flagship bundle's; the vk comparison is logged."""
-    import tempfile
-
+    """The bundle's config and circuit sections must equal the committed
+    flagship bundle's (the vk comparison is logged), and the standalone
+    verifier must accept it and reject a tampered copy."""
     with open(bundle_path) as f:
         bundle = json.load(f)
     with open(FLAGSHIP_BUNDLE) as f:
@@ -2371,13 +2390,23 @@ def check_bundle(bundle_path: str, report: dict) -> None:
     vk_equal = bundle["vk"] == committed["vk"]
     log(f"[8] the bundle's config and circuit sections == lc512_bls_bundle.json's; vk.pre_cap "
         f"{'==' if vk_equal else '!='} the committed bundle's vk")
+    check_standalone(bundle_path, report, "[8]")
+
+
+def check_standalone(bundle_path: str, report: dict, tag: str) -> None:
+    """tools/verify_standalone.py (standard library only) accepts the bundle
+    and rejects a copy with a tampered public input."""
+    import tempfile
+
+    with open(bundle_path) as f:
+        bundle = json.load(f)
     tool = os.path.join(REPO, "tools", "verify_standalone.py")
     t0 = time.perf_counter()
     ok = subprocess.run([sys.executable, tool, bundle_path], capture_output=True, text=True,
                         timeout=600)
     standalone_s = time.perf_counter() - t0
     if ok.returncode != 0:
-        fail(f"[8] tools/verify_standalone.py rejects the port's bundle: {ok.stdout}{ok.stderr}")
+        fail(f"{tag} tools/verify_standalone.py rejects the port's bundle: {ok.stdout}{ok.stderr}")
     bad = json.loads(json.dumps(bundle))
     pi0 = int(bad["proof"]["public_inputs"][0], 16)
     bad["proof"]["public_inputs"][0] = hex(pi0 + 1 if pi0 < 0xFFFF_FFFF else pi0 - 1)
@@ -2389,8 +2418,8 @@ def check_bundle(bundle_path: str, report: dict) -> None:
     finally:
         os.unlink(f.name)
     if rej.returncode == 0:
-        fail("[8] tools/verify_standalone.py accepts a bundle with a tampered public input")
-    log(f"[8] tools/verify_standalone.py accepts the bundle in {standalone_s:.1f} s "
+        fail(f"{tag} tools/verify_standalone.py accepts a bundle with a tampered public input")
+    log(f"{tag} tools/verify_standalone.py accepts the bundle in {standalone_s:.1f} s "
         f"({ok.stdout.strip().splitlines()[-1] if ok.stdout.strip() else 'rc 0'}) and rejects "
         f"the copy with a tampered public input (rc {rej.returncode}); bundle exported in "
         f"{report.get('bundle_export_s')} s, {os.path.getsize(bundle_path) / 1e6:.2f} MB")
@@ -2444,6 +2473,239 @@ def phase8(torch, card: str, seed: int) -> dict:
     check_forged_rejected(data, vk, pd, witness, "[8] the flagship")
     log(f"[8] full512_prove_wall_s {res['prove_ms'] / 1e3:.5f} (median of 3 steady proves) "
         f"[{card}]")
+    check_stream(torch, keep, card)
+    return {"launches": launched, "traced": res["by_name"]}
+
+
+STREAM_SEEDS = (1, 2, 3)
+
+
+def check_stream(torch, keep: dict, card: str) -> None:
+    """prove_stream over three more synthetic pairs (seeds 1 to 3, prefetch 1)
+    with the flagship's prover data.  Each pair's inner dummy BLS proof is made
+    on the card first, on this thread: the stream's worker makes the outer
+    witnesses only, host work.  Each streamed proof must equal a sequential
+    prove of the same witness byte for byte, pass verify and carry its pair's
+    contract-state roots; the stream's wall is logged beside the sequential
+    sum of witness and prove."""
+    import threading
+
+    from eth_lc_plonky2_tpu_torch import cli
+    from eth_lc_plonky2_tpu_torch.eth.synthetic import make_synthetic_update_pair
+    from eth_lc_plonky2_tpu_torch.models import bls
+    from eth_lc_plonky2_tpu_torch.prover import prove
+    from eth_lc_plonky2_tpu_torch.prover.pipeline import prove_stream
+    from eth_lc_plonky2_tpu_torch.prover.verify import verify
+
+    data, pd, vk, target, bls_targets = (keep[k] for k in ("data", "pd", "vk", "target",
+                                                           "bls_targets"))
+    inner_data, _, inner_vk = keep["bls_inners"][0]
+    inner_pd, _ = prove.preprocess(inner_data)
+    items = []
+    for seed in STREAM_SEEDS:
+        syn = make_synthetic_update_pair(FLAGSHIP_COMMITTEE, seed=seed)
+        kw = syn.witness_kwargs
+        inner_w = bls.dummy_bls_witness(inner_data, kw["signing_root"], kw["signature"],
+                                        kw["sync_committee_pubkeys"], kw["sync_committee_bits"])
+        items.append((syn, [(inner_data, prove.prove(inner_pd, inner_w), inner_vk)]))
+    made = []  # (witness, seconds, thread) in the order the worker made them
+
+    def make_witness(d, item):
+        t0 = time.perf_counter()
+        w = cli.light_client_witness(d, target, item[0].witness_kwargs, bls_targets, item[1])
+        made.append((w, time.perf_counter() - t0, threading.get_ident()))
+        return w
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = list(prove_stream(pd, items, make_witness, prefetch=1))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    if len(streamed) != len(items) or threading.get_ident() in {m[2] for m in made}:
+        fail(f"[8] the stream gave {len(streamed)} proofs of {len(items)}, or its witnesses were "
+             "made on the proving thread")
+    prove_s = []
+    for (w, _, _), proof, (syn, _) in zip(made, streamed, items):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = prove.prove(pd, w)
+        torch.cuda.synchronize()
+        prove_s.append(time.perf_counter() - t0)
+        if (where := first_difference(proof_dict(proof), proof_dict(again))):
+            fail(f"[8] a streamed proof differs from the sequential prove of its witness at {where}")
+        verify(data, vk, proof)
+        if cli._public_inputs_hex(proof.public_inputs) != (syn.cur_state.hex(), syn.new_state.hex()):
+            fail("[8] a streamed proof's public inputs are not its pair's contract-state roots")
+    witness_s = [m[1] for m in made]
+    log(f"[8] prove_stream of {len(items)} pairs (seeds {STREAM_SEEDS}, prefetch 1): "
+        f"{stream_s:.3f} s, against the sequential sum {sum(witness_s) + sum(prove_s):.3f} s "
+        f"(witnesses {', '.join(f'{x:.3f}' for x in witness_s)} s in the worker; proves "
+        f"{', '.join(f'{x:.3f}' for x in prove_s)} s); each streamed proof == the sequential "
+        f"prove of its witness, verify() accepts it, its public inputs are its pair's [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the in-circuit BLS12-381 aggregate, through the CLI's entry point
+# ---------------------------------------------------------------------------
+
+AGG_SLICES = 8
+AGG_MODE = f"aggregate:slices={AGG_SLICES}"
+# the JAX package's inner circuit at committee 512 in 8 slices with 184 wires
+AGG_INNER_ROWS = 221_832
+AGG_INNER_GATES = {"arith": 36_551, "basesum2": 179_864, "const": 9, "noop": 4_999,
+                   "poseidon": 409}
+AGG_SMALL_ROWS = 8_946  # the 2-member aggregate circuit, on 2^14
+AGG_CHECKED_SLICE = 3
+
+
+def check_small_aggregate(torch) -> None:
+    """The 2-member aggregate circuit at the inner's widths (184 wires, 8 PoW
+    bits, 12 queries): its proof on the kernels equals the one on the plain
+    versions on the card, and verify accepts it."""
+    from eth_lc_plonky2_tpu_torch.eth.synthetic import make_valid_pubkey
+    from eth_lc_plonky2_tpu_torch.models import bls_aggregate as agg
+    from eth_lc_plonky2_tpu_torch.prover import prove, serialize
+    from eth_lc_plonky2_tpu_torch.prover.config import FriConfig
+
+    rng = np.random.default_rng(2)
+    keys = [make_valid_pubkey(rng) for _ in range(2)]
+    data = agg.build_aggregate_bls_circuit(
+        2, fri=FriConfig(proof_of_work_bits=8, num_query_rounds=12), num_wires=NUM_WIRES)
+    if (data.num_rows_used, data.log_n) != (AGG_SMALL_ROWS, 14):
+        fail(f"[9] the 2-member aggregate circuit has {data.num_rows_used} rows on 2^{data.log_n}")
+    w = agg.aggregate_witness(data, bytes(range(32)), bytes(range(96)), keys, [1, 1])
+    pd, vk = prove.preprocess(data)
+    got = prove_kernels_and_plain(torch, pd, w, f"[9] the 2-member aggregate circuit "
+                                  f"({AGG_SMALL_ROWS} of 2^14 rows)",
+                                  ("ntt", "poseidon", "field", "gates"))
+    check_proof(data, vk, serialize.proof_from_dict(got), w, "[9] the 2-member aggregate")
+
+
+def check_aggregate_slice(torch, keep: dict, kw: dict, card: str) -> None:
+    """One slice again: its witness holds host_aggregate of its 64 keys and bits
+    as the constrained aggregate, its proof equals the CLI's byte for byte and
+    passes verify, and a steady prove of the inner circuit launches its
+    computed plan (no SHA-256 gate: two gate kernels)."""
+    from eth_lc_plonky2_tpu_torch.circuit import gadgets_bls12_381 as g1
+    from eth_lc_plonky2_tpu_torch.models import bls_aggregate as agg
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    data, cli_proof, vk = keep["bls_inners"][AGG_CHECKED_SLICE]
+    num_slices, size = data._agg_slice
+    t0 = time.perf_counter()
+    w = agg.aggregate_witness(data, kw["signing_root"], kw["signature"],
+                              kw["sync_committee_pubkeys"], kw["sync_committee_bits"],
+                              slice_index=AGG_CHECKED_SLICE)
+    witness_s = time.perf_counter() - t0
+    lo = AGG_CHECKED_SLICE * size
+    agg_t = data._agg_inputs[4]
+    want = agg.host_aggregate(kw["sync_committee_pubkeys"][lo:lo + size],
+                              kw["sync_committee_bits"][lo:lo + size])
+    if (g1.fq_value(w, agg_t.x), g1.fq_value(w, agg_t.y)) != want:
+        fail(f"[9] slice {AGG_CHECKED_SLICE}'s constrained aggregate is not host_aggregate of its "
+             "keys and bits")
+    pd, vk2 = prove.preprocess(data)
+    if not np.array_equal(vk2.pre_cap, vk.pre_cap):
+        fail("[9] the inner circuit's preprocessed cap differs from the CLI's")
+    proof, _ = first_prove(torch, "[9] inner", pd, w, card, ("ntt", "poseidon", "field", "gates"))
+    if (where := first_difference(proof_dict(proof), proof_dict(cli_proof))):
+        fail(f"[9] slice {AGG_CHECKED_SLICE}'s proof differs from the CLI's at {where}")
+    check_proof(data, vk, proof, w, f"[9] slice {AGG_CHECKED_SLICE} of {num_slices}")
+    log(f"[9] slice {AGG_CHECKED_SLICE}: witness in {witness_s:.1f} s, its constrained aggregate "
+        f"== host_aggregate of its {size} keys ({sum(map(int, kw['sync_committee_bits'][lo:lo + size]))}"
+        f" bits set), its proof == the CLI's [{card}]")
+    # the inner's own plan: of csrc/field.cu the fused kernels at its opening
+    # points; of csrc/gates.cu the generic gates' and the Poseidon gate's
+    field_plan = sum(n for name, n in fused_launch_plan(pd).items() if BY_SOURCE[name] == "field")
+    profile_prove(torch, "[9] inner", pd, w, proof, card, field_plan, 2, timed=1)
+
+
+def check_swapped_slices(keep: dict, kw: dict) -> None:
+    """Slices 0 and 1's proofs swapped in the outer witness: each digest hashes
+    its own [slice_index, num_slices], so witness generation must conflict or
+    the proof fail verify (the Poseidon gate's batch generator writes its rows
+    without a conflict check, so the digest's mismatch shows at verify's
+    constraint identity)."""
+    from eth_lc_plonky2_tpu_torch import cli
+    from eth_lc_plonky2_tpu_torch.prover import prove
+    from eth_lc_plonky2_tpu_torch.prover.verify import VerificationError, verify
+
+    inners = list(keep["bls_inners"])
+    inners[0], inners[1] = inners[1], inners[0]
+    t0 = time.perf_counter()
+    try:
+        w = cli.light_client_witness(keep["data"], keep["target"], kw, keep["bls_targets"], inners)
+    except ValueError as e:
+        log(f"[9] slices 0 and 1 swapped in the outer witness: generation refuses it in "
+            f"{time.perf_counter() - t0:.1f} s ({e})")
+        return
+    try:
+        verify(keep["data"], keep["vk"], prove.prove(keep["pd"], w))
+    except VerificationError as e:
+        log(f"[9] slices 0 and 1 swapped: verify() rejects the proof ({e})")
+        return
+    fail("[9] the outer circuit accepts slices 0 and 1's proofs swapped")
+
+
+def phase9(torch, card: str, seed: int) -> dict:
+    """``cli.run`` at --synthetic 512 --bls aggregate:slices=8, nothing cut: the
+    aggregate inner circuit built once and proved for each of the 8 slices with
+    one preprocess, the outer circuit absorbing all 8, its witness, preprocess,
+    a first prove, export and verify; then the bundle, one slice again, the
+    swapped slices, a steady outer prove traced, and the 2-member aggregate on
+    the kernels against the plain versions."""
+    import tempfile
+
+    from eth_lc_plonky2_tpu_torch import cli
+    from eth_lc_plonky2_tpu_torch.eth.synthetic import make_synthetic_update_pair
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    syn = make_synthetic_update_pair(FLAGSHIP_COMMITTEE, seed=seed, valid_pubkeys=True)
+    kw = syn.witness_kwargs
+    keep: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle_path = os.path.join(tmp, "lc512_aggregate_bundle.json")
+        # the main path: the counts are set to 0 just before the CLI's entry
+        # point and read just after it
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = cli.run(kw, FLAGSHIP_COMMITTEE, syn.threshold, bls_mode=AGG_MODE,
+                         export_bundle_path=bundle_path, out=CliLog("[9]"), keep=keep)
+        torch.cuda.synchronize()
+        launched = dict(kernels.launches)
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[9] cli.run --synthetic {FLAGSHIP_COMMITTEE} --bls {AGG_MODE} --seed {seed} in "
+            f"{run_s:.1f} s, launches {launched}, peak memory {peak_gb:.2f} GB: "
+            f"{json.dumps(report)} [{card}]")
+        for name in ("ntt", "poseidon", "field", "gates"):
+            if launched[name] <= 0:
+                fail(f"[9] the main path never launched the {name} kernel")
+        inner = keep["bls_inners"][0][0]
+        inner_gates = {name: int(c) for name, c in zip(inner.gate_names, inner.selectors.sum(axis=1))}
+        if len(keep["bls_inners"]) != AGG_SLICES or (inner.num_rows_used, inner.log_n) != (
+                AGG_INNER_ROWS, LOG_N) or inner_gates != AGG_INNER_GATES:
+            fail(f"[9] {len(keep['bls_inners'])} inner proofs of {inner.num_rows_used} rows on "
+                 f"2^{inner.log_n}, gates {inner_gates}: not the JAX package's {AGG_SLICES} of "
+                 f"{AGG_INNER_ROWS} on 2^{LOG_N}, {AGG_INNER_GATES}")
+        if (report["cur_state"], report["new_state"]) != (syn.cur_state.hex(), syn.new_state.hex()):
+            fail("[9] the public inputs are not the host SSZ contract_state_root of the pair")
+        check_standalone(bundle_path, report, "[9]")
+    data, witness, pd, vk, proof = (keep[k] for k in ("data", "witness", "pd", "vk", "proof"))
+    log(f"[9] the inner circuit: {inner.config.num_wires} wires, {inner.num_rows_used} of "
+        f"2^{inner.log_n} rows, gates {inner_gates} (the JAX package's), "
+        f"{len(prove.opening_point_specs(inner))} opening points; the outer: "
+        f"{data.config.num_wires} wires, {data.num_rows_used} of 2^{data.log_n} rows, gates "
+        f"{report['gate_counts']}, {len(data.public_input_targets)} public inputs, "
+        f"{len(prove.opening_point_specs(data))} opening points [{card}]")
+    check_aggregate_slice(torch, keep, kw, card)
+    check_swapped_slices(keep, kw)
+    res = profile_prove(torch, "[9]", pd, witness, proof, card, LC_STEADY_FIELD_LAUNCHES, 3,
+                        timed=1)
+    log(f"[9] the outer prove {res['prove_ms']:.2f} ms (one timed steady prove) [{card}]")
+    check_small_aggregate(torch)
     return {"launches": launched, "traced": res["by_name"]}
 
 
@@ -2520,11 +2782,12 @@ def main() -> int:
     timed(5, phase5, torch)
     whole = timed(6, phase6, torch, chk, rng, card, args.seed)
     lc = timed(7, phase7, torch, chk, rng, card, args.seed)
-    flagship = timed(8, phase8, torch, card, args.seed)
-    # the launches are those of the newest main path, phase 8's cli.run (the
-    # inner proof, preprocess and the first outer proof: every kernel source);
-    # phases 4, 6 and 7 have held their own above
-    launches = flagship["launches"]
+    timed(8, phase8, torch, card, args.seed)
+    aggregate = timed(9, phase9, torch, card, args.seed)
+    # the launches are those of the newest main path, phase 9's cli.run (the
+    # eight inner proofs, preprocess and the first outer proof: every kernel
+    # source); phases 4, 6, 7 and 8 have held their own above
+    launches = aggregate["launches"]
     sha_gate, poseidon_gate = lc["gates"]["sha256"], lc["gates"]["poseidon"]
     # field.cu: the elementwise kernels at their table shape ((8, 2^21) mul),
     # and the fused kernels at the main path's shapes; gates.cu: its three
@@ -2537,13 +2800,13 @@ def main() -> int:
     gate_parts = {"sha_gate_quotient_kernel": sha_gate,
                   "poseidon_gate_quotient_kernel": poseidon_gate,
                   "generic_gate_quotient_kernel": generic_gate}
-    # each kernel's launches are those of phase 8's traced steady prove of the
-    # flagship (the inverse's are 0 there: it runs in the first prove, for the
-    # circuit's tables); the openings' entry times field_open_kernel with its
-    # column-slice sums, the permutation rows' perm_z_kernel with its scan and
-    # fix-up
+    # each kernel's launches are those of phase 9's traced steady prove of the
+    # outer circuit (the inverse's are 0 there: it runs in the first prove, for
+    # the circuit's tables); the openings' entry times field_open_kernel with
+    # its column-slice sums, the permutation rows' perm_z_kernel with its scan
+    # and fix-up
     for name, part in {**field_parts, **gate_parts}.items():
-        part["launches"] = sum(flagship["traced"].get(k, {}).get("launches", 0)
+        part["launches"] = sum(aggregate["traced"].get(k, {}).get("launches", 0)
                                for k in TRACED_AS.get(name, (name,)))
     kernels_line = {"kernels": [
         {"name": "ntt", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/ntt.cu",
@@ -2572,7 +2835,7 @@ def main() -> int:
          "launches": launches["gates"], "max_abs_err": chk.err["gates"],
          **summed(gate_parts), "library_ms": None, "by_kernel": gate_parts},
     ]}
-    log(f"[9] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

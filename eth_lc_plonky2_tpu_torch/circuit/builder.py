@@ -69,6 +69,24 @@ class Generator:
             w.set(t, int(v) % P)
 
 
+_BIT_SHIFTS = np.arange(32, dtype=np.uint64)
+
+
+@dataclasses.dataclass
+class BitsGenerator:
+    """The 32 little-endian bits of ``inputs[0]`` into the 32 consecutive
+    wires of one row from column ``col``: ``split_le``'s generator, in one
+    numpy pass."""
+
+    inputs: list[Target]
+    row: int
+    col: int
+
+    def run(self, w: "Witness"):
+        bits = (np.uint64(w.get(self.inputs[0])) >> _BIT_SHIFTS) & np.uint64(1)
+        w.set_row_run(self.row, self.col, bits)
+
+
 @dataclasses.dataclass
 class BatchGenerator:
     """Custom vectorized generator (e.g. the SHA-256 trace kernel)."""
@@ -309,13 +327,7 @@ class CircuitBuilder:
         value_wire = Target(row, base)
         self.connect(t, value_wire)
         bits = [Target(row, base + 1 + i) for i in range(32)]
-        self.generators.append(
-            Generator(
-                lambda v: tuple((v >> i) & 1 for i in range(32)),
-                [t],
-                bits,
-            )
-        )
+        self.generators.append(BitsGenerator([t], row, base + 1))
         zero = self.zero()
         for i in range(num_bits, 32):
             self.connect(bits[i], zero)
@@ -358,34 +370,36 @@ class CircuitBuilder:
                 constants[i, r] = c
 
         # --- permutation sigma ---
-        # collect copy classes over routed slots
-        classes: dict[int, list[tuple[int, int]]] = {}
-        all_ids = set(self.uf.parent.keys())
-        for sid in list(all_ids):
-            all_ids.add(self.uf.find(sid))
-        for sid in all_ids:
-            r, c = divmod(sid, nw)
-            if c < cfg.num_routed_wires:
-                classes.setdefault(self.uf.find(sid), []).append((r, c))
+        # the copy classes over routed slots, as arrays sorted by class and,
+        # within a class, by slot id (row-major: the (row, col) order)
+        find = self.uf.find
+        ids = np.fromiter(self.uf.parent.keys(), np.int64, len(self.uf.parent))
+        roots = np.fromiter((find(int(i)) for i in ids), np.int64, len(ids))
+        ids, first = np.unique(np.concatenate([ids, roots]), return_index=True)
+        roots = np.concatenate([roots, roots])[first]
+        routed = ids % nw < cfg.num_routed_wires
+        ids, roots = ids[routed], roots[routed]
+        order = np.lexsort((ids, roots))
+        ids, roots = ids[order], roots[order]
+        starts = np.ones(len(ids), bool)  # a class's first slot, its head
+        starts[1:] = roots[1:] != roots[:-1]
+        ends = np.ones(len(ids), bool)
+        ends[:-1] = starts[1:]
+        heads = ids[np.flatnonzero(starts)[np.cumsum(starts) - 1]]  # each slot's head
+        # each slot points at the next member of its class, the last at the head
+        nexts = np.roll(ids, -1)
+        nexts[ends] = heads[ends]
         # sigma defaults to identity
         omega_pows = hf.powers(gl.primitive_root_of_unity(log_n), n)
         k_shifts = hf.powers(gl.MULTIPLICATIVE_GENERATOR, cfg.num_routed_wires)
         sigma = np.empty((cfg.num_routed_wires, n), dtype=np.uint64)
         for c in range(cfg.num_routed_wires):
             sigma[c, :] = hf.mul(np.uint64(k_shifts[c]), omega_pows)
-        for members in classes.values():
-            members.sort()
-            m = len(members)
-            for i, (r, c) in enumerate(members):
-                r2, c2 = members[(i + 1) % m]
-                sigma[c, r] = hf.mul(np.uint64(int(k_shifts[c2])), np.uint64(int(omega_pows[r2])))
+        sigma[ids % nw, ids // nw] = hf.mul(k_shifts[nexts % nw], omega_pows[nexts // nw])
 
-        # representative mapping for witness get/set
+        # representative mapping for witness get/set: each slot's class head
         rep = np.arange(n * nw, dtype=np.int64)
-        for members in classes.values():
-            root = members[0][0] * nw + members[0][1]
-            for r, c in members:
-                rep[r * nw + c] = root
+        rep[ids] = heads
 
         gate_objs = [self.gate_types[g] for g in gate_names]
         return CircuitData(
@@ -434,12 +448,13 @@ class Witness:
 
     def __init__(self, data: CircuitData):
         self.data = data
-        nw = data.config.num_wires
+        nw = self._nw = data.config.num_wires
+        self._rep = data.rep
         self.values = np.zeros(data.n * nw, dtype=np.uint64)
         self.known = np.zeros(data.n * nw, dtype=bool)
 
     def _sid(self, t: Target) -> int:
-        return int(self.data.rep[t.row * self.data.config.num_wires + t.col])
+        return int(self._rep[t.row * self._nw + t.col])
 
     def set(self, t: Target, v: int):
         sid = self._sid(t)
@@ -456,6 +471,24 @@ class Witness:
         if not self.known[sid]:
             raise KeyError(f"witness value not set for {t}")
         return int(self.values[sid])
+
+    def set_row_run(self, row: int, col: int, vals: np.ndarray):
+        """``set`` of ``len(vals)`` consecutive wires of one row from ``col``,
+        as one numpy pass: the same values, and a ValueError where one
+        conflicts with a known value or with another of the run's (two of its
+        wires may share a copy class)."""
+        start = row * self._nw + col
+        sids = self._rep[start:start + len(vals)]
+        bad = self.known[sids] & (self.values[sids] != vals)
+        if not bad.any():
+            self.values[sids] = vals
+            bad = self.values[sids] != vals
+            if not bad.any():
+                self.known[sids] = True
+                return
+        i = int(np.argmax(bad))
+        raise ValueError(f"conflicting witness value at {Target(row, col + i)}: "
+                         f"{int(self.values[sids[i]])} vs {int(vals[i])}")
 
     def set_many(self, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray):
         """Vectorized set (no conflict check) for batch generators."""

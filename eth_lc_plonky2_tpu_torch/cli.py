@@ -12,8 +12,11 @@ schema, a beacon RPC node, or the synthetic generator.  The BLS sub-proof
 provider; with `--bls dummy` a stand-in inner circuit with the exact
 targets.rs:471-482 PI layout is proven and absorbed in-circuit through the
 recursion layer (verify_proof_circuit), binding signing root / signature /
-pubkeys / participation bits index-for-index.  `--bls aggregate` (the
-in-circuit BLS12-381 aggregate) is not ported yet (ROADMAP A5).
+pubkeys / participation bits index-for-index.  With `--bls aggregate`
+the inner circuit also proves the BLS12-381 aggregate public key of the
+participating members (models/bls_aggregate.py); `aggregate:slices=N`
+splits the committee into N slices, proved with one shared preprocess
+and all absorbed by the outer circuit.
 
 The proofs run on the card (`--device cuda`, the default); `--device cpu`
 runs the plain PyTorch versions of every kernel.  Verification runs on the
@@ -21,6 +24,7 @@ host.
 
 Usage:
   python -m eth_lc_plonky2_tpu_torch.cli --synthetic 512 --bls dummy
+  python -m eth_lc_plonky2_tpu_torch.cli --synthetic 512 --bls aggregate:slices=8
   python -m eth_lc_plonky2_tpu_torch.cli --synthetic 8 --bls dummy --device cpu
   python -m eth_lc_plonky2_tpu_torch.cli --cur-update PATH --new-update PATH
 """
@@ -35,11 +39,18 @@ import time
 
 import numpy as np
 
-AGGREGATE_NOT_PORTED = (
-    "--bls aggregate is not ported: the in-circuit BLS12-381 aggregate "
-    "(circuit/gadgets_bls12_381.py, models/bls_aggregate.py) is ROADMAP A5; "
-    "use --bls dummy or --bls artifacts=DIR"
-)
+
+def aggregate_slices(bls_mode: str | None) -> int | None:
+    """The slice count of an aggregate --bls mode (1 for plain
+    'aggregate'), None for any other mode; ValueError for a bad count."""
+    if bls_mode == "aggregate":
+        return 1
+    if not (bls_mode and bls_mode.startswith("aggregate:slices=")):
+        return None
+    text = bls_mode.split("=", 1)[1]
+    if not text.isdigit() or int(text) < 1:
+        raise ValueError(f"--bls {bls_mode}: the slice count must be a positive integer")
+    return int(text)
 
 
 def _gate_counts(data) -> dict:
@@ -114,6 +125,23 @@ def witness_from_updates(cur_update, new_update):
     ), cur_state, new_state
 
 
+def light_client_witness(data, target, witness_kwargs: dict, bls_targets=None,
+                         bls_inners=None):
+    """The generated witness of the light-client circuit for one update pair,
+    with the inner BLS proofs (one a slice) set on their absorbing targets.
+    Host work only: no tensor is made."""
+    from .models import bls as blsm
+    from .models import lc_circuit as lc
+
+    w = data.new_witness()
+    lc.set_proof_target(w, target, **witness_kwargs)
+    if bls_targets is not None:
+        for (pt_t, vd_t), (_, inner_proof, inner_vk) in zip(bls_targets, bls_inners):
+            blsm.set_bls_proof_target(w, pt_t, vd_t, inner_proof, inner_vk)
+    w.generate()
+    return w
+
+
 def run(
     witness_kwargs: dict,
     committee_size: int,
@@ -134,8 +162,8 @@ def run(
     report.  The proofs run on ``device``: the card by default, where a
     missing card raises before any work; ``"cpu"`` runs the plain versions.
     When ``keep`` is a dict, the objects made are put into it (``data``,
-    ``witness``, ``pd``, ``vk``, ``proof``, ``bls_inners``) so that a caller
-    can prove again."""
+    ``witness``, ``target``, ``bls_targets``, ``pd``, ``vk``, ``proof``,
+    ``bls_inners``) so that a caller can make witnesses and prove again."""
     import torch
 
     from .circuit.builder import CircuitBuilder
@@ -146,8 +174,10 @@ def run(
     from .prover.config import CircuitConfig, FriConfig
     from .prover.verify import verify
 
-    if bls_mode and bls_mode.startswith("aggregate"):
-        raise NotImplementedError(AGGREGATE_NOT_PORTED)
+    num_slices = aggregate_slices(bls_mode)
+    if num_slices is not None and committee_size % num_slices:
+        raise ValueError(f"--bls {bls_mode}: {num_slices} slices do not divide the "
+                         f"committee of {committee_size}")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "cli.run proves on the card by default and this machine has no CUDA "
@@ -169,24 +199,50 @@ def run(
     # --bls artifacts=DIR, load offline-produced inner artifacts from
     # files (the affordance upstream's README documents).
     bls_inners = None  # list of (CircuitData, proof, VerifierKey), one per slice
-    if bls_mode == "dummy":
+    if bls_mode == "dummy" or num_slices is not None:
         t0 = time.time()
         inner_fri = FriConfig(proof_of_work_bits=min(pow_bits, 8),
                               num_query_rounds=min(query_rounds, 12))
-        bls_data = blsm.build_dummy_bls_circuit(committee_size, fri=inner_fri)
-        bls_proof, bls_vk = blsm.prove_dummy_bls(
-            bls_data,
-            witness_kwargs["signing_root"],
-            witness_kwargs["signature"],
-            witness_kwargs["sync_committee_pubkeys"],
-            witness_kwargs["sync_committee_bits"],
-            device=device,
-        )
-        bls_inners = [(bls_data, bls_proof, bls_vk)]
+        inner_args = [witness_kwargs[k] for k in ("signing_root", "signature",
+                                                  "sync_committee_pubkeys",
+                                                  "sync_committee_bits")]
+        if num_slices is not None:
+            # in-circuit aggregate-pubkey: the ec_aggregate_pk half of
+            # starky_bls12_381 (main.rs:172-176), same digest layout.  ONE
+            # circuit (the slice identity is a witness wire pinned by the
+            # outer digest), so one build / preprocess / vk serves every slice
+            from .models import bls_aggregate as blsa
+
+            bls_data = blsa.build_aggregate_bls_circuit(
+                committee_size, fri=inner_fri,
+                num_slices=num_slices,
+                slice_size=committee_size // num_slices,
+                num_wires=cfg.num_wires,  # share kernel shapes with the app circuit
+            )
+            print(f"BLS aggregate circuit built: {bls_data.num_rows_used} rows, "
+                  f"2^{bls_data.log_n} (+{time.time() - t0:.1f}s)", file=out)
+            bls_inners = []
+            bls_pd = bls_vk = None
+            for si in range(num_slices):
+                bls_proof, bls_vk, bls_pd = blsa.prove_aggregate_bls(
+                    bls_data, *inner_args, slice_index=si, pd=bls_pd, vk=bls_vk,
+                    device=device,
+                )
+                bls_inners.append((bls_data, bls_proof, bls_vk))
+                print(f"BLS aggregate slice {si + 1}/{num_slices} proven "
+                      f"(+{time.time() - t0:.1f}s)", file=out)
+        else:
+            bls_data = blsm.build_dummy_bls_circuit(committee_size, fri=inner_fri)
+            bls_proof, bls_vk = blsm.prove_dummy_bls(bls_data, *inner_args, device=device)
+            bls_inners = [(bls_data, bls_proof, bls_vk)]
         report["bls_inner_prove_s"] = round(time.time() - t0, 3)
         print(f"BLS inner proof(s) ({bls_mode} wrapper) in {report['bls_inner_prove_s']}s", file=out)
         if bls_save_dir:
-            blsm.save_bls_artifacts(bls_save_dir, *bls_inners[0])
+            if len(bls_inners) == 1:
+                blsm.save_bls_artifacts(bls_save_dir, *bls_inners[0])
+            else:
+                for si, triple in enumerate(bls_inners):
+                    blsm.save_bls_artifacts(os.path.join(bls_save_dir, f"slice_{si}"), *triple)
             print(f"BLS inner artifacts saved to {bls_save_dir}", file=out)
     elif bls_mode and bls_mode.startswith("artifacts="):
         t0 = time.time()
@@ -253,12 +309,7 @@ def run(
     print(f"degree - {data.log_n} ({data.num_rows_used} rows used)", file=out)
 
     t0 = time.time()
-    w = data.new_witness()
-    lc.set_proof_target(w, target, **witness_kwargs)
-    if bls_targets is not None:
-        for (pt_t, vd_t), (_, inner_proof, inner_vk) in zip(bls_targets, bls_inners):
-            blsm.set_bls_proof_target(w, pt_t, vd_t, inner_proof, inner_vk)
-    w.generate()
+    w = light_client_witness(data, target, witness_kwargs, bls_targets, bls_inners)
     report["witness_s"] = round(time.time() - t0, 3)
     print(f"witness generated in {report['witness_s']}s", file=out)
     if cache_dir:
@@ -272,7 +323,8 @@ def run(
         )
         print(f"witness cached in {round(time.time() - t0, 1)}s", file=out)
 
-    keep.update(data=data, witness=w, bls_inners=bls_inners)
+    keep.update(data=data, witness=w, target=target, bls_targets=bls_targets,
+                bls_inners=bls_inners)
     if skip_prove:
         return report
 
@@ -357,12 +409,16 @@ def main(argv=None):
                    help="absorb a BLS sub-proof in-circuit via the recursion layer: "
                         "'dummy' proves a stand-in inner circuit with the "
                         "targets.rs:471-482 bound-value layout in-process; "
-                        "'aggregate' (the in-circuit BLS12-381 aggregate) is not "
-                        "ported and raises; "
+                        "'aggregate[:slices=N]' proves the in-circuit BLS12-381 "
+                        "aggregate public key of the participating members "
+                        "(the ec_aggregate_pk half of starky_bls12_381; needs real "
+                        "curve points), optionally as N slices of the committee; "
                         "'artifacts=DIR' loads offline-produced inner artifacts "
                         "(circuit.json + proof.json + vk.json, all non-executable)")
     p.add_argument("--bls-save", dest="bls_save_dir", metavar="DIR",
-                   help="with --bls dummy: also write the inner artifacts to DIR")
+                   help="with --bls dummy or aggregate: also write the inner "
+                        "artifacts to DIR (one slice_<i> directory a slice when "
+                        "there are several)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the proofs run: the card (default) or the plain "
                         "PyTorch versions on the CPU")
@@ -371,13 +427,20 @@ def main(argv=None):
         args.bls_mode.startswith("artifacts=") or args.bls_mode.startswith("aggregate:slices=")
     ):
         p.error("--bls must be 'dummy', 'aggregate[:slices=N]', or 'artifacts=DIR'")
+    try:
+        aggregate = aggregate_slices(args.bls_mode) is not None
+    except ValueError as e:
+        p.error(str(e))
 
     if args.synthetic is not None:
         if args.synthetic < 2:
             p.error("--synthetic N requires N >= 2 (power of two)")
         from .eth.synthetic import make_synthetic_update_pair
 
-        syn = make_synthetic_update_pair(args.synthetic, seed=args.seed)
+        # every aggregate mode needs committee keys on the curve (the JAX
+        # package's CLI asks for them only for the unsliced 'aggregate')
+        syn = make_synthetic_update_pair(args.synthetic, seed=args.seed,
+                                         valid_pubkeys=aggregate)
         witness_kwargs = syn.witness_kwargs
         committee_size, threshold = syn.committee_size, syn.threshold
     elif args.rpc:

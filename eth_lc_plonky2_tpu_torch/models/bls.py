@@ -1,8 +1,9 @@
 """BLS sub-proof absorption (L5 boundary + the recursion call site).
 
 Port of ``eth_lc_plonky2_tpu/models/bls.py`` (the dummy inner circuit, its
-proof on the card, the absorption and the file artifacts; the in-circuit
-aggregate of ``models/bls_aggregate.py`` is not ported).
+proof on the card, the absorption of one or several sliced inner proofs and
+the file artifacts; the in-circuit aggregate inner circuit, which keeps this
+module's layout and digest, is ``models/bls_aggregate.py``).
 
 Upstream verifies a starky_bls12_381 recursive proof inside the app
 circuit and binds its public inputs to the committee inputs

@@ -415,3 +415,96 @@ def test_cli_run_proves_and_verifies_on_the_card(dev, tmp_path):
     assert res.returncode == 0, res.stdout + res.stderr
     with open(path) as f:
         assert json.load(f)["circuit"]["log_n"] == 14
+
+
+def test_aggregate_proof_on_the_kernels_equals_the_plain_versions(dev):
+    """The 2-member BLS12-381 aggregate circuit (8,946 of 2^14 rows, 184 wires)
+    proved on the kernels and on the plain versions, both on the card: the
+    same bytes, and verify accepts it."""
+    from unittest import mock
+
+    from eth_lc_plonky2_tpu_torch.eth.synthetic import make_valid_pubkey
+    from eth_lc_plonky2_tpu_torch.models import bls_aggregate as agg
+    from eth_lc_plonky2_tpu_torch.prover import serialize
+    from eth_lc_plonky2_tpu_torch.prover.config import FriConfig
+    from eth_lc_plonky2_tpu_torch.prover.verify import verify
+
+    rng = np.random.default_rng(2)
+    keys = [make_valid_pubkey(rng) for _ in range(2)]
+    data = agg.build_aggregate_bls_circuit(
+        2, fri=FriConfig(proof_of_work_bits=4, num_query_rounds=4), num_wires=184)
+    assert (data.num_rows_used, data.log_n) == (8946, 14)
+    args = (bytes(range(32)), bytes(range(96)), keys, [1, 1])
+    before = dict(kernels.launches)
+    proof, vk, pd = agg.prove_aggregate_bls(data, *args)
+    assert pd.device.type == "cuda"
+    assert all(kernels.launches[k] > before[k] for k in ("ntt", "poseidon", "field", "gates"))
+    before = dict(kernels.launches)
+    with mock.patch.object(kernels, "on_card", lambda t: False):
+        plain_pd = prove.ProverData(data=pd.data, pre_values=pd.pre_values,
+                                    pre_batch=pd.pre_batch, dev=pd.dev)
+        plain = prove.prove(plain_pd, agg.aggregate_witness(data, *args))
+    assert kernels.launches == before
+    assert serialize.proof_to_dict(proof, True) == serialize.proof_to_dict(plain, True)
+    verify(data, vk, proof)
+
+
+def test_cli_run_proves_two_aggregate_slices_on_the_card(dev, tmp_path):
+    """cli.run at --synthetic 4 --bls aggregate:slices=2 with a reduced FRI, on
+    the card: both slices proved with one preprocess, the outer absorbing both
+    proved, exported, verified by the port and by tools/verify_standalone.py."""
+    import io
+    import os
+    import subprocess
+    import sys
+
+    from eth_lc_plonky2_tpu_torch import cli
+    from eth_lc_plonky2_tpu_torch.eth.synthetic import make_synthetic_update_pair
+    from eth_lc_plonky2_tpu_torch.prover.verify import verify
+
+    syn = make_synthetic_update_pair(4, seed=3, valid_pubkeys=True)
+    path = str(tmp_path / "bundle.json")
+    keep = {}
+    report = cli.run(syn.witness_kwargs, 4, syn.threshold, pow_bits=4, query_rounds=4,
+                     bls_mode="aggregate:slices=2", export_bundle_path=path, out=io.StringIO(),
+                     keep=keep)
+    assert report["degree_bits"] == 14
+    assert (report["cur_state"], report["new_state"]) == (syn.cur_state.hex(), syn.new_state.hex())
+    assert len(keep["bls_inners"]) == 2
+    for data, proof, vk in keep["bls_inners"]:
+        assert data.num_rows_used == 8946
+        verify(data, vk, proof)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tool = os.path.join(repo, "tools", "verify_standalone.py")
+    res = subprocess.run([sys.executable, tool, path], capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_prove_stream_on_the_card_equals_sequential_proves(dev):
+    """prove_stream of four witnesses on the card: in order, each equal to a
+    sequential prove of the same witness."""
+    from eth_lc_plonky2_tpu_torch.circuit.builder import CircuitBuilder
+    from eth_lc_plonky2_tpu_torch.prover import serialize
+    from eth_lc_plonky2_tpu_torch.prover.config import CircuitConfig, FriConfig
+    from eth_lc_plonky2_tpu_torch.prover.pipeline import prove_stream
+
+    b = CircuitBuilder(CircuitConfig(fri=FriConfig(proof_of_work_bits=4, num_query_rounds=4)))
+    x = b.add_virtual_target()
+    acc = x
+    for _ in range(60):
+        acc = b.mul_add(acc, x, x)
+    b.register_public_input(acc)
+    data = b.build()
+    pd, _ = prove.preprocess(data)
+
+    def make_witness(d, val):
+        w = d.new_witness()
+        w.set(x, val)
+        w.generate()
+        return w
+
+    inputs = [3, 5, 7, 11]
+    streamed = list(prove_stream(pd, inputs, make_witness, prefetch=1))
+    for val, proof in zip(inputs, streamed):
+        again = prove.prove(pd, make_witness(data, val))
+        assert serialize.proof_to_dict(proof, True) == serialize.proof_to_dict(again, True)
