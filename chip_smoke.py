@@ -115,7 +115,25 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      two gate kernels); slices 0 and 1 swapped in the outer witness must be
      refused; one timed and traced steady outer prove held to the plan; the
      2-member aggregate circuit (8,946 of 2^14 rows) on the kernels against
-     the plain versions on the card.
+     the plain versions on the card;
+ 10. the NTT past 2^22 and the sharded prover on the card.  (a) ntt and intt
+     of (2, 2^23) and (2, 2^24) and coset_lde of (16, 2^21) to 2^24 (three
+     passes) against the plain versions on the card, with each pass kind's
+     time beside its bound and that LDE's peak memory; (b) one rank over NCCL
+     in this process: make_dist_ntt (both ways) and make_dist_coset_lde against
+     ntt and coset_lde at log n 10, 16 and 21, make_sharded_commit against
+     commit_field_values at (184, 2^18) (LDE, every level's block, cap), and
+     prove_sharded of the dryrun circuit against assets/dryrun/ref_proof.json;
+     (c) two spawned ranks sharing the card over gloo: (b)'s checks, the window
+     form of the four quotient kernels on each rank's window against the plain
+     versions on the window (gates at phase 7's sizes, the permutation terms
+     and the generic share at (184, 2^21)), and prove_sharded of the flagship
+     (phase 8's circuit from its cache, the witness of --synthetic 512 --seed
+     N made by each rank): both ranks' proofs must equal phase 8's byte for
+     byte and pass verify, and each rank's first sharded prove (its counts set
+     to 0 just before) must launch every kernel source.  The sharded prove's
+     times are printed on a line of their own, labelled as two ranks sharing
+     one card (no multi-GPU figure).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on the main path, its error against the plain
 version, and its time beside the plain version's and beside the least time
@@ -1469,11 +1487,14 @@ def ptxas_info(text: str) -> dict:
 
 def kernel_registers(name: str) -> dict:
     """ptxas's registers, spills and static shared memory of the kernel whose
-    mangled name holds ``name``, from this process's build; None each where
-    the library was built before (no report)."""
+    mangled name holds ``name`` (of a kernel with a window form, its
+    one-device instantiation, template argument false: ``ILb0E``), from this
+    process's build; None each where the library was built before (no
+    report)."""
     from eth_lc_plonky2_tpu_torch.ops import kernels
 
-    found = [v for k, v in ptxas_info(kernels.build()["ptxas"]).items() if name in k]
+    found = [v for k, v in ptxas_info(kernels.build()["ptxas"]).items()
+             if name in k and "ILb1E" not in k]
     return found[0] if len(found) == 1 else dict.fromkeys(("registers", "spill_bytes",
                                                            "shared_bytes"))
 
@@ -2184,7 +2205,8 @@ def eager_chains():
 
     return mock.patch.multiple(
         kernels, field_open=prove._open_core_plain, perm_z=prove.perm_rows_plain,
-        perm_quotient=lambda *args: torch.stack(prove.perm_quotient_terms_plain(*args)),
+        perm_quotient=lambda *args, window=False: torch.stack(
+            prove.perm_quotient_terms_plain(*args)),
         generic_gate_quotient=generic, fri_g=g,
         fri_fold=lambda re, im, w_inv, scale, half, beta: fri.fold_plain(re, im, w_inv, scale, beta))
 
@@ -2425,11 +2447,13 @@ def check_standalone(bundle_path: str, report: dict, tag: str) -> None:
         f"{report.get('bundle_export_s')} s, {os.path.getsize(bundle_path) / 1e6:.2f} MB")
 
 
-def phase8(torch, card: str, seed: int) -> dict:
+def phase8(torch, card: str, seed: int, cache_dir: str) -> dict:
     """``cli.run`` at --synthetic 512 --bls dummy, nothing cut: the inner
     proof, the outer circuit's build and witness, preprocess, a first prove,
     export and verify (the public inputs against the host's SSZ roots), then
-    the steady proves, the trace, forged witnesses and the bundle."""
+    the steady proves, the trace, forged witnesses and the bundle.  The
+    circuit goes into ``cache_dir`` (phase 10's ranks load it), and the
+    returned ``proof`` is the first proof's JSON."""
     import tempfile
 
     from eth_lc_plonky2_tpu_torch import cli
@@ -2449,7 +2473,8 @@ def phase8(torch, card: str, seed: int) -> dict:
         kernels.reset_launches()
         t0 = time.perf_counter()
         report = cli.run(syn.witness_kwargs, FLAGSHIP_COMMITTEE, syn.threshold, bls_mode="dummy",
-                         export_bundle_path=bundle_path, out=CliLog("[8]"), keep=keep)
+                         export_bundle_path=bundle_path, cache_dir=cache_dir, out=CliLog("[8]"),
+                         keep=keep)
         torch.cuda.synchronize()
         launched = dict(kernels.launches)
         run_s = time.perf_counter() - t0
@@ -2474,7 +2499,8 @@ def phase8(torch, card: str, seed: int) -> dict:
     log(f"[8] full512_prove_wall_s {res['prove_ms'] / 1e3:.5f} (median of 3 steady proves) "
         f"[{card}]")
     check_stream(torch, keep, card)
-    return {"launches": launched, "traced": res["by_name"]}
+    return {"launches": launched, "traced": res["by_name"], "cache_dir": cache_dir,
+            "proof": json.dumps(proof_dict(proof))}
 
 
 STREAM_SEEDS = (1, 2, 3)
@@ -2709,6 +2735,432 @@ def phase9(torch, card: str, seed: int) -> dict:
     return {"launches": launched, "traced": res["by_name"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the NTT past 2^22, and the sharded prover on the card
+# ---------------------------------------------------------------------------
+
+BIG_NTT_LOGS = (23, 24)
+BIG_LDE_ROWS, BIG_LDE_LOG = 16, 21  # a commit chunk of 2^21 coefficients to a 2^24 LDE
+DIST_NTT_LOGS = (10, 16, 21)
+SHARDED_RANKS = 2  # two ranks share the one card over gloo
+SHARDED_SEED = 10  # the seeded inputs of the (b) checks, the same on every rank
+WINDOW_HALO = 16 << RATE_BITS  # the light-client circuit's: offset -16 at 2^3 columns a row
+RANK_TIMEOUT_S = 900
+
+
+def big_ntt_passes(torch, coeffs, card: str) -> dict:
+    """The three passes of the (16, 2^21) -> 2^24 coset LDE, each kind timed
+    alone (A one launch, B one a row, C one) beside its bound."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels, ntt
+
+    rows, n_in = coeffs.shape
+    n = n_in << RATE_BITS
+    out = torch.empty((rows, n), dtype=torch.int64, device=DEVICE)
+    passes = ntt._passes(coeffs, out, False, in_tab=ntt._powers_on(7, n_in, DEVICE),
+                         log_pad=RATE_BITS)
+    kinds = {"A": passes[:1], "B": passes[1:-1], "C": passes[-1:]}
+    if len(kinds["B"]) != rows:
+        fail(f"[10] the 2^24 plan has {len(passes)} launches, not {rows + 2}")
+    res = {}
+    for kind, group in kinds.items():
+        ms = cuda_ms(lambda g=group: [kernels.ntt_pass(s, d, **a) for s, d, a in g], 5)
+        log_m = group[0][2]["log_m"]
+        stages = log_m - group[0][2].get("log_pad", 0)
+        read = rows * (n_in if kind == "A" else n)
+        # butterflies x one 64 x 64 product (4 multiply-adds), and the step
+        # twiddle's two products a word (A and B)
+        mads = rows * (n // 2) * stages * 4 + (rows * n * 2 * 4 if kind != "C" else 0)
+        bound = bound_of((read + rows * n) * 8, mads)
+        res[kind] = {"ms": ms, "launches": len(group), "log_m": log_m, "bound_ms": bound[0],
+                     "bound_by": bound[1]}
+    total = sum(r["ms"] for r in res.values())
+    bound_total = sum(r["bound_ms"] for r in res.values())
+    log(f"[10] the 2^24 LDE's passes: " + ", ".join(
+        f"{k} (2^{r['log_m']}, {r['launches']} launch{'es' if r['launches'] > 1 else ''}) "
+        f"{r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by {r['bound_by']}"
+        for k, r in res.items()) + f"; {total:.3f} ms against {bound_total:.3f} ms [{card}]")
+    return {"passes": res, "ms": total, "bound_ms": bound_total}
+
+
+def check_big_ntt(torch, chk: Checker, rng, card: str) -> dict:
+    """Step 0 on the card: ntt and intt at 2^23 and 2^24 on 2 columns, and
+    coset_lde of (16, 2^21) to 2^24 (three passes, the first reading the
+    coefficients unpadded), against the plain versions on the card."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels, ntt
+
+    before = kernels.launches["ntt"]
+    for log_n in BIG_NTT_LOGS:
+        x = device_rows(rng, 2, 1 << log_n, field_edge_words())
+        chk.same("ntt", ntt.ntt(x), ntt.ntt_plain(x), f"[10] ntt of (2, 2^{log_n})")
+        chk.same("ntt", ntt.intt(x), ntt.ntt_plain(x, inverse=True), f"[10] intt of (2, 2^{log_n})")
+        del x
+    if kernels.launches["ntt"] - before != 2 * len(BIG_NTT_LOGS) * (2 + 2):
+        fail(f"[10] {kernels.launches['ntt'] - before} NTT launches for the 2-column transforms")
+    coeffs = device_rows(rng, BIG_LDE_ROWS, 1 << BIG_LDE_LOG, field_edge_words())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lde = ntt.coset_lde(coeffs, RATE_BITS)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    chk.same("ntt", lde, ntt.coset_lde_plain(coeffs, RATE_BITS, 7),
+             f"[10] coset_lde of ({BIG_LDE_ROWS}, 2^{BIG_LDE_LOG}) to 2^{BIG_LDE_LOG + RATE_BITS}")
+    out_gb = lde.numel() * 8 / 1e9
+    del lde
+    torch.cuda.empty_cache()
+    log(f"[10] ntt and intt of (2, 2^23) and (2, 2^24) and coset_lde of ({BIG_LDE_ROWS}, "
+        f"2^{BIG_LDE_LOG}) to 2^24 == the plain versions on the card; that LDE's peak memory "
+        f"{peak_gb:.2f} GB above its input (its output {out_gb:.2f} GB and one scratch) [{card}]")
+    res = big_ntt_passes(torch, coeffs, card)
+    res["peak_gb"] = peak_gb
+    return res
+
+
+def gathered(mesh, t, axis: int):
+    """A point-sharded tensor's blocks, every rank's, joined in rank order."""
+    import torch
+
+    return torch.cat(list(mesh.all_gather(t)), dim=axis)
+
+
+def check_sharded_steps(torch, chk: Checker, mesh, tag: str) -> dict:
+    """On ``mesh``: make_dist_ntt (both ways) and make_dist_coset_lde equal the
+    one-device ntt and coset_lde at log n 10, 16 and 21; make_sharded_commit
+    equals commit_field_values at (184, 2^18) in the LDE, the leaves, every
+    level's block and the cap; prove_sharded of the dryrun circuit equals
+    assets/dryrun/ref_proof.json.  The inputs come from SHARDED_SEED, the same
+    on every rank."""
+    from eth_lc_plonky2_tpu_torch.ops import ntt
+    from eth_lc_plonky2_tpu_torch.parallel import commit as pcommit, ntt as pntt, prover as pprover
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    rng = np.random.default_rng(SHARDED_SEED)
+    t0 = time.perf_counter()
+    for log_n in DIST_NTT_LOGS:
+        n = 1 << log_n
+        x = device_rows(rng, 2, n, field_edge_words())
+        block = x[:, mesh.block(n)]
+        for inverse in (False, True):
+            got = gathered(mesh, pntt.make_dist_ntt(mesh, n, inverse)(block), 1)
+            chk.same("ntt", got, ntt.ntt(x, inverse=inverse), f"{tag} dist ntt 2^{log_n} {inverse}")
+        got = gathered(mesh, pntt.make_dist_coset_lde(mesh, n, RATE_BITS)(block), 1)
+        chk.same("ntt", got, ntt.coset_lde(x, RATE_BITS), f"{tag} dist coset_lde 2^{log_n}")
+    values = device_rows(rng, NUM_WIRES, 1 << LOG_N)
+    rows = pcommit.column_rows(mesh, NUM_WIRES)
+    cb = len(rows) // mesh.size
+    block = torch.zeros((cb, 1 << LOG_N), dtype=torch.int64, device=values.device)
+    mine = [p for p in rows[mesh.rank * cb : (mesh.rank + 1) * cb] if p >= 0]
+    block[: len(mine)] = values[mine[0] : mine[-1] + 1]
+    batch, _ = pcommit.make_sharded_commit(mesh, RATE_BITS, CAP_HEIGHT)(block, rows)
+    ref = prove.commit_field_values(values, RATE_BITS, CAP_HEIGHT)
+    pts = mesh.block(ref.lde.shape[1])
+    chk.same("ntt", batch.lde, ref.lde[:, pts], f"{tag} sharded commit: LDE")
+    if len(batch.tree.levels) != len(ref.tree.levels):
+        fail(f"{tag} sharded commit: {len(batch.tree.levels)} levels, not {len(ref.tree.levels)}")
+    for k, (mine_lvl, whole) in enumerate(zip(batch.tree.levels, ref.tree.levels)):
+        chk.same("poseidon", mine_lvl, whole[mesh.block(whole.shape[0])],
+                 f"{tag} sharded commit: level {k}")
+    if not np.array_equal(batch.cap, ref.cap):
+        fail(f"{tag} sharded commit: the cap differs")
+    del values, block, batch, ref
+    data, w = dryrun_circuit()
+    pd, _ = prove.preprocess(data, device=DEVICE)
+    got = proof_dict(pprover.prove_sharded(pd, w, mesh))
+    with open(os.path.join(REPO, "assets", "dryrun", "ref_proof.json")) as f:
+        text = f.read()
+    if (where := first_difference(got, json.loads(text))) or json.dumps(got) != text:
+        fail(f"{tag} prove_sharded of the dryrun circuit differs from ref_proof.json at {where}")
+    torch.cuda.synchronize()
+    log(f"{tag} {mesh}: make_dist_ntt (forward and inverse) and make_dist_coset_lde == ntt and "
+        f"coset_lde at log n {DIST_NTT_LOGS}; make_sharded_commit == commit_field_values at "
+        f"({NUM_WIRES}, 2^{LOG_N}) (LDE, leaves, every level's block, cap); prove_sharded of the "
+        f"dryrun circuit == assets/dryrun/ref_proof.json byte for byte, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"seconds": time.perf_counter() - t0}
+
+
+def windows_of(t, lo: int, width: int, halo: int):
+    """The columns [lo - halo, lo + width + halo) mod n_lde of (rows, n_lde) ``t``."""
+    import torch
+
+    n_lde = t.shape[-1]
+    cols = torch.arange(lo - halo, lo + width + halo, device=t.device) % n_lde
+    return t.index_select(t.dim() - 1, cols)
+
+
+def check_window_kernels(torch, chk: Checker, rng, rank: int, size: int, tag: str) -> dict:
+    """The window form of the four quotient kernels on rank ``rank``'s points
+    of ``size``: each kernel on the middle of its window against the plain
+    version (the existing eager code) run on the whole window and cut to the
+    middle.  The gates at phase 7's sizes, the permutation terms and the
+    generic share at (184, 2^21)."""
+    from eth_lc_plonky2_tpu_torch.circuit.gates_poseidon import PoseidonGate
+    from eth_lc_plonky2_tpu_torch.circuit.gates_sha256 import Sha256RoundGate
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    h = WINDOW_HALO
+    t0 = time.perf_counter()
+    for gate in (Sha256RoundGate(), PoseidonGate()):
+        for n_lde in GATE_SIZES:
+            width = n_lde // size
+            lo = rank * width
+            wires, consts, sel, apow_rows, accs = gate_inputs(rng, n_lde, gate.num_constraints)
+            ww, cw, sw = (windows_of(t, lo, width, h) for t in (wires, consts, sel))
+            acc_w = [windows_of(a, lo, width, h) for a in accs]
+            mine = [a[lo : lo + width].clone() for a in accs]
+            got = gate.absorb_quotient_device(ww[:, h : h + width], lambda i: cw[i, h : h + width],
+                                              sw[h : h + width], apow_rows, mine, RATE_BITS,
+                                              window=True)
+            want = gate_generic(gate, (ww, cw, sw, apow_rows, acc_w), RATE_BITS, plain=True)
+            for j in range(2):
+                chk.same("gates", got[j], want[j][h : h + width],
+                         f"{tag} {gate.name} window form, n_lde {n_lde}, rank {rank} of {size}")
+    n_lde = 1 << (LOG_N + RATE_BITS)
+    width = n_lde // size
+    lo = rank * width
+    inp = perm_inputs(rng, LOG_N + RATE_BITS)
+    w_all, sigma, zs, x, l0 = (windows_of(t, lo, width, h) for t in inp[:5])
+    rest = inp[5:]
+    got = kernels.perm_quotient(w_all[:, h : h + width], sigma[:, h : h + width],
+                                zs[:, h : h + width], x[h : h + width], l0[h : h + width], *rest,
+                                window=True)
+    want = torch.stack(on_plain(lambda: prove.perm_quotient_terms_plain(w_all, sigma, zs, x, l0,
+                                                                       *rest)))
+    chk.same("field", got, want[:, h : h + width], f"{tag} perm_quotient window form, rank {rank}")
+    del inp, w_all, sigma, zs, x, l0, got, want
+    gen = generic_inputs(rng, n_lde)
+    win = dict(gen, wires=windows_of(gen["wires"], lo, width, h), pre=windows_of(gen["pre"], lo, width, h),
+               lr=windows_of(gen["lr"], lo, width, h),
+               accs=[windows_of(a, lo, width, h) for a in gen["accs"]])
+    want = generic_terms(win, "plain")[:, h : h + width]
+    mine = [a[lo : lo + width].clone() for a in gen["accs"]]
+    kernels.generic_gate_quotient(gen["generic"], win["wires"][:, h : h + width],
+                                  win["pre"][:, h : h + width], gen["num_sel"], gen["num_con"],
+                                  win["lr"][:, h : h + width], gen["pi"], gen["pi_cols"],
+                                  gen["apows"], mine, gen["pi0"], gen["k0"])
+    chk.same("gates", torch.stack(mine), want, f"{tag} generic gates window form, rank {rank}")
+    torch.cuda.synchronize()
+    log(f"{tag} rank {rank} of {size}: the window form of the SHA-256 and Poseidon gate kernels "
+        f"(n_lde {GATE_SIZES}), perm_quotient_kernel and generic_gate_quotient_kernel (2^{LOG_N + RATE_BITS}) on "
+        f"this rank's window (halo {h}) == the plain versions on the window, cut to the middle, "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return {"seconds": time.perf_counter() - t0}
+
+
+def measure_window_kernels(torch, rng, card: str, size: int = SHARDED_RANKS) -> dict:
+    """The four quotient kernels' window form at the flagship's shapes on rank
+    0's window of a 2^21 domain split ``size`` ways, each timed beside its
+    one-device form on the whole domain in the same call and beside its bound
+    for the window's columns (the same rows a column as phase 7's)."""
+    from eth_lc_plonky2_tpu_torch.circuit.gates_poseidon import PoseidonGate
+    from eth_lc_plonky2_tpu_torch.circuit.gates_sha256 import Sha256RoundGate
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    h, n_lde = WINDOW_HALO, 1 << (LOG_N + RATE_BITS)
+    width = n_lde // size
+    mid = slice(h, h + width)
+    out = {}
+
+    def record(name, window_ms, whole_ms, rows, mads):
+        bound = bound_of(rows * width * 8, mads * width)
+        out[name] = {"ms": window_ms, "whole_ms": whole_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1]}
+
+    for gate, name, rows, mads in (
+            (Sha256RoundGate(), "sha_gate_quotient_kernel", SHA_GATE_ROWS, SHA_GATE_MADS),
+            (PoseidonGate(), "poseidon_gate_quotient_kernel", 142 + 1 + 2 + 2,
+             POSEIDON_GATE_MADS)):
+        inputs = gate_inputs(rng, n_lde, gate.num_constraints)
+        wires, consts, sel, apow_rows, accs = inputs
+        ww, cw, sw = (windows_of(t, 0, width, h) for t in (wires, consts, sel))
+        mine = [a[:width].clone() for a in accs]
+        window_ms = cuda_ms(lambda: gate.absorb_quotient_device(
+            ww[:, mid], lambda i: cw[i, mid], sw[mid], apow_rows, mine, RATE_BITS, window=True), 5)
+        scratch = [a.clone() for a in accs]
+        whole_ms = cuda_ms(lambda: gate_kernel(gate, inputs, RATE_BITS, scratch), 5)
+        record(name, window_ms, whole_ms, rows, mads)
+        del inputs, wires, ww, cw, sw, mine, scratch
+    inp = perm_inputs(rng, LOG_N + RATE_BITS)
+    w_all, sigma, zs, x, l0 = (windows_of(t, 0, width, h) for t in inp[:5])
+    window_ms = cuda_ms(lambda: kernels.perm_quotient(
+        w_all[:, mid], sigma[:, mid], zs[:, mid], x[mid], l0[mid], *inp[5:], window=True), 5)
+    whole_ms = cuda_ms(lambda: perm_terms(inp), 5)
+    record("perm_quotient_kernel", window_ms, whole_ms, 2 * NUM_ROUTED + NUM_Z + 2 + 2,
+           PERM_MADS_PER_COLUMN)
+    del inp, w_all, sigma, zs, x, l0
+    gen = generic_inputs(rng, n_lde)
+    ww, pw, lw = (windows_of(gen[k], 0, width, h) for k in ("wires", "pre", "lr"))
+    mine = [a[:width].clone() for a in gen["accs"]]
+    window_ms = cuda_ms(lambda: kernels.generic_gate_quotient(
+        gen["generic"], ww[:, mid], pw[:, mid], gen["num_sel"], gen["num_con"], lw[:, mid],
+        gen["pi"], gen["pi_cols"], gen["apows"], mine, gen["pi0"], gen["k0"]), 5)
+    whole_ms = cuda_ms(lambda: generic_terms(gen), 5)
+    record("generic_gate_quotient_kernel", window_ms, whole_ms, GENERIC_ROWS,
+           GENERIC_MADS_PER_COLUMN)
+    log(f"[10] the window form on rank 0's {width} points of 2^{LOG_N + RATE_BITS} (halo {h}): "
+        + ", ".join(f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.4f} ms by {v['bound_by']}; the "
+                    f"whole domain's one-device form {v['whole_ms']:.3f} ms)" for k, v in out.items())
+        + f" [{card}]")
+    return out
+
+
+def measure_quotient_kernels(torch, rng, card: str) -> dict:
+    """The permutation terms' and the generic share's kernels at (80, 2^21)
+    and (184, 2^21), one device, timed alone (tools/torch_kernel_times.py
+    holds them against an older checkout in turns, so it makes only calls
+    that the port has had since it gained the generic gates' kernel)."""
+    inp = perm_inputs(rng, LOG_N + RATE_BITS)
+    perm_ms = cuda_ms(lambda: perm_terms(inp), 9)
+    del inp
+    gen = generic_inputs(rng, 1 << (LOG_N + RATE_BITS))
+    generic_ms = cuda_ms(lambda: generic_terms(gen), 9)
+    log(f"the quotient's kernels at 2^{LOG_N + RATE_BITS}: perm_quotient_kernel {perm_ms:.3f} ms, "
+        f"generic_gate_quotient_kernel {generic_ms:.3f} ms [{card}]")
+    return {"perm_quotient_kernel": perm_ms, "generic_gate_quotient_kernel": generic_ms}
+
+
+def sharded_flagship(torch, mesh, cache_dir: str, seed: int, tag: str) -> dict:
+    """The flagship proved by the ranks of ``mesh``: cli.run --synthetic 512
+    --bls dummy --seed N with skip_prove loads phase 8's circuit from the
+    cache and makes the witness; the rank's shard, a first prove (the main
+    path of this phase: its launches), a timed prove with its phase marks,
+    and the port's verify.  Returns both proofs as JSON and the numbers."""
+    import io
+
+    from eth_lc_plonky2_tpu_torch import cli
+    from eth_lc_plonky2_tpu_torch.eth.synthetic import make_synthetic_update_pair
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+    from eth_lc_plonky2_tpu_torch.parallel import prover as pprover
+    from eth_lc_plonky2_tpu_torch.prover.profiler import Profiler
+    from eth_lc_plonky2_tpu_torch.prover.verify import verify
+
+    t0 = time.perf_counter()
+    syn = make_synthetic_update_pair(FLAGSHIP_COMMITTEE, seed=seed)
+    keep: dict = {}
+    report = cli.run(syn.witness_kwargs, FLAGSHIP_COMMITTEE, syn.threshold, bls_mode="dummy",
+                     cache_dir=cache_dir, skip_prove=True, out=io.StringIO(), keep=keep)
+    if report.get("cache") != "hit" or "pd" not in keep:
+        fail(f"{tag} rank {mesh.rank}: phase 8's circuit is not in the cache")
+    setup_s = time.perf_counter() - t0
+    shard = pprover.shard_prover_data(keep.pop("pd"), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    # the main path of this phase: the counts are set to 0 just before it
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    first = pprover.prove_sharded(shard, keep["witness"], mesh)
+    torch.cuda.synchronize()
+    launched = dict(kernels.launches)
+    first_s = time.perf_counter() - t1
+    torch.distributed.barrier()
+    prof = Profiler(enabled=True)
+    t1 = time.perf_counter()
+    proof = pprover.prove_sharded(shard, keep["witness"], mesh, prof=prof)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t1 = time.perf_counter()
+    verify(keep["data"], keep["vk"], proof)
+    verify_s = time.perf_counter() - t1
+    return {"first": json.dumps(proof_dict(first)), "proof": json.dumps(proof_dict(proof)),
+            "launches": launched, "first_s": first_s, "wall_s": wall_s, "verify_s": verify_s,
+            "setup_s": setup_s, "peak_gb": peak_gb, "phases": dict(prof.times),
+            "rows": (keep["data"].num_rows_used, keep["data"].log_n)}
+
+
+def phase10_rank(rank: int, size: int, store: str, cache_dir: str, seed: int, queue) -> None:
+    """One of the ranks that share the card: (b)'s checks, the window form on
+    this rank's window, and the sharded flagship; its results on ``queue``.
+    Any exception ends the process with a non-zero code."""
+    import torch
+
+    from eth_lc_plonky2_tpu_torch.parallel import distributed as dist
+
+    tag = f"[10c:{rank}]"
+    dist.initialize("file://" + store, size, rank, device="cuda:0", backend="gloo")
+    mesh = dist.make_global_mesh()
+    chk = Checker()
+    out = {"mesh": repr(mesh)}
+    out["steps"] = check_sharded_steps(torch, chk, mesh, tag)
+    out["windows"] = check_window_kernels(torch, chk, np.random.default_rng(seed + 100 + rank),
+                                          rank, size, tag)
+    out["flagship"] = sharded_flagship(torch, mesh, cache_dir, seed, tag)
+    out["err"] = chk.err
+    queue.put((rank, out))
+    dist.shutdown()
+
+
+def phase10(torch, chk: Checker, rng, card: str, seed: int, flagship: dict) -> dict:
+    """(a) the NTT past 2^22; (b) one rank over NCCL in this process; (c) two
+    ranks sharing the card over gloo, the flagship among their checks."""
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from eth_lc_plonky2_tpu_torch.parallel import distributed as dist
+
+    big = check_big_ntt(torch, chk, rng, card)
+    windows = measure_window_kernels(torch, rng, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c)'s ranks start first: (b) runs here while they set up, before
+        # their timed proves
+        t0 = time.perf_counter()
+        procs, q = dist.spawn_ranks(phase10_rank, SHARDED_RANKS,
+                                    (os.path.join(tmp, "ranks"), flagship["cache_dir"], seed))
+        try:
+            dist.initialize("file://" + os.path.join(tmp, "store"), 1, 0)  # NCCL on the card
+            mesh = dist.make_global_mesh()
+            if mesh.backend != "nccl" or tdist.get_world_size() != 1:
+                fail(f"[10b] {mesh}: not one rank over NCCL")
+            check_sharded_steps(torch, chk, mesh, "[10b]")
+            dist.shutdown()
+            torch.cuda.empty_cache()
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.join()
+            raise
+        try:
+            ranks = dist.collect_ranks(procs, q, RANK_TIMEOUT_S)
+        except RuntimeError as e:
+            fail(f"[10c] {e}")
+        ranks_s = time.perf_counter() - t0
+    want = flagship["proof"]
+    for r, out in sorted(ranks.items()):
+        res = out["flagship"]
+        if res["rows"] != (FLAGSHIP_ROWS_USED, LOG_N):
+            fail(f"[10c] rank {r}: the cached circuit has {res['rows']} rows")
+        for key in ("first", "proof"):
+            if res[key] != want:
+                where = first_difference(json.loads(res[key]), json.loads(want))
+                fail(f"[10c] rank {r}'s sharded proof ({key}) differs from phase 8's at {where}")
+        for name in ("ntt", "poseidon", "field", "gates"):
+            if res["launches"][name] <= 0:
+                fail(f"[10c] rank {r}'s sharded prove never launched the {name} kernel")
+        for kernel, e in out["err"].items():
+            chk.err[kernel] = max(chk.err[kernel], e)
+    walls = [ranks[r]["flagship"]["wall_s"] for r in sorted(ranks)]
+    log(f"[10c] two ranks sharing one {card} over gloo (no multi-GPU figure): the flagship "
+        f"(--synthetic {FLAGSHIP_COMMITTEE} --bls dummy --seed {seed}) proved by prove_sharded == "
+        f"phase 8's proof byte for byte on both ranks, accepted by verify; launches "
+        f"{[ranks[r]['flagship']['launches'] for r in sorted(ranks)]}")
+    log(json.dumps({"sharded_prove": {
+        "label": f"two ranks sharing one card ({card}) over gloo, not a multi-GPU figure",
+        "ranks": SHARDED_RANKS, "wall_s": walls,
+        "first_prove_s": [ranks[r]["flagship"]["first_s"] for r in sorted(ranks)],
+        "verify_s": [ranks[r]["flagship"]["verify_s"] for r in sorted(ranks)],
+        "setup_s": [ranks[r]["flagship"]["setup_s"] for r in sorted(ranks)],
+        "peak_gb": [ranks[r]["flagship"]["peak_gb"] for r in sorted(ranks)],
+        "phases_s": [ranks[r]["flagship"]["phases"] for r in sorted(ranks)],
+        "ranks_s": ranks_s, "big_ntt": big, "window_kernels": windows}}))
+    return {"big_ntt": big, "windows": windows, "walls": walls}
+
+
 def measure_flagship(torch, card: str, seed: int = 0) -> dict:
     """The flagship's entry for timing two checkouts in turns
     (tools/torch_kernel_times.py --flagship): cli.run --synthetic 512 --bls
@@ -2782,8 +3234,12 @@ def main() -> int:
     timed(5, phase5, torch)
     whole = timed(6, phase6, torch, chk, rng, card, args.seed)
     lc = timed(7, phase7, torch, chk, rng, card, args.seed)
-    timed(8, phase8, torch, card, args.seed)
-    aggregate = timed(9, phase9, torch, card, args.seed)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as cache_dir:
+        flagship = timed(8, phase8, torch, card, args.seed, cache_dir)
+        aggregate = timed(9, phase9, torch, card, args.seed)
+        timed(10, phase10, torch, chk, rng, card, args.seed, flagship)
     # the launches are those of the newest main path, phase 9's cli.run (the
     # eight inner proofs, preprocess and the first outer proof: every kernel
     # source); phases 4, 6, 7 and 8 have held their own above

@@ -69,15 +69,16 @@ class PoseidonGate(Gate):
     def __init__(self):
         self.num_constraints = NUM_ADVICE + pos.WIDTH  # 130
 
-    def absorb_quotient_device(self, wires_lde, consts, sel, apow_rows, accs, rate):
+    def absorb_quotient_device(self, wires_lde, consts, sel, apow_rows, accs, rate, window=False):
         """This gate's selector-weighted, alpha-combined constraints added to
         ``accs``, on the card: one launch of ``poseidon_gate_quotient_kernel``.
 
         wires_lde: (num_wires, n_lde) CUDA field tensor; sel: this gate's
         (n_lde,) selector row; apow_rows: per challenge the (130,) alpha
         powers in constraint order; accs: one (n_lde,) accumulator a
-        challenge, updated in place (``consts`` and ``rate`` are not used: the
-        gate has no constant column and reads no neighbouring row).  Returns
+        challenge, updated in place (``consts``, ``rate`` and ``window`` are
+        not used: the gate has no constant column and reads no neighbouring
+        row, so a shard's points are a view of its window).  Returns
         the accumulators, holding what the generic loop over ``eval()`` gives,
         word for word (its plain version, which runs for a CPU tensor).
         """

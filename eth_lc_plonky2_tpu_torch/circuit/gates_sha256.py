@@ -210,7 +210,7 @@ class Sha256RoundGate(Gate):
         out.append(A.mul(m_sched, range_prod(wires(CARRY_W), 3)))
         return out
 
-    def absorb_quotient_device(self, wires_lde, consts, sel, apow_rows, accs, rate):
+    def absorb_quotient_device(self, wires_lde, consts, sel, apow_rows, accs, rate, window=False):
         """This gate's selector-weighted, alpha-combined constraints added to
         ``accs``, on the card: one launch of ``sha_gate_quotient_kernel``.
 
@@ -220,10 +220,12 @@ class Sha256RoundGate(Gate):
         accs: one (n_lde,) accumulator a challenge, updated in place.  Returns
         the accumulators, holding what the generic loop over ``eval()`` gives,
         word for word (its plain version, which runs for a CPU tensor).
+        ``window``: the kernel's window form (a shard's points, the wires a
+        view whose halos hold the neighbour rows).
         """
         const_rows = tuple(consts(i) for i in (CONST_K, CONST_ROUND, CONST_SCHED, CONST_BITS))
         return kernels.sha_gate_quotient(wires_lde, KERNEL_LAYOUT, const_rows, sel,
-                                         apow_rows, accs, rate)
+                                         apow_rows, accs, rate, window)
 
 
 # ---------------------------------------------------------------------------

@@ -163,7 +163,9 @@ def run(
     missing card raises before any work; ``"cpu"`` runs the plain versions.
     When ``keep`` is a dict, the objects made are put into it (``data``,
     ``witness``, ``target``, ``bls_targets``, ``pd``, ``vk``, ``proof``,
-    ``bls_inners``) so that a caller can make witnesses and prove again."""
+    ``bls_inners``) so that a caller can make witnesses and prove again; with
+    ``skip_prove``, ``pd`` and ``vk`` are there only when the circuit came
+    from ``cache_dir``."""
     import torch
 
     from .circuit.builder import CircuitBuilder
@@ -325,6 +327,8 @@ def run(
 
     keep.update(data=data, witness=w, target=target, bls_targets=bls_targets,
                 bls_inners=bls_inners)
+    if pd is not None:  # loaded from cache_dir
+        keep.update(pd=pd, vk=vk)
     if skip_prove:
         return report
 

@@ -64,7 +64,10 @@
 //    products in registers; beta k_i, the alpha powers, beta and gamma sit in
 //    shared memory; the routed wires and sigma rows are read through their
 //    row strides (sigma as rows of the preprocessed LDE, no copy), and Z at
-//    the next row is column (x + 2^rate) mod n_lde, as ops/ntt.py `roll_lde`.
+//    the next row is column (x + 2^rate) mod n_lde, as ops/ntt.py `roll_lde`
+//    (in the window form, WINDOW = true, a shard's points: column x + 2^rate
+//    of a window whose halo holds it, unwrapped; the one-device form is the
+//    other instantiation, the kernel as it was).
 //    What bounds it: memory, 182 words read and 2 written a column (80 wires,
 //    80 sigmas, 20 Z rows, x, l0; 3.1 GB at 2^21) against 686 products; each
 //    word is loaded one step ahead of its use.
@@ -324,12 +327,13 @@ struct PermArgs {
   const uint64_t* betas;     // (2,)
   const uint64_t* gammas;    // (2,)
   const uint64_t* alpha[PERM_CHALLENGES];  // alpha_j^0 .. alpha_j^m
-  long long n_lde;  // a power of two
+  long long n_lde;  // the columns computed: a power of two
   long long next;   // 2^rate: the column of the next trace row
   int routed, chunk;
 };
 
 // out[j * n_lde + x] = sum_k alpha_j^k * term_k(x), canonical.
+template <bool WINDOW>
 __global__ void __launch_bounds__(256)
 perm_quotient_kernel(PermArgs a, uint64_t* __restrict__ out) {
   constexpr int NC = PERM_CHALLENGES;
@@ -353,7 +357,7 @@ perm_quotient_kernel(PermArgs a, uint64_t* __restrict__ out) {
   if (x >= a.n_lde) return;
   const uint64_t xv = a.x[x];
   const uint64_t l0 = a.l0[x];
-  const long long x_next = (x + a.next) & (a.n_lde - 1);
+  const long long x_next = WINDOW ? x + a.next : (x + a.next) & (a.n_lde - 1);
   // the sum of the terms as two sums: sum alpha * (chain[k+1] * den_k) and
   // sum alpha * (chain[k] * num_k), l0 * Z and l0 for term 0
   gl::Acc pos[NC], neg[NC];
@@ -823,13 +827,15 @@ extern "C" int elp_field_open_sum(const void* partial, long long slices, long lo
 }
 
 // One launch for the two challenges; `out` is (2, n_lde) and overlaps no input.
+// `mask` is n_lde - 1 (the next row wraps), or -1 for the window form.
 extern "C" int elp_perm_quotient(const void* wires, long long wires_stride, const void* sigma,
                                  long long sigma_stride, const void* zs, long long zs_stride,
                                  const void* x, const void* l0, const void* k_shifts,
                                  const void* betas, const void* gammas, const void* alpha0,
-                                 const void* alpha1, long long n_lde, int rate, int routed,
-                                 int chunk, void* out, int threads, void* stream) {
-  if (n_lde < 1 || (n_lde & (n_lde - 1)) || rate < 0 || rate > 30 || chunk < 1 ||
+                                 const void* alpha1, long long n_lde, long long mask, int rate,
+                                 int routed, int chunk, void* out, int threads, void* stream) {
+  if (n_lde < 1 || (n_lde & (n_lde - 1)) || (mask != n_lde - 1 && mask != -1) || rate < 0 ||
+      rate > 30 || chunk < 1 ||
       routed < chunk || routed % chunk || routed > PERM_MAX_ROUTED ||
       routed / chunk > PERM_MAX_CHUNKS || threads < 1 || threads > 256)
     return (int)cudaErrorInvalidValue;
@@ -837,8 +843,9 @@ extern "C" int elp_perm_quotient(const void* wires, long long wires_stride, cons
   const PermArgs a{w(wires), wires_stride, w(sigma), sigma_stride, w(zs), zs_stride, w(x), w(l0),
                    w(k_shifts), w(betas), w(gammas), {w(alpha0), w(alpha1)}, n_lde,
                    1ll << rate, routed, chunk};
-  perm_quotient_kernel<<<blocks_for(n_lde, threads, 1ll << 30), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(a, static_cast<uint64_t*>(out));
+  const auto kernel = mask == -1 ? perm_quotient_kernel<true> : perm_quotient_kernel<false>;
+  kernel<<<blocks_for(n_lde, threads, 1ll << 30), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<uint64_t*>(out));
   return (int)cudaGetLastError();
 }
 

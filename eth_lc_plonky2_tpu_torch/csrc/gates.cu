@@ -140,8 +140,11 @@ struct ShaLayout {
 struct ShaArgs {
   const uint64_t* wires;  // wire w at column c: wires[w * stride + c]
   long long stride;
-  long long mask;         // n_lde - 1 (n_lde is a power of two)
-  long long n_lde;
+  long long mask;         // n_lde - 1 (n_lde a power of two: neighbours wrap), or all
+                          // ones in the window form (WINDOW = true), in which `wires`
+                          // points at the first computed column of a window whose
+                          // halos hold the neighbours (a shard's points)
+  long long n_lde;        // the columns computed
   int step;               // 2^rate: the columns from one trace row to the next
   int halo_ae, halo_w;    // columns staged before a tile: 3 and 15 rows back
   ShaLayout L;
@@ -150,16 +153,20 @@ struct ShaArgs {
   uint64_t* acc[NCH];     // (n_lde,) updated in place
 };
 
-// Stage bit wires [first, first + 32) of the columns (x0 - halo + j) mod
-// n_lde, j < SHA_TILE + halo, into stage[j * STAGE_STRIDE + i]: a thread
-// copies whole columns, so a warp reads 32 adjacent words of a wire row.
-// Barriers on both sides: the block's reads of the last group are done
-// before, and the copies have landed after.
+// Stage bit wires [first, first + 32) of the columns (x0 - halo + j) & mask,
+// j < SHA_TILE + halo, into stage[j * STAGE_STRIDE + i]: a thread copies
+// whole columns, so a warp reads 32 adjacent words of a wire row.  In the
+// window form a column past n_lde - 1, which only the threads past n_lde
+// read (they store nothing) and which may lie beyond the window, is read at
+// n_lde - 1.  Barriers on both sides: the block's reads of the last group
+// are done before, and the copies have landed after.
+template <bool WINDOW>
 __device__ __forceinline__ void stage_bits(const ShaArgs& g, uint64_t* stage, int first,
                                            long long x0, int halo) {
   __syncthreads();
   for (int j = threadIdx.x; j < SHA_TILE + halo; j += SHA_TILE) {
-    const uint64_t* src = g.wires + (long long)first * g.stride + ((x0 - halo + j) & g.mask);
+    const long long c = WINDOW ? min(x0 - halo + j, g.n_lde - 1) : (x0 - halo + j) & g.mask;
+    const uint64_t* src = g.wires + (long long)first * g.stride + c;
     uint64_t* dst = stage + j * STAGE_STRIDE;
 #pragma unroll 8
     for (int i = 0; i < 32; ++i) __pipeline_memcpy_async(dst + i, src + i * g.stride, 8);
@@ -301,6 +308,7 @@ __device__ __forceinline__ uint64_t range_prod(uint64_t c, int hi) {
 // staged columns ((SHA_TILE + halo_w) x STAGE_STRIDE).  Every thread runs
 // every barrier; a thread past n_lde (n_lde < SHA_TILE) computes on staged
 // words of other columns and stores nothing.
+template <bool WINDOW>
 __global__ void __launch_bounds__(SHA_TILE, 2)
 sha_gate_quotient_kernel(ShaArgs g) {
   extern __shared__ uint64_t sha_shared[];
@@ -319,7 +327,7 @@ sha_gate_quotient_kernel(ShaArgs g) {
   // Each group: the raw bits at offset 0 (word, booleanity) and at -1, -2,
   // -3 (maj, ch), then the signs of the columns the sigma words read.
   // a: S0(a[-1]) + maj(a[-1], a[-2], a[-3])
-  stage_bits(g, stage, L.a_bits, x0, g.halo_ae);
+  stage_bits<WINDOW>(g, stage, L.a_bits, x0, g.halo_ae);
   const int t = threadIdx.x;
   const uint64_t* col = stage + (t + g.halo_ae) * STAGE_STRIDE;  // offset 0
   bits_here(col, wire_at(g, L.col_wa, x, 0), alpha, 0, masked);
@@ -331,7 +339,7 @@ sha_gate_quotient_kernel(ShaArgs g) {
     s0m = gl::add(s0m, sigma_of(signs));
   }
   // e: S1(e[-1]) + ch(e[-1], e[-2], e[-3])
-  stage_bits(g, stage, L.e_bits, x0, g.halo_ae);
+  stage_bits<WINDOW>(g, stage, L.e_bits, x0, g.halo_ae);
   bits_here(col, wire_at(g, L.col_we, x, 0), alpha, 1, masked);
   uint64_t s1c = ch_word(col - back, col - 2 * back, col - 3 * back);
   to_signs(stage, g.halo_ae - g.step, g.halo_ae - g.step + SHA_TILE, false);
@@ -341,7 +349,7 @@ sha_gate_quotient_kernel(ShaArgs g) {
     s1c = gl::add(s1c, sigma_of(signs));
   }
   // w: s1(w[-2]) + s0(w[-15]) = (2 (2^32 - 1) - s) / 2, s both sign sums
-  stage_bits(g, stage, L.w_bits, x0, g.halo_w);
+  stage_bits<WINDOW>(g, stage, L.w_bits, x0, g.halo_w);
   col = stage + (t + g.halo_w) * STAGE_STRIDE;
   bits_here(col, wire_at(g, L.col_ww, x, 0), alpha, 2, masked);
   to_signs(stage, g.halo_w - 15 * g.step, g.halo_w - 2 * g.step + SHA_TILE, true);
@@ -668,27 +676,29 @@ const uint64_t* words(const void* p) { return static_cast<const uint64_t*>(p); }
 }  // namespace
 
 // One launch for the two challenges, `acc0` and `acc1` updated in place (they
-// overlap no input).  `n_lde` is a power of two, at least 2; `layout` is 9
-// ints in ShaLayout's order (read on the host); `halo_ae` and `halo_w` are
+// overlap no input).  `n_lde` is a power of two, at least 2, and `mask` is
+// n_lde - 1, or -1 for the window form (ShaArgs); `layout` is 9 ints in
+// ShaLayout's order (read on the host); `halo_ae` and `halo_w` are
 // ops/kernels.py sha_gate_plan's (at least 3 and 15 rows of 2^rate columns).
 extern "C" int elp_sha_gate_quotient(const void* wires, long long stride, long long n_lde,
-                                     int rate, const int* layout, const void* k_t,
-                                     const void* m_round, const void* m_sched,
+                                     long long mask, int rate, const int* layout,
+                                     const void* k_t, const void* m_round, const void* m_sched,
                                      const void* m_bits, const void* sel, const void* alpha0,
                                      const void* alpha1, void* acc0, void* acc1, int halo_ae,
                                      int halo_w, void* stream) {
-  if (n_lde < 2 || (n_lde & (n_lde - 1)) || rate < 0 || rate > 8 || halo_ae < (3 << rate) ||
-      halo_w < (15 << rate) || halo_ae > halo_w)
+  if (n_lde < 2 || (n_lde & (n_lde - 1)) || (mask != n_lde - 1 && mask != -1) || rate < 0 ||
+      rate > 8 || halo_ae < (3 << rate) || halo_w < (15 << rate) || halo_ae > halo_w)
     return (int)cudaErrorInvalidValue;
   const size_t shared = ((size_t)NCH * SHA_CONSTRAINTS + (size_t)STAGE_STRIDE * (SHA_TILE + halo_w))
                         * sizeof(uint64_t);
-  cudaError_t err = cudaFuncSetAttribute(sha_gate_quotient_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  const auto kernel = mask == -1 ? sha_gate_quotient_kernel<true> : sha_gate_quotient_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)shared);
   if (err != cudaSuccess) return (int)err;
   ShaArgs g{};
   g.wires = words(wires);
   g.stride = stride;
-  g.mask = n_lde - 1;
+  g.mask = mask;
   g.n_lde = n_lde;
   g.step = 1 << rate;
   g.halo_ae = halo_ae;
@@ -704,8 +714,7 @@ extern "C" int elp_sha_gate_quotient(const void* wires, long long stride, long l
   g.alpha[1] = words(alpha1);
   g.acc[0] = static_cast<uint64_t*>(acc0);
   g.acc[1] = static_cast<uint64_t*>(acc1);
-  sha_gate_quotient_kernel<<<blocks_for(n_lde, SHA_TILE), SHA_TILE, shared,
-                             static_cast<cudaStream_t>(stream)>>>(g);
+  kernel<<<blocks_for(n_lde, SHA_TILE), SHA_TILE, shared, static_cast<cudaStream_t>(stream)>>>(g);
   return (int)cudaGetLastError();
 }
 

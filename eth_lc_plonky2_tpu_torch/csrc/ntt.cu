@@ -13,7 +13,8 @@
 // element i at in[b*in_b + k*in_k + i*in_i] and writes its output j at
 // out[b*out_b + k*out_k + j*out_j], so the same kernel serves
 //   * a whole row (n <= 2^11): K = 1, contiguous, one pass;
-//   * the column pass of a four-step (n = n1*n2 up to 2^22): strided reads,
+//   * the column pass of a four-step (n = n1*n2 up to 2^22, and n1*N beyond,
+//     N a four-step of its own): strided reads,
 //     output j of sub-transform k multiplied by the step twiddle w_n^(k*j);
 //   * the row pass of the four-step, which writes natural order directly.
 // The ops/ntt.py wrapper chooses the passes; callers see natural order in
@@ -43,7 +44,7 @@
 //     step twiddle w_n^(k*j) is the product of two entries of tables of at
 //     most 2^11 words (k*j = a*2^11 + b), which stay in cache, and not a
 //     gather over n words;
-//   * the pass count stays at two for every n <= 2^22, global accesses run
+//   * the pass count stays at two for every n <= 2^22 (three beyond), global accesses run
 //     along the contiguous axis (C >= 4 adjacent sub-transforms per block
 //     when that axis is k, whole 32-byte sectors), and shared-memory
 //     indices are swizzled for the bit-reversed scatter.
@@ -194,7 +195,7 @@ __global__ void ntt_pass_kernel(const NttParams p) {
     const long long k = s - (b << p.log_k);
     uint64_t x = sm[(c << log_m) + swz(j, log_m)];
     if (p.step_lo != nullptr) {
-      const long long e2 = k * j;  // < n <= 2^22 in a four-step
+      const long long e2 = k * j;  // < n in a four-step
       x = gl::mul(x, gl::mul_lazy(p.step_lo[e2 & ((1 << STEP_BITS) - 1)], p.step_hi[e2 >> STEP_BITS]));
     }
     const long long pos = k * p.out_k + (long long)j * p.out_j;

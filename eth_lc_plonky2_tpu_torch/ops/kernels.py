@@ -147,7 +147,7 @@ def _libraries() -> dict:
                   "elp_field_open": [vp, ll, ll, ll, vp, vp, i32, i32, ll, i32, ll, ll, vp, vp],
                   "elp_field_open_sum": [vp, ll, ll, vp, i32, vp],
                   "elp_perm_quotient": [vp, ll, vp, ll, vp, ll, vp, vp, vp, vp, vp, vp, vp, ll,
-                                        i32, i32, i32, vp, i32, vp],
+                                        ll, i32, i32, i32, vp, i32, vp],
                   "elp_perm_z": [vp, ll, vp, ll, vp, vp, vp, vp, ll, i32, i32, i32, vp, vp, i32, ll,
                                  ll, ll, i32, vp],
                   "elp_fri_g": [ctypes.POINTER(vp), ctypes.POINTER(ll), ctypes.POINTER(i32),
@@ -155,7 +155,7 @@ def _libraries() -> dict:
                                 i32, vp],
                   "elp_fri_fold": [vp, vp, vp, ctypes.c_ulonglong, ctypes.c_ulonglong, vp, vp, vp,
                                    vp, ll, i32, vp]},
-        "gates": {"elp_sha_gate_quotient": [vp, ll, ll, i32, ctypes.POINTER(i32), vp, vp, vp, vp,
+        "gates": {"elp_sha_gate_quotient": [vp, ll, ll, ll, i32, ctypes.POINTER(i32), vp, vp, vp, vp,
                                             vp, vp, vp, vp, vp, i32, i32, vp],
                   "elp_poseidon_gate_set_constants": [vp, ll, vp],
                   "elp_poseidon_gate_quotient": [vp, ll, ll, ctypes.POINTER(i32), vp, vp, vp, vp,
@@ -435,7 +435,7 @@ def field_open(coeffs: torch.Tensor, z_re: torch.Tensor, z_im: torch.Tensor) -> 
 
 
 def perm_quotient_plan(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas: list,
-                       chunk: int, rate_bits: int) -> dict:
+                       chunk: int, rate_bits: int, window: bool = False) -> dict:
     """How ``perm_quotient_kernel`` reads its arguments: checks what it assumes
     and returns the columns, the routed wires, the chunks, the row strides (in
     words) of the wires, the sigma rows and the Z rows, the column offset of
@@ -445,7 +445,12 @@ def perm_quotient_plan(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas:
     (rows of the wires' and the preprocessed LDE), ``zs`` the (2 m, n_lde) Z
     rows (Z and its m - 1 partials a challenge), ``x`` and ``l0`` dense
     (n_lde,) rows, ``k_shifts`` (routed,), ``betas`` and ``gammas`` (2,),
-    ``alphas`` one dense row of at least m + 1 powers a challenge."""
+    ``alphas`` one dense row of at least m + 1 powers a challenge.
+
+    ``window``: the columns are a shard's points, views at the first computed
+    column of windows whose halo holds Z at the next row (the mask is all
+    ones and nothing wraps); otherwise the next row of the last columns
+    wraps to the first (mask n_lde - 1)."""
     routed, n_lde = wires.shape if wires.dim() == 2 else (0, 0)
     if n_lde < 1 or n_lde & (n_lde - 1):
         raise ValueError(f"perm quotient: wires of shape {tuple(wires.shape)}")
@@ -475,28 +480,28 @@ def perm_quotient_plan(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas:
             raise ValueError(f"perm quotient: {name} on {t.device}, the wires on {wires.device}")
     return {"n_lde": n_lde, "routed": routed, "chunks": m, "wires_stride": wires.stride(0),
             "sigma_stride": sigma.stride(0), "zs_stride": zs.stride(0), "next": 1 << rate_bits,
-            "alpha_terms": m + 1}
+            "alpha_terms": m + 1, "mask": -1 if window else n_lde - 1}
 
 
 def perm_quotient(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas: list, chunk: int,
-                  rate_bits: int) -> torch.Tensor:
+                  rate_bits: int, window: bool = False) -> torch.Tensor:
     """Launch ``perm_quotient_kernel``: the (2, n_lde) accumulators
     sum_k alphas[j][k] * term_k of the permutation argument (term 0 is
     l0 * (Z - 1), term 1 + k chunk k's), as ``perm_quotient_plan`` reads
-    the arguments."""
+    the arguments (``window``: its window form)."""
     for t, name in ((wires, "wires"), (sigma, "sigma"), (zs, "zs"), (x, "x"), (l0, "l0"),
                     (k_shifts, "k_shifts"), (betas, "betas"), (gammas, "gammas")):
         _check(t, name)
     for j, a in enumerate(alphas):
         _check(a, f"alpha row {j}")
     plan = perm_quotient_plan(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas, chunk,
-                              rate_bits)
+                              rate_bits, window)
     out = torch.empty((PERM_CHALLENGES, plan["n_lde"]), dtype=torch.int64, device=wires.device)
     err = _libraries()["field"].elp_perm_quotient(
         wires.data_ptr(), plan["wires_stride"], sigma.data_ptr(), plan["sigma_stride"],
         zs.data_ptr(), plan["zs_stride"], x.data_ptr(), l0.data_ptr(), k_shifts.data_ptr(),
         betas.data_ptr(), gammas.data_ptr(), alphas[0].data_ptr(), alphas[1].data_ptr(),
-        plan["n_lde"], rate_bits, plan["routed"], chunk, out.data_ptr(), FIELD_THREADS,
+        plan["n_lde"], plan["mask"], rate_bits, plan["routed"], chunk, out.data_ptr(), FIELD_THREADS,
         _stream(wires))
     launches["field"] += 1
     _raise_on(err, "perm quotient")
@@ -632,7 +637,7 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.numel() > 0 and b.numel() > 0 and a0 < b1 and b0 < a1
 
 
-def sha_gate_plan(n_lde: int, rate_bits: int) -> dict:
+def sha_gate_plan(n_lde: int, rate_bits: int, window: bool = False) -> dict:
     """How ``sha_gate_quotient_kernel`` tiles the domain: ``SHA_TILE`` adjacent
     columns a block, one a thread; each group of 32 bit wires (a, e, w) is
     staged with the columns before the tile that its neighbours read, a and e
@@ -641,7 +646,12 @@ def sha_gate_plan(n_lde: int, rate_bits: int) -> dict:
     group.  ``staged_columns`` gives the columns a block stages.  Once the raw
     bits are read, the staged columns [lo, hi) of ``signs_ae`` (a, e: one row
     back) and ``signs_w`` (w: 2 and 15 rows back) are turned into the bits'
-    signs, which the sigma words read."""
+    signs, which the sigma words read.
+
+    ``window``: the n_lde columns are a shard's points, the middle of a
+    window whose halos hold the neighbours (at least 16 trace rows before
+    them); staged and neighbour columns are then read unwrapped (mask all
+    ones) relative to the first computed column."""
     if n_lde < 2 or n_lde & (n_lde - 1):
         raise ValueError(f"sha gate: {n_lde} columns is not a power of two of at least 2")
     halo_ae, halo_w = 3 << rate_bits, 15 << rate_bits
@@ -653,16 +663,20 @@ def sha_gate_plan(n_lde: int, rate_bits: int) -> dict:
     return {"n_lde": n_lde, "tile": SHA_TILE, "blocks": -(-n_lde // SHA_TILE), "step": step,
             "halo_ae": halo_ae, "halo_w": halo_w, "shared_bytes": shared,
             "signs_ae": (halo_ae - step, halo_ae - step + SHA_TILE),
-            "signs_w": (halo_w - 15 * step, halo_w - 2 * step + SHA_TILE)}
+            "signs_w": (halo_w - 15 * step, halo_w - 2 * step + SHA_TILE),
+            "mask": -1 if window else n_lde - 1}
 
 
 def staged_columns(plan: dict, block: int, halo: int) -> torch.Tensor:
     """The LDE columns a block of ``sha_gate_plan`` stages for a group with
-    ``halo``: staged column j is (x0 - halo + j) mod n_lde, x0 the block's
-    first column; the thread of column x0 + t reads trace row offset -k at
-    staged column t + halo - k * step."""
+    ``halo``: staged column j is (x0 - halo + j) & mask, x0 the block's first
+    column, and n_lde - 1 past it (only threads past n_lde read those); the
+    thread of column x0 + t reads trace row offset -k at staged column t +
+    halo - k * step.  In the window form a column is relative to the first
+    computed one, and negative in the halo."""
     x0 = block * plan["tile"]
-    return (torch.arange(plan["tile"] + halo, dtype=torch.int64) + x0 - halo) & (plan["n_lde"] - 1)
+    cols = (torch.arange(plan["tile"] + halo, dtype=torch.int64) + x0 - halo) & plan["mask"]
+    return cols.clamp(max=plan["n_lde"] - 1)
 
 
 def _gate_launch(kind: str, wires_lde, rows: dict, apow_rows, accs, num_constraints, call):
@@ -677,12 +691,14 @@ def _gate_launch(kind: str, wires_lde, rows: dict, apow_rows, accs, num_constrai
 
 
 def sha_gate_quotient(wires_lde, layout: tuple, consts: tuple, sel, apow_rows, accs,
-                      rate_bits: int) -> list:
+                      rate_bits: int, window: bool = False) -> list:
     """Launch ``sha_gate_quotient_kernel``: accs[j] += sel * sum_k apow_rows[j][k] *
     C_k in place, the SHA-256 round gate's 105 constraints in ``eval()``'s
     order; returns ``accs``.  ``layout`` is (COL_WA, COL_WE, COL_WW, A_BITS,
     E_BITS, W_BITS, CARRY_A, CARRY_E, CARRY_W); ``consts`` the four constant
-    rows (K, round, schedule and segment masks)."""
+    rows (K, round, schedule and segment masks).  ``window``: ``wires_lde``
+    is a view at the first computed column of a window whose halos hold the
+    16 trace rows before it (``sha_gate_plan``)."""
     k_t, m_round, m_sched, m_bits = consts
     rows = {"sel": sel, "k_t": k_t, "m_round": m_round, "m_sched": m_sched, "m_bits": m_bits}
     if len(layout) != 9 or max(layout[3:6]) + 32 > wires_lde.shape[0] or max(layout) >= wires_lde.shape[0]:
@@ -690,9 +706,9 @@ def sha_gate_quotient(wires_lde, layout: tuple, consts: tuple, sel, apow_rows, a
     c_layout = (ctypes.c_int * 9)(*layout)
 
     def call(n_lde, stride, alphas, acc):
-        plan = sha_gate_plan(n_lde, rate_bits)
+        plan = sha_gate_plan(n_lde, rate_bits, window)
         return _libraries()["gates"].elp_sha_gate_quotient(
-            wires_lde.data_ptr(), stride, n_lde, rate_bits, c_layout, k_t.data_ptr(),
+            wires_lde.data_ptr(), stride, n_lde, plan["mask"], rate_bits, c_layout, k_t.data_ptr(),
             m_round.data_ptr(), m_sched.data_ptr(), m_bits.data_ptr(), sel.data_ptr(),
             *alphas, *acc, plan["halo_ae"], plan["halo_w"], _stream(wires_lde))
 

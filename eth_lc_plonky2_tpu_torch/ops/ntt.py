@@ -5,8 +5,10 @@ axis, leading axes are batch; natural order in and out; the forward
 transform is unscaled and the inverse is scaled by 1/n.
 
 A CUDA tensor runs the hand-written kernel ``csrc/ntt.cu`` (through
-``kernels.ntt_pass``): one pass for n <= 2^11, otherwise a four-step of two
-passes (columns with the step twiddle, then rows that store natural order).
+``kernels.ntt_pass``): one pass for n <= 2^11, a four-step of two passes
+(columns with the step twiddle, then rows that store natural order) for n <=
+2^22, and three passes beyond, up to 2^33 (the four-step's row transform is
+itself a four-step: one launch a batch row for its column pass).
 The coset scale shift^i, shift^-i and the 1/n scale are applied inside the
 passes, and the LDE's zero padding is neither stored nor loaded: the first
 pass reads the n coefficients and is told how many stages only copy.  So no
@@ -27,7 +29,7 @@ import torch
 from . import goldilocks as gl
 from . import kernels
 
-MAX_LOG_N = 22  # two passes of at most 2^11
+MAX_LOG_N = 33  # three passes of at most 2^11
 
 
 def _log2(n: int) -> int:
@@ -143,7 +145,7 @@ def _passes(x: torch.Tensor, out: torch.Tensor, inverse: bool, in_tab=None, out_
     log2 = min(log_n // 2, log_in)
     log1 = log_n - log2
     if log1 > 11:
-        raise ValueError(f"cannot pad 2^{log_in} coefficients to 2^{log_n} in two passes")
+        return _three_passes(x, out, inverse, in_tab, out_tab, log_pad, scalar)
     n1, n2 = 1 << log1, 1 << log2
     tmp = torch.empty((b, n), dtype=torch.int64, device=dev)
     return [
@@ -156,6 +158,51 @@ def _passes(x: torch.Tensor, out: torch.Tensor, inverse: bool, in_tab=None, out_
                         tw=_stage_twiddles(log2, inverse, dev), log_m=log2,
                         out_tab=out_tab, scalar=scalar)),
     ]
+
+
+def _three_passes(x, out, inverse: bool, in_tab, out_tab, log_pad: int, scalar) -> list:
+    """n = n1 * n2 * n3 where two passes cannot do (beyond 2^22, or a padding
+    the column pass cannot read), each factor at most 2^11.  With i = i3 +
+    n3*i2 + N*i1 (N = n2*n3) and j = j1 + n1*j2 + n1*n2*j3:
+
+      A: over i1, times w_n^((i3 + n3*i2)*j1)      x -> out[j1*N + i3 + n3*i2]
+      B: over i2, times w_N^(i3*j2), a row apiece  -> tmp[j1*n3 + i3 + n1*n3*j2]
+      C: over i3                                   -> out[j1 + n1*j2 + n1*n2*j3]
+
+    A is the two-pass plan's column pass with n2 = N, and reads only the n_in
+    coefficients (N <= n_in).  B's sub-transforms (j1, i3) of one row take
+    j1 as the launch's row and i3 as its sub-transform, so that the step
+    exponent is k*j; a batch row of N-word rows has no single stride in its
+    output, so B is one launch a batch row.  C reads (j1 + n1*j2) with one
+    stride, and its output position is that of the whole row (``out_tab``).
+    A writes ``out`` in place of its input's positions (``out`` may be ``x``)
+    and C reads only ``tmp``."""
+    b, n_in = x.shape
+    log_in = _log2(n_in)
+    log_n = log_in + log_pad
+    log1 = max(-(-log_n // 3), log_pad)
+    log2 = -(-(log_n - log1) // 2)
+    log3 = log_n - log1 - log2
+    if max(log1, log2, log3) > 11:
+        raise ValueError(f"cannot pad 2^{log_in} coefficients to 2^{log_n} in three passes")
+    n, n1, n2, n3 = 1 << log_n, 1 << log1, 1 << log2, 1 << log3
+    big_n = n2 * n3
+    dev = x.device
+    tmp = torch.empty((b, n), dtype=torch.int64, device=dev)
+    passes = [(x, out, dict(total=b * big_n, K=big_n, in_strides=(n_in, 1, big_n),
+                            out_strides=(n, 1, big_n), tw=_stage_twiddles(log1, inverse, dev),
+                            log_m=log1, log_pad=log_pad, step=_step_tables(log_n, inverse, dev),
+                            in_tab=in_tab))]
+    step_b = _step_tables(log2 + log3, inverse, dev)
+    tw_b = _stage_twiddles(log2, inverse, dev)
+    for r in range(b):
+        passes.append((out[r], tmp[r], dict(total=n1 * n3, K=n3, in_strides=(big_n, 1, n3),
+                                            out_strides=(n3, 1, n1 * n3), tw=tw_b, log_m=log2,
+                                            step=step_b)))
+    passes.append((tmp, out, dict(total=b * n1 * n2, K=n1 * n2, in_strides=(n, n3, 1),
+                                  out_strides=(n, 1, n1 * n2), tw=_stage_twiddles(log3, inverse, dev),
+                                  log_m=log3, out_tab=out_tab, scalar=scalar)))
+    return passes
 
 
 def ntt_pass_plain(src, dst, *, total, K, in_strides, out_strides, tw, log_m, log_pad=0,

@@ -121,12 +121,17 @@ def g_plain(ldes, apow_f, y_f, z_f, x_dev, counts: dict, spec_tags: tuple):
     return nttm.sum_field(term[0], axis=0), nttm.sum_field(term[1], axis=0)
 
 
-def make_g_kernel(pd, counts: dict, num_specs: int, spec_tags: tuple):
-    """G(x) over the LDE domain; all proof scalars are arguments: one launch
-    of ``fri_g_kernel`` for CUDA tensors, ``g_plain`` for CPU tensors."""
+def make_g_kernel(pd, counts: dict, num_specs: int, spec_tags: tuple, points=None):
+    """G(x) over the LDE domain, or over its points [lo, lo + L) for
+    ``points`` = (lo, L) (a shard's); all proof scalars are arguments: one
+    launch of ``fri_g_kernel`` for CUDA tensors, ``g_plain`` for CPU
+    tensors."""
     data = pd.data
     cfg = data.config
-    x_dev = gl.from_u64(_lde_x(data.log_n, cfg.rate_bits), pd.device)
+    x_host = _lde_x(data.log_n, cfg.rate_bits)
+    if points is not None:
+        x_host = x_host[points[0] : points[0] + points[1]]
+    x_dev = gl.from_u64(x_host, pd.device)
     spec_batches = tuple(TAGS.index(t) for t in spec_tags)
 
     def kernel(ldes, apow_f, y_f, z_f):
@@ -186,11 +191,16 @@ def layer_cap_height(num_leaves: int) -> int:
 
 
 def fri_prove(pd, batches, openings, point_specs, zeta, fri_alpha, ch: Challenger,
-              prof=None) -> FriProof:
-    from .prove import _get_kernel, scalar_f, scalars_f  # local import to avoid a cycle
+              prof=None, phases=None) -> FriProof:
+    """FRI's commit phase, grind and queries.  ``phases`` (a ``prove.Phases``;
+    one device's by default) computes G and answers the batches' queries;
+    the layers, their trees and the rest run where G lies."""
+    from .prove import Phases, scalar_f, scalars_f  # local import to avoid a cycle
 
     if prof is None:
         prof = Profiler(enabled=False)
+    if phases is None:
+        phases = Phases(pd)
     prof.phase("fri_g_setup")
 
     data = pd.data
@@ -204,7 +214,6 @@ def fri_prove(pd, batches, openings, point_specs, zeta, fri_alpha, ch: Challenge
     offsets_g, total = _tag_offsets(counts)
     num_specs = len(point_specs)
     spec_tags = tuple(tag for tag, _ in point_specs)
-    gk = _get_kernel(pd, "fri_g", lambda: make_g_kernel(pd, counts, num_specs, spec_tags))
     # alpha powers (host)
     apow = [(1, 0)]
     for _ in range(total + num_specs - 1):
@@ -225,7 +234,7 @@ def fri_prove(pd, batches, openings, point_specs, zeta, fri_alpha, ch: Challenge
     y_f = (scalars_f([y[0] for y in ys], dev), scalars_f([y[1] for y in ys], dev))
     z_f = (scalars_f([z[0] for z in zs], dev), scalars_f([z[1] for z in zs], dev))
     prof.phase("fri_g_kernel")
-    g = gk(tuple(batches[t].lde for t in TAGS), apow_f, y_f, z_f)
+    g = phases.fri_g(batches, counts, spec_tags, apow_f, y_f, z_f)
 
     # --- commit phase (device-resident trees; host sees only caps) ---
     prof.phase("fri_folds")
@@ -270,7 +279,7 @@ def fri_prove(pd, batches, openings, point_specs, zeta, fri_alpha, ch: Challenge
     num_q = fri_cfg.num_query_rounds
     indices = [ch.challenge() % n_lde for _ in range(num_q)]
     cur = torch.tensor(indices, dtype=torch.int64, device=dev)
-    dev_batch = {tag: gather_rows_and_paths(batches[tag].tree, cur) for tag in TAGS}
+    dev_batch = phases.batch_queries(batches, cur)
     dev_layers = []
     sz = n_lde
     for tree in trees:

@@ -101,6 +101,21 @@ def gather_rows_and_paths(tree: MerkleTree, idx):
     return rows, paths
 
 
+def owned_rows_and_paths(tree: MerkleTree, idx: torch.Tensor, first: int) -> tuple:
+    """A rank's answers to queries of a point-sharded tree: ``tree`` holds the
+    leaves [first, first + num_leaves) and its levels' matching blocks down to
+    its rows of the cap (``parallel/commit.py``).  Returns (owned (k,) bool,
+    rows (k, L), paths (k, depth, 4)): each owned index's leaf row and path
+    below the cap, which equal the whole tree's, and zeros for the indices
+    another rank owns."""
+    local = idx - first
+    owned = (local >= 0) & (local < tree.num_leaves)
+    rows, paths = gather_rows_and_paths(tree, torch.where(owned, local, torch.zeros_like(local)))
+    zero = torch.zeros((), dtype=torch.int64, device=rows.device)
+    return (owned, torch.where(owned[:, None], rows, zero),
+            torch.where(owned[:, None, None], paths, zero))
+
+
 def verify_merkle_batch(leaf_rows, indices, paths, cap) -> bool:
     """Host check of a batch of queries against ONE tree, on the plain sponge.
 

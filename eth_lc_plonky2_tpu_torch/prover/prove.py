@@ -16,8 +16,13 @@ both challenges, three launches a proof; the quotient's permutation terms,
 one; the openings, at most two a batch; FRI's G and each fold, in
 ``prover/fri.py``), and the gates' share of the quotient is
 one launch of ``csrc/gates.cu`` for the SHA-256 gate, one for the Poseidon
-gate and one for the generic gates with the public inputs.  The sharded
-prover's ``put`` argument is not ported.
+gate and one for the generic gates with the public inputs.
+
+``prove`` is the transcript's order of phases (``prove_with``) driving a
+``Phases``: the device side of each phase on one device.  The sharded prover
+(``parallel/prover.py``) drives the same ``prove_with`` with its own
+``Phases``, whose tensors are a rank's shard, in place of the JAX package's
+``put`` argument.
 
 Host and device traffic: commitments (LDEs, Merkle levels) stay on the
 device for the whole prove; the host sees Merkle caps (for the
@@ -45,7 +50,7 @@ from ..ops import kernels
 from ..ops import ntt as nttm
 from ..ops import poseidon as pos
 from . import fri as frim
-from .merkle import MerkleTree, _levels_core
+from .merkle import MerkleTree, _levels_core, gather_rows_and_paths
 from .profiler import Profiler
 from .transcript import Challenger
 
@@ -68,11 +73,18 @@ def scalars_f(vs, device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class CommitmentBatch:
-    """A batch of polynomials committed together: one leaf per LDE point."""
+    """A batch of polynomials committed together: one leaf per LDE point.
+
+    On one device ``coeffs`` and ``lde`` hold every polynomial and point.  A
+    rank's shard (``parallel/commit.py``) holds some of the coefficient rows,
+    whose polynomial indices are ``rows`` (-1 for a padding row), and the
+    LDE's points [lo, lo + L) of every polynomial; ``tree`` is then its part
+    of the Merkle tree (``parallel/commit.py``)."""
 
     coeffs: torch.Tensor  # (num_polys, n)
     lde: torch.Tensor  # (num_polys, n << rate_bits)
     tree: MerkleTree
+    rows: list | None = None  # a shard's coefficient rows: their polynomial indices
 
     @property
     def cap(self) -> np.ndarray:
@@ -407,13 +419,26 @@ def generic_quotient_terms_plain(generic: list, A, wires, consts, pre_lde, lr_ro
     return accs
 
 
-def make_quotient_kernel(pd: ProverData):
+def make_quotient_values(pd: ProverData, window: tuple | None = None):
+    """The quotient's values on the LDE coset: a closure of (wires_lde,
+    zs_lde, pre_lde, pi_f, betas_f, gammas_f, alphas) -> (num_challenges, L)
+    field rows (the constraints' alpha-combination over Z_H), made once a
+    circuit with its domain tables.
+
+    ``window`` None: the whole domain, L = n_lde, the LDEs (rows, n_lde) and
+    every neighbour read wrapping.  ``window`` (lo, halo, L): a shard's
+    points [lo, lo + L), the LDEs its windows (rows, L + 2 halo) of the
+    points [lo - halo, lo + L + halo) mod n_lde; the kernels run their window
+    form on the middle L columns, and the plain versions run the eager code on
+    the whole window (no neighbour read there wraps) and keep the middle."""
     data = pd.data
     cfg = data.config
     dev = pd.device
     n = data.n
     rate = cfg.rate_bits
-    n_lde = n << rate
+    lo, halo, width = (0, 0, n << rate) if window is None else window
+    n_lde = width + 2 * halo  # the columns of the tables and of the plain versions
+    mid = slice(halo, halo + width)
     num_sel = len(data.gate_names)
     num_con = cfg.num_constants
     cs = cfg.permutation_chunk_size
@@ -424,8 +449,11 @@ def make_quotient_kernel(pd: ProverData):
 
     # Per-circuit domain tables, made once: the coset x, Z_H on it, and ONE
     # batched Fermat inversion over [Z_H, x - 1, x - w^r ...] on the device.
-    x_dev = gl.from_u64(_lde_domain_u64(data.log_n, rate), dev)
-    zh = gl.from_u64(_zh_on_lde(data.log_n, rate), dev)
+    x_host, zh_host = _lde_domain_u64(data.log_n, rate), _zh_on_lde(data.log_n, rate)
+    if window is not None:
+        cols = np.arange(lo - halo, lo + width + halo) % (n << rate)
+        x_host, zh_host = x_host[cols], zh_host[cols]
+    x_dev, zh = gl.from_u64(x_host, dev), gl.from_u64(zh_host, dev)
     n_inv = gl.h_inv(n)
     omega = gl.primitive_root_of_unity(data.log_n)
     pi_roots = [pow(omega, r, P) for (r, c) in data.public_input_targets]
@@ -446,7 +474,15 @@ def make_quotient_kernel(pd: ProverData):
     A = DeviceBaseAlgebra((n_lde,), dev)
     generic, own = split_gates(data)
 
-    def kernel(wires_lde, zs_lde, pre_lde, pi_f, betas_f, gammas_f, alphas: list):
+    on_window = window is not None  # the kernels' window form
+
+    def values(wires_win, zs_win, pre_win, pi_f, betas_f, gammas_f, alphas: list):
+        card = kernels.on_card(wires_win)
+        # the kernels compute the middle columns of the windows
+        wires_lde, zs_lde, pre_lde = ((wires_win[:, mid], zs_win[:, mid], pre_win[:, mid])
+                                      if card else (wires_win, zs_win, pre_win))
+        x_k, l0_k, lr_k = (x_dev[mid], l0[mid], lr_rows[:, mid]) if card else (x_dev, l0, lr_rows)
+
         def wires(col, offset=0):
             return _roll_lde(wires_lde[col], offset, rate)
 
@@ -468,9 +504,9 @@ def make_quotient_kernel(pd: ProverData):
 
         # the permutation terms 0..m: one launch of csrc/field.cu for both
         # challenges on the card, the eager chain on the CPU
-        if kernels.on_card(wires_lde):
-            accs = list(kernels.perm_quotient(w_all, sigma_all, zs_lde, x_dev, l0, ks_dev, betas_f,
-                                              gammas_f, apows, cs, rate))
+        if card:
+            accs = list(kernels.perm_quotient(w_all, sigma_all, zs_lde, x_k, l0_k, ks_dev, betas_f,
+                                              gammas_f, apows, cs, rate, window=on_window))
         else:
             accs = perm_quotient_terms_plain(w_all, sigma_all, zs_lde, x_dev, l0, ks_dev, betas_f,
                                              gammas_f, apows, cs, rate)
@@ -478,8 +514,8 @@ def make_quotient_kernel(pd: ProverData):
         # the public inputs 1+m.. and the generic gates from k0: one launch of
         # csrc/gates.cu on the card (in place), the eager loop on the CPU
         k0 = 1 + m + num_pi
-        if kernels.on_card(wires_lde):
-            kernels.generic_gate_quotient(generic, wires_lde, pre_lde, num_sel, num_con, lr_rows,
+        if card:
+            kernels.generic_gate_quotient(generic, wires_lde, pre_lde, num_sel, num_con, lr_k,
                                           pi_f, pi_cols, apows, accs, 1 + m, k0)
         else:
             accs = generic_quotient_terms_plain(generic, A, wires, consts, pre_lde, lr_rows, pi_f,
@@ -489,16 +525,30 @@ def make_quotient_kernel(pd: ProverData):
             s = pre_lde[gi]
             apow_rows = [apows[j][k0 : k0 + g.num_constraints] for j in range(cfg.num_challenges)]
             absorber = getattr(g, "absorb_quotient_device", None)
-            if absorber is not None and kernels.on_card(wires_lde):
+            if absorber is None and card and on_window:
+                raise ValueError(f"gate {g.name!r} has no kernel for a shard's window")
+            if absorber is not None and card:
                 # the gate's own kernel: the same words as the generic loop
-                accs[:] = absorber(wires_lde, consts, s, apow_rows, accs, rate)
+                accs[:] = absorber(wires_lde, consts, s, apow_rows, accs, rate, window=on_window)
             else:
                 accs[:] = absorb_quotient_generic(g, A, wires, consts, s, apow_rows, accs)
 
-        # split each quotient into 2^rate chunks of degree < n, coefficient form
-        quotients = gl.mul(torch.stack(accs), zh_inv[None, :])
-        qc = nttm.coset_intt(quotients, 0, SHIFT)  # (num_challenges, n_lde) coefficients
-        return qc.reshape(cfg.num_challenges << rate, n)
+        quotients = gl.mul(torch.stack(accs), (zh_inv[mid] if card else zh_inv)[None, :])
+        return quotients if card or not on_window else quotients[:, mid]
+
+    return values
+
+
+def make_quotient_kernel(pd: ProverData):
+    """The quotient's chunks in coefficient form: a closure of the arguments
+    of ``make_quotient_values`` -> (num_challenges << rate_bits, n) field
+    rows, each quotient split into 2^rate_bits chunks of degree < n."""
+    values = make_quotient_values(pd)
+    cfg = pd.data.config
+
+    def kernel(*args):
+        qc = nttm.coset_intt(values(*args), 0, SHIFT)  # (num_challenges, n_lde) coefficients
+        return qc.reshape(cfg.num_challenges << cfg.rate_bits, pd.data.n)
 
     return kernel
 
@@ -553,8 +603,66 @@ def eval_poly_ext_many(coeffs, z_exts: list):
 
 
 # ---------------------------------------------------------------------------
-# Main prove
+# Main prove: the transcript's phases, and their device side on one device
 # ---------------------------------------------------------------------------
+
+
+class Phases:
+    """The device side of each phase of ``prove_with`` on one device: every
+    polynomial and point of every batch on ``pd``'s device.  The sharded
+    prover's ``Phases`` (``parallel/prover.py``) keeps a rank's shard and
+    exchanges what the transcript needs; both hand the transcript the same
+    host words."""
+
+    def __init__(self, pd: ProverData):
+        self.pd = pd
+        self.device = pd.device
+        cfg = pd.data.config
+        self.rate, self.cap_h = cfg.rate_bits, cfg.cap_height
+
+    def upload(self, wires_u64: np.ndarray) -> None:
+        self.wires = gl.from_u64(wires_u64, self.device)
+
+    def commit_wires(self) -> CommitmentBatch:
+        return commit_field_values(self.wires, self.rate, self.cap_h)
+
+    def permutation(self, betas: list, gammas: list) -> torch.Tensor:
+        return permutation_polys(self.pd, self.wires, betas, gammas)
+
+    def commit_values(self, values: torch.Tensor) -> CommitmentBatch:
+        return commit_field_values(values, self.rate, self.cap_h)
+
+    def quotient(self, wires: CommitmentBatch, zs: CommitmentBatch, pi_values, betas: list,
+                 gammas: list, alphas: list) -> torch.Tensor:
+        """The quotient's chunks (num_challenges << rate, n), coefficient form."""
+        qk = _get_kernel(self.pd, "quotient", lambda: make_quotient_kernel(self.pd))
+        dev = self.device
+        return qk(wires.lde, zs.lde, self.pd.pre_batch.lde, scalars_f(pi_values, dev),
+                  scalars_f(betas, dev), scalars_f(gammas, dev), alphas)
+
+    def commit_coeffs(self, coeffs: torch.Tensor) -> CommitmentBatch:
+        return commit_coeffs(coeffs, self.rate, self.cap_h)
+
+    def open(self, batch: CommitmentBatch, points: list):
+        """Each polynomial of ``batch`` at host ext ``points``, on the device:
+        ((k, num_polys) re, (k, num_polys) im); ``to_host`` reads them."""
+        return eval_poly_ext_many(batch.coeffs, points)
+
+    def to_host(self, batch: CommitmentBatch, values) -> tuple:
+        """[device sync: the opening values] (re, im) u64 (k, num_polys)."""
+        return gl.to_u64(values[0]), gl.to_u64(values[1])
+
+    def fri_g(self, batches: dict, counts: dict, spec_tags: tuple, apow_f, y_f, z_f):
+        """G on the whole LDE coset: (re, im) rows of n_lde words."""
+        pd = self.pd
+        gk = _get_kernel(pd, "fri_g", lambda: frim.make_g_kernel(pd, counts, len(spec_tags),
+                                                                  spec_tags))
+        return gk(tuple(batches[t].lde for t in frim.TAGS), apow_f, y_f, z_f)
+
+    def batch_queries(self, batches: dict, idx: torch.Tensor) -> dict:
+        """Each batch's leaf rows and Merkle paths at the query indices, on the
+        device: {tag: (rows (q, num_polys), paths (q, depth, 4))}."""
+        return {tag: gather_rows_and_paths(batches[tag].tree, idx) for tag in frim.TAGS}
 
 
 def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Proof:
@@ -563,11 +671,15 @@ def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Pro
     ``pd`` comes from this module's ``preprocess``.  ``prof`` records the
     phases' times when enabled (default: a disabled one).
     """
+    return prove_with(Phases(pd), witness, prof)
+
+
+def prove_with(ph: Phases, witness: Witness, prof: Profiler | None = None) -> Proof:
+    """The transcript's order of phases, each phase's device side run by
+    ``ph``: the one-device ``prove`` and the sharded prover run this."""
+    pd = ph.pd
     data = pd.data
     cfg = data.config
-    dev = pd.device
-    rate = cfg.rate_bits
-    cap_h = cfg.cap_height
     if prof is None:
         prof = Profiler(enabled=False)
     prof.phase("witness_matrix")
@@ -578,7 +690,7 @@ def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Pro
         [witness.get(t) for t in data.public_input_targets], dtype=np.uint64
     ).reshape(-1)
     prof.phase("witness_upload")
-    wires_dev = gl.from_u64(wires_u64, dev)
+    ph.upload(wires_u64)
 
     ch = Challenger()
     ch.observe_cap(pd.pre_batch.cap)
@@ -586,7 +698,7 @@ def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Pro
 
     # 1. commit wires
     prof.phase("commit_wires")
-    wires_batch = commit_field_values(wires_dev, rate, cap_h)
+    wires_batch = ph.commit_wires()
     ch.observe_cap(wires_batch.cap)  # [device sync: cap transfer]
 
     # 2. permutation challenges + Z/partials, one batch of rows a challenge set
@@ -595,26 +707,17 @@ def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Pro
     for _ in range(cfg.num_challenges):
         betas.append(ch.challenge())
         gammas.append(ch.challenge())
-    zs_vals = permutation_polys(pd, wires_dev, betas, gammas)
+    zs_vals = ph.permutation(betas, gammas)
     prof.phase("commit_zs")
-    zs_batch = commit_field_values(zs_vals, rate, cap_h)
+    zs_batch = ph.commit_values(zs_vals)
     ch.observe_cap(zs_batch.cap)  # [device sync]
 
     # 3. quotient
     prof.phase("quotient")
     alphas = [ch.challenge() for _ in range(cfg.num_challenges)]
-    qk = _get_kernel(pd, "quotient", lambda: make_quotient_kernel(pd))
-    chunk_coeffs = qk(
-        wires_batch.lde,
-        zs_batch.lde,
-        pd.pre_batch.lde,
-        scalars_f(pi_values, dev),
-        scalars_f(betas, dev),
-        scalars_f(gammas, dev),
-        alphas,
-    )
+    chunk_coeffs = ph.quotient(wires_batch, zs_batch, pi_values, betas, gammas, alphas)
     prof.phase("commit_quotient")
-    quotient_batch = commit_coeffs(chunk_coeffs, rate, cap_h)
+    quotient_batch = ph.commit_coeffs(chunk_coeffs)
     ch.observe_cap(quotient_batch.cap)  # [device sync]
 
     # 4. opening point + openings (one batched evaluation per batch)
@@ -632,13 +735,11 @@ def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Pro
     tag_offsets: dict[str, list[int]] = {}
     for tag, offset in point_specs:
         tag_offsets.setdefault(tag, []).append(offset)
-    open_dev = {
-        tag: eval_poly_ext_many(batches[tag].coeffs, [point_at(o) for o in offs])
-        for tag, offs in tag_offsets.items()
-    }
+    open_dev = {tag: ph.open(batches[tag], [point_at(o) for o in offs])
+                for tag, offs in tag_offsets.items()}
     openings = {}
     for tag, offs in tag_offsets.items():  # [device sync: the opening values]
-        re_u, im_u = gl.to_u64(open_dev[tag][0]), gl.to_u64(open_dev[tag][1])
+        re_u, im_u = ph.to_host(batches[tag], open_dev[tag])
         for j, off in enumerate(offs):
             openings[(tag, off)] = np.stack([re_u[j], im_u[j]], axis=1)
 
@@ -651,7 +752,7 @@ def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Pro
     prof.phase("fri")
     fri_alpha = ch.challenge_ext()
     fri_proof = frim.fri_prove(
-        pd, batches, openings, point_specs, zeta, fri_alpha, ch, prof=prof
+        pd, batches, openings, point_specs, zeta, fri_alpha, ch, prof=prof, phases=ph
     )
     prof.finish()
 

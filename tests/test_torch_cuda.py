@@ -508,3 +508,61 @@ def test_prove_stream_on_the_card_equals_sequential_proves(dev):
     for val, proof in zip(inputs, streamed):
         again = prove.prove(pd, make_witness(data, val))
         assert serialize.proof_to_dict(proof, True) == serialize.proof_to_dict(again, True)
+
+
+# ---------------------------------------------------------------------------
+# The NTT past 2^22, the kernels' window form, one rank over NCCL
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("log_n", [23, 24])
+def test_three_pass_ntt_matches_plain(dev, log_n):
+    t = gl.from_u64(_rand((2, 1 << log_n), log_n), dev)
+    before = kernels.launches["ntt"]
+    assert torch.equal(ntt.ntt(t), ntt.ntt_plain(t))
+    assert torch.equal(ntt.coset_intt(t, 0), ntt.coset_intt_plain(t, 7))
+    assert kernels.launches["ntt"] == before + 2 * (2 + 2)  # A, B a row, C
+    c = gl.from_u64(_rand((2, 1 << (log_n - 3)), log_n + 1), dev)
+    assert torch.equal(ntt.coset_lde(c, 3), ntt.coset_lde_plain(c, 3, 7))
+
+
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("n_lde", [1 << 7, 1 << 12, 1 << 15])
+def test_window_form_kernels_match_plain(dev, size, n_lde):
+    """The four quotient kernels' window form on every rank's window of a
+    domain split ``size`` ways (chip_smoke.py phase 10's check) against the
+    plain versions on the window, cut to the middle."""
+    import chip_smoke
+
+    chk = chip_smoke.Checker()
+    saved = chip_smoke.GATE_SIZES, chip_smoke.LOG_N
+    chip_smoke.GATE_SIZES, chip_smoke.LOG_N = (n_lde,), n_lde.bit_length() - 1 - chip_smoke.RATE_BITS
+    try:
+        before = dict(kernels.launches)
+        for rank in range(size):
+            chip_smoke.check_window_kernels(torch, chk, np.random.default_rng(rank), rank, size,
+                                            "[cuda test]")
+    finally:
+        chip_smoke.GATE_SIZES, chip_smoke.LOG_N = saved
+    assert kernels.launches["gates"] == before["gates"] + 3 * size
+    assert kernels.launches["field"] >= before["field"] + size
+    assert chk.err == {"ntt": 0.0, "poseidon": 0.0, "field": 0.0, "gates": 0.0}
+
+
+def test_one_nccl_rank_proves_the_dryrun_reference(dev, tmp_path):
+    """make_dist_ntt, make_sharded_commit and prove_sharded on one rank over
+    NCCL against the one-device functions and assets/dryrun/ref_proof.json."""
+    import chip_smoke
+    from eth_lc_plonky2_tpu_torch.parallel import distributed as dist
+
+    saved = chip_smoke.LOG_N, chip_smoke.DIST_NTT_LOGS
+    chip_smoke.LOG_N, chip_smoke.DIST_NTT_LOGS = 12, (10, 16)
+    dist.initialize("file://" + str(tmp_path / "store"), 1, 0)
+    try:
+        mesh = dist.make_global_mesh()
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        chk = chip_smoke.Checker()
+        chip_smoke.check_sharded_steps(torch, chk, mesh, "[cuda test]")
+    finally:
+        chip_smoke.LOG_N, chip_smoke.DIST_NTT_LOGS = saved
+        dist.shutdown()

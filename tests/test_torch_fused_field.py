@@ -159,7 +159,10 @@ def test_perm_quotient_plan_gives_strides_roll_and_alpha_terms():
     args = _perm_args(n_lde=64, num_wires=24, num_pre=30, sigma_at=6)
     plan = kernels.perm_quotient_plan(*args)
     assert plan == {"n_lde": 64, "routed": NR, "chunks": NR // CS, "wires_stride": 64,
-                    "sigma_stride": 64, "zs_stride": 64, "next": 1 << RATE, "alpha_terms": 5}
+                    "sigma_stride": 64, "zs_stride": 64, "next": 1 << RATE, "alpha_terms": 5,
+                    "mask": 63}
+    # the window form (a shard's points): the next row is read unwrapped
+    assert kernels.perm_quotient_plan(*args, window=True)["mask"] == -1
     # sigma is read in place: its first word is word 6 * 64 of the preprocessed LDE
     assert args[1].storage_offset() == 6 * 64
     # rows of wider arrays keep their own row strides

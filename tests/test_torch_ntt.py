@@ -118,3 +118,61 @@ def test_plan_refuses_what_two_passes_cannot_pad():
     x = torch.zeros(1, 2, dtype=torch.int64)
     with pytest.raises(ValueError):
         ntt._passes(x, torch.zeros(1, 1 << 13, dtype=torch.int64), False, log_pad=12)
+
+
+# ---------------------------------------------------------------------------
+# Three passes: the plan beyond 2^22 (and where two passes cannot pad)
+# ---------------------------------------------------------------------------
+
+
+def _three(x, out, inverse=False, in_tab=None, out_tab=None, log_pad=0):
+    """``_three_passes`` forced at a small size, walked with the plain
+    version of one launch."""
+    scalar = gl.h_inv(out.shape[1]) if inverse else None
+    for src, dst, args in ntt._three_passes(x, out, inverse, in_tab, out_tab, log_pad, scalar):
+        ntt.ntt_pass_plain(src, dst, **args)
+    return out
+
+
+@pytest.mark.parametrize("log_n", [3, 7, 10])
+def test_three_pass_plan_matches_plain(log_n):
+    x = gl.from_u64(_values(log_n))
+    n = 1 << log_n
+    assert torch.equal(_three(x, torch.empty_like(x)), ntt.ntt_plain(x))
+    in_place = x.clone()
+    assert torch.equal(_three(in_place, in_place, inverse=True), ntt.ntt_plain(x, inverse=True))
+    got = _three(x, torch.empty_like(x), inverse=True, out_tab=ntt._powers_on(gl.h_inv(7), n, "cpu"))
+    assert torch.equal(got, ntt.coset_intt_plain(x, 7))
+    head = x[:, : n >> 2].contiguous()
+    got = _three(head, torch.empty_like(x), in_tab=ntt._powers_on(7, n >> 2, "cpu"), log_pad=2)
+    assert torch.equal(got, ntt.coset_lde_plain(head, 2, 7))
+
+
+def test_three_pass_plan_shape():
+    """2^21 coefficients to a 2^24 LDE: the column pass reads the
+    coefficients unpadded, the middle pass is one launch a row, and no pass
+    is longer than 2^11."""
+    x = torch.zeros(2, 1 << 21, dtype=torch.int64)
+    out = torch.zeros(2, 1 << 24, dtype=torch.int64)
+    passes = ntt._passes(x, out, False, in_tab=torch.zeros(1 << 21, dtype=torch.int64), log_pad=3)
+    assert len(passes) == 2 + 2
+    assert passes[0][0] is x and passes[0][2]["log_pad"] == 3 and passes[0][2]["in_strides"][0] == 1 << 21
+    assert [p[2]["log_m"] for p in passes] == [8, 8, 8, 8] and passes[-1][1] is out
+    assert ntt.MAX_LOG_N >= 24
+
+
+@pytest.mark.slow  # about 4 min together on one CPU worker
+def test_three_passes_match_the_jax_package_at_2_23():
+    x = np.random.default_rng(23).integers(0, gl.P, size=(1, 1 << 23), dtype=np.uint64)
+    out = torch.empty((1, 1 << 23), dtype=torch.int64)
+    got = _planned(gl.from_u64(x), out, inverse=False)
+    assert np.array_equal(gl.to_u64(got), jgl.to_u64(jntt.ntt(jgl.from_u64(x))))
+
+
+@pytest.mark.slow  # about 4 min together on one CPU worker
+def test_three_passes_make_the_jax_packages_2_24_lde_from_2_21_coefficients():
+    x = np.random.default_rng(24).integers(0, gl.P, size=(1, 1 << 21), dtype=np.uint64)
+    out = torch.empty((1, 1 << 24), dtype=torch.int64)
+    got = _planned(gl.from_u64(x), out, inverse=False, in_tab=ntt._powers_on(7, 1 << 21, "cpu"),
+                   log_pad=3)
+    assert np.array_equal(gl.to_u64(got), jgl.to_u64(jntt.coset_lde(jgl.from_u64(x), 3)))

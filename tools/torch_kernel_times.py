@@ -12,8 +12,9 @@ kernel at one main-path shape, and the ``torch.profiler`` split by kernel
 name; then ``measure_gate_kernels``: the SHA-256 and Poseidon gates' kernels
 at (184, 2^21) against the generic loop; then ``measure_perm_polys``: the
 permutation rows of both challenges at (80, 2^18) through
-``prove.compute_permutation_polys``); a turn prints its log lines and then
-one JSON line of the numbers.
+``prove.compute_permutation_polys``; then ``measure_quotient_kernels``: the
+permutation terms' and the generic share's kernels at 2^21); a turn prints
+its log lines and then one JSON line of the numbers.
 
     python3 tools/torch_kernel_times.py --parent DIR --flagship
 
@@ -54,6 +55,7 @@ def turn(tag: str, root: str, flagship: bool) -> None:
     res = smoke.measure(torch, chk, rng, card, smoke.flagship_inputs(rng))
     res["gates"] = smoke.measure_gate_kernels(torch, chk, rng, card)
     res["perm_polys"] = smoke.measure_perm_polys(torch, rng, card)
+    res["quotient_kernels"] = smoke.measure_quotient_kernels(torch, rng, card)
     if flagship and importlib.util.find_spec("eth_lc_plonky2_tpu_torch.cli") is not None:
         res["flagship"] = smoke.measure_flagship(torch, card)
     print(json.dumps({"tag": tag, "build_s": build["seconds"], **res}), flush=True)
