@@ -64,7 +64,8 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      chain, proofs from a forged SHA-256 bit wire and from a forged Poseidon
      s-box output must be rejected, the launches must be the plan's (three of
      csrc/gates.cu: the two gates and the generic gates with the public
-     inputs; csrc/field.cu's fused kernels, one or two an opening batch, three
+     inputs; csrc/field.cu's fused kernels, three for the openings of all
+     batches (the power table, the product, the slices' sum), three
      for the permutation rows (perm_z_kernel, its scan and its fix-up, counted
      around their call too: no elementwise launch there), one for the
      permutation terms, one for FRI's G and one a FRI fold, also by name in
@@ -187,8 +188,9 @@ TREE_CAPS = (0, 4)
 DEVICE = "cuda"
 # csrc/field.cu launches of one steady prove of phase 6's circuit: one an eager
 # field op that gives a non-empty result (mul_small by 0 or 1 launches none),
-# two an opening batch (field_open_kernel and its sum over the slices: P, W, Z,
-# Q), one for the permutation terms, one for FRI's G and one a FRI fold.  A
+# three for the openings of all batches (the power table, field_open_kernel
+# and its sum over the slices), one for the permutation terms, one for FRI's G
+# and one a FRI fold.  A
 # change in the number of eager ops shows here.  Recounted from the code when
 # the openings and the permutation terms were fused: the 3,189 eager
 # launches less 276 an opening point at 2^18 (5 points) and 358 for the
@@ -200,15 +202,19 @@ DEVICE = "cuda"
 # the alpha powers came from the host: less the 84 eager ops and 2 inversions
 # of the permutation rows and the 24 of the alpha powers' log-doubling, plus
 # the 3 launches of perm_z_kernel, its scan and its fix-up (134 - 110 + 3).
-# What is left: the quotient's product by 1 / Z_H, the permutation rows (3),
-# the openings (4 + 4), the permutation terms, G and the 13 folds.
-STEADY_FIELD_LAUNCHES = 27
+# And when the openings became one call for all batches: less 4 + 4, plus
+# 3 (27 - 8 + 3).  What is left: the quotient's product by 1 / Z_H, the
+# permutation rows (3), the openings (3), the permutation terms, G and the 13
+# folds.
+STEADY_FIELD_LAUNCHES = 22
 
 # The card's peaks (NVIDIA H100 SXM data sheet): 3.35 TB/s of device memory,
 # and 67 TFLOP/s of float32 = 33.5 T multiply-adds/s on 128 lanes an SM, of
 # which 64 do 32-bit integer multiply-adds: 16.75 T/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_MADS_PER_S = 67e12 / 2 / 2
+# The int8 tensor cores, dense: 1,979 T operations/s (a multiply-add is two).
+PEAK_INT8_OPS_PER_S = 1979e12
 # 32 x 32 multiply-adds of one permutation in the cheapest form known: 118
 # S-boxes of two squares (3 partial products of a 64 x 64 square) and two
 # general products (4); 8 dense layers as two length-6 correlations on four
@@ -1017,7 +1023,8 @@ def check_proof(data, vk, proof, witness, what: str) -> None:
 BY_SOURCE = {"ntt_pass_kernel": "ntt", "sponge_kernel": "poseidon",
              "merkle_level_kernel": "poseidon", "merkle_tail_kernel": "poseidon",
              "field_binary_kernel": "field", "field_inv_kernel": "field",
-             "field_open_kernel": "field", "field_open_sum_kernel": "field",
+             "field_open_table_kernel": "field", "field_open_kernel": "field",
+             "field_open_sum_kernel": "field",
              "perm_quotient_kernel": "field", "fri_g_kernel": "field", "fri_fold_kernel": "field",
              "perm_z_kernel": "field", "perm_z_scan_kernel": "field", "perm_z_fixup_kernel": "field",
              "sha_gate_quotient_kernel": "gates", "poseidon_gate_quotient_kernel": "gates",
@@ -1161,9 +1168,11 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
 
 
 def fused_launch_plan(pd) -> dict:
-    """The launches of the fused kernels in one steady prove: per opening
-    batch one field_open_kernel and, with more than one slice, one
-    field_open_sum_kernel; one perm_quotient_kernel, one fri_g_kernel, one
+    """The launches of the fused kernels in one steady prove: for the
+    openings of all batches one field_open_table_kernel, one
+    field_open_kernel (one a group of at most 8 entries: one at phase 7's
+    shapes) and, with more than one slice, one field_open_sum_kernel with
+    each; one perm_quotient_kernel, one fri_g_kernel, one
     fri_fold_kernel a FRI layer; one generic_gate_quotient_kernel; one each of
     perm_z_kernel, perm_z_scan_kernel and perm_z_fixup_kernel; and of the
     elementwise kernels only the quotient's product by 1 / Z_H (the inverse
@@ -1178,9 +1187,10 @@ def fused_launch_plan(pd) -> dict:
     points = {}
     for tag, _ in prove.opening_point_specs(pd.data):
         points[tag] = points.get(tag, 0) + 1
-    plans = [kernels.field_open_plan(rows[tag], pd.data.n, k) for tag, k in points.items()]
-    return {"field_open_kernel": len(plans),
-            "field_open_sum_kernel": sum(p["launches"] - 1 for p in plans),
+    plans = kernels.field_open_plans([rows[tag] for tag in points],
+                                     [tuple(range(k)) for k in points.values()], pd.data.n)
+    return {"field_open_table_kernel": 1, "field_open_kernel": len(plans),
+            "field_open_sum_kernel": sum(plan["launches"] - 2 for _, plan in plans),
             "perm_quotient_kernel": 1, "fri_g_kernel": 1,
             "fri_fold_kernel": pd.data.log_n - cfg.fri.final_poly_bits,
             "generic_gate_quotient_kernel": 1, "perm_z_kernel": 1, "perm_z_scan_kernel": 1,
@@ -1285,8 +1295,9 @@ GATE_SIZES = (1 << 7, 1 << 8, 1 << 9, 1 << 12, 1 << 15)
 # points), counted as STEADY_FIELD_LAUNCHES: 5,187 - 12 x 276 - 358 + 9 =
 # 1,526, then 1,526 - 896 (generic gates and 12 public inputs) - 272 (G) -
 # 234 (folds) + 14, then 138 - 86 (the permutation rows) - 28 (the alpha
-# powers) + 3: the same launches as phase 6's.
-LC_STEADY_FIELD_LAUNCHES = 27
+# powers) + 3, then 27 - 8 + 3 (the openings in one call): the same launches
+# as phase 6's.
+LC_STEADY_FIELD_LAUNCHES = 22
 
 # 32 x 32 multiply-adds a column of each gate, two challenges, each polynomial
 # in the cheapest form known (which is also csrc/gates.cu's): a field product
@@ -1580,11 +1591,12 @@ def on_plain(fn):
     return out
 
 
-def opening_inputs(rng, log_n: int, zeta=None) -> list:
-    """Phase 7's four opening batches at 2^log_n coefficients on the card:
-    [(tag, (rows, n) coefficients, z_re, z_im)], the points zeta * omega^o of
-    each batch's offsets, zeta seeded unless given; the edge words stand in
-    the first and the last columns of the coefficients."""
+def opening_inputs(rng, log_n: int, zeta=None) -> dict:
+    """Phase 7's four opening batches at 2^log_n coefficients on the card, as
+    the prover's one call takes them: {"tags", "coeffs": [(rows, n)], "z_re",
+    "z_im": the union of the points zeta * omega^o of the batches' offsets,
+    "rows": each batch's indices into it}; zeta seeded unless given; the edge
+    words stand in the first and the last columns of the coefficients."""
     from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, goldilocks_ext as ge
 
     n = 1 << log_n
@@ -1592,15 +1604,36 @@ def opening_inputs(rng, log_n: int, zeta=None) -> list:
         zeta = tuple(int(v) for v in rng.integers(0, gl.P, size=2, dtype=np.uint64))
     omega = gl.primitive_root_of_unity(log_n)
     edge = field_edge_words()
-    out = []
+    union = sorted({o for _, _, offsets in OPEN_BATCHES for o in offsets})
+    points = [ge.h_mul(zeta, (pow(omega, o % n, gl.P), 0)) for o in union]
+    coeffs = []
     for tag, rows, offsets in OPEN_BATCHES:
         c = rng.integers(0, gl.P, size=(rows, n), dtype=np.uint64)
         c[:, : min(n, len(edge))] = edge[: min(n, len(edge))]
         c[::3, -1] = edge[-1]
-        points = [ge.h_mul(zeta, (pow(omega, o % n, gl.P), 0)) for o in offsets]
-        out.append((tag, gl.from_u64(c, DEVICE), gl.from_u64([z[0] for z in points], DEVICE),
-                    gl.from_u64([z[1] for z in points], DEVICE)))
-    return out
+        coeffs.append(gl.from_u64(c, DEVICE))
+    return {"tags": [tag for tag, _, _ in OPEN_BATCHES], "coeffs": coeffs,
+            "z_re": gl.from_u64([z[0] for z in points], DEVICE),
+            "z_im": gl.from_u64([z[1] for z in points], DEVICE),
+            "rows": [tuple(union.index(o) for o in offsets) for _, _, offsets in OPEN_BATCHES]}
+
+
+def open_all(inp, plain: bool = False) -> list:
+    """The openings of every batch of ``inp`` (``opening_inputs``) in one call
+    of ``prove.open_batches``: the kernels, or the plain versions."""
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    def run():
+        return prove.open_batches(inp["coeffs"], inp["z_re"], inp["z_im"], inp["rows"])
+
+    return on_plain(run) if plain else run()
+
+
+def open_plan(inp) -> dict:
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    return kernels.field_open_plan([(c.shape[0], len(r)) for c, r in zip(inp["coeffs"], inp["rows"])],
+                                   inp["coeffs"][0].shape[1])
 
 
 def perm_inputs(rng, log_n_lde: int) -> tuple:
@@ -1624,16 +1657,6 @@ def perm_inputs(rng, log_n_lde: int) -> tuple:
             dev(hf.powers(gl.MULTIPLICATIVE_GENERATOR, NUM_ROUTED)), dev(scalars[0]),
             dev(scalars[1]), [dev(rng.integers(0, gl.P, size=30, dtype=np.uint64)) for _ in range(2)],
             PERM_CHUNK, RATE_BITS)
-
-
-def open_all(batches, plain: bool = False) -> list:
-    """``_open_core`` of each batch: the kernels, or the plain versions."""
-    from eth_lc_plonky2_tpu_torch.prover import prove
-
-    def run():
-        return [prove._open_core(c, zr, zi) for _, c, zr, zi in batches]
-
-    return on_plain(run) if plain else run()
 
 
 def perm_terms(inputs, plain: bool = False):
@@ -1798,74 +1821,95 @@ def fold_terms(inp, mode: str = "kernel"):
     return on_plain(run) if mode == "plain" else run()
 
 
-# 32 x 32 multiply-adds, in the cheapest form known (a 64 x 64 product is 4,
-# its reduction one more, a multiply-accumulate into the column sums 4):
-# the openings, per coefficient and point, two multiply-accumulates, and per
-# column and point one ext product for z^c (four multiply-accumulates and two
-# reductions); the permutation terms, per column and challenge, per chunk of
-# 8 wires 8 + 8 products for the factors and 7 + 7 for the running products,
-# 2 for the chain terms and 2 multiply-accumulates by alpha, and for term 0
-# one product and 2 multiply-accumulates.
-OPEN_MADS_PER_COEFF_POINT = 2 * 4
-OPEN_MADS_PER_COLUMN_POINT = 4 * 4 + 2
+# The openings' least work: the coefficients read once, the points read and
+# the values written once (8 bytes a word; the power table and the slices'
+# partial sums are csrc/field.cu's intermediates, not counted); on the int8
+# tensor cores, 64 byte-plane pairs for each coefficient word and power word
+# that meet (rows x 2 points x n), each a multiply-add of two operations, no
+# tile padding; the powers z^c themselves on the integer pipe, one ext
+# product (4 multiply-accumulates and 2 reductions, 26 in the count below)
+# for each point and column past the first.  The two pipes run side by side, so the operations' time is
+# the larger of theirs.  32 x 32 multiply-adds, in the cheapest form known (a 64 x
+# 64 product is 4, its reduction one more, a multiply-accumulate into the
+# column sums 4): the permutation terms, per column and challenge, per chunk
+# of 8 wires 8 + 8 products for the factors and 7 + 7 for the running
+# products, 2 for the chain terms and 2 multiply-accumulates by alpha, and for
+# term 0 one product and 2 multiply-accumulates.
+OPEN_PLANE_PAIRS = 64
 PERM_MADS_PER_COLUMN = 2 * ((NUM_ROUTED // PERM_CHUNK) * ((2 * PERM_CHUNK + 2 * (PERM_CHUNK - 1) + 2) * 5
                                                           + 2 * 4) + 5 + 2 * 4)
+
+
+def open_bound(inp) -> tuple:
+    """The openings' least time on the card: (ms, "bytes" or "operations",
+    bytes, int8 operations, 32 x 32 multiply-adds), from this run's inputs."""
+    n, points = inp["coeffs"][0].shape[1], inp["z_re"].numel()
+    values = sum(2 * len(r) * c.shape[0] for c, r in zip(inp["coeffs"], inp["rows"]))
+    nbytes = (sum(c.numel() for c in inp["coeffs"]) + 2 * points + values) * 8
+    ops = sum(2 * OPEN_PLANE_PAIRS * c.shape[0] * 2 * len(r) * n
+              for c, r in zip(inp["coeffs"], inp["rows"]))
+    mads = points * (n - 1) * (4 * 4 + 2 * 5)
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = max(ops / PEAK_INT8_OPS_PER_S, mads / PEAK_INT32_MADS_PER_S) * 1e3
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", nbytes, ops,
+            mads)
 
 
 def check_fused_field_kernels(torch, chk: Checker, rng, card: str) -> dict:
     """Both fused kernels of csrc/field.cu against their plain versions at the
     main path's shapes: phase 7's four opening batches at 2^18 coefficients
-    (12 points) and the permutation terms at (80, 2^21) with 2 challenges and
-    chunk 8, edge words included; then at 2^12 with edge points.  Each call
-    must launch only its plan's launches (no field_binary_kernel); each is
-    timed with CUDA events beside its bound, its plain version and the eager
-    chain of field.cu ops it replaces."""
+    (92, 184, 20 and 16 rows, three of them no multiple of 16; 12 points, 9
+    in the power table's union) in one call, and the permutation terms at
+    (80, 2^21) with 2 challenges and chunk 8, edge words included; then the
+    openings at 2^12 with edge points, and the power table alone against its
+    plain version.  Each call must launch only its plan's launches (no
+    field_binary_kernel); each is timed with CUDA events beside its bound,
+    its plain version and the eager chain of field.cu ops it replaces."""
     from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, kernels
     from eth_lc_plonky2_tpu_torch.prover import prove
 
     out = {}
-    batches = opening_inputs(rng, LOG_N)
-    plans = [kernels.field_open_plan(c.shape[0], c.shape[1], zr.shape[0]) for _, c, zr, _ in batches]
+    inp = opening_inputs(rng, LOG_N)
+    plan = open_plan(inp)
     before = kernels.launches["field"]
-    got = open_all(batches)
-    if kernels.launches["field"] - before != sum(p["launches"] for p in plans):
-        fail(f"openings: {kernels.launches['field'] - before} field launches, the plans' are "
-             f"{[p['launches'] for p in plans]}")
+    got = open_all(inp)
+    if kernels.launches["field"] - before != plan["launches"]:
+        fail(f"openings: {kernels.launches['field'] - before} field launches, the plan's are "
+             f"{plan['launches']}")
     plain = []
-    plain_ms = cuda_ms(lambda: plain.append(open_all(batches, plain=True)), 1)
-    for (tag, *_), g, w in zip(batches, got, plain[-1]):
+    plain_ms = cuda_ms(lambda: plain.append(open_all(inp, plain=True)), 1)
+    for tag, g, w in zip(inp["tags"], got, plain[-1]):
         chk.same("field", g[0], w[0], f"openings {tag}, real parts")
         chk.same("field", g[1], w[1], f"openings {tag}, imaginary parts")
     del plain, got
-    ms = cuda_ms(lambda: open_all(batches), 9)
+    ms = cuda_ms(lambda: open_all(inp), 9)
+    n = inp["coeffs"][0].shape[1]
+    table_ms = cuda_ms(lambda: kernels.field_open_table(inp["z_re"], inp["z_im"], n), 9)
+    chk.same("field", kernels.field_open_table(inp["z_re"], inp["z_im"], n),
+             on_plain(lambda: prove.open_table_plain(inp["z_re"], inp["z_im"], n)),
+             f"the power table at 2^{LOG_N}")
     before = kernels.launches["field"]
     # the plain version's field ops on CUDA tensors: one field_binary_kernel each
-    chain_ms = cuda_ms(lambda: [prove._open_core_plain(c, zr, zi) for _, c, zr, zi in batches], 1)
+    chain_ms = cuda_ms(lambda: prove.open_batches_plain(inp["coeffs"], inp["z_re"], inp["z_im"],
+                                                        inp["rows"]), 1)
     chain_launches = kernels.launches["field"] - before
-    coeffs = sum(c.numel() for _, c, _, _ in batches)
-    nbytes = coeffs * 8 + sum(2 * zr.numel() * c.shape[0] * 8 for _, c, zr, _ in batches)
-    mads = sum(c.numel() * zr.numel() * OPEN_MADS_PER_COEFF_POINT
-               + c.shape[1] * zr.numel() * OPEN_MADS_PER_COLUMN_POINT for _, c, zr, _ in batches)
+    bound_ms, bound_by, nbytes, ops, mads = open_bound(inp)
     out["field_open_kernel"] = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
-                                    chain_launches=chain_launches,
-                                    launches=sum(p["launches"] for p in plans),
-                                    **dict(zip(("bound_ms", "bound_by"), bound_of(nbytes, mads))))
-    log(f"[7] openings, the four batches of phase 7 (92, 184, 20, 16 rows of 2^{LOG_N}; 12 points): "
-        f"field_open_kernel {ms:.3f} ms in {out['field_open_kernel']['launches']} launches, its words "
-        f"== the plain version's ({plain_ms:.3f} ms); the eager chain on field.cu it replaces "
-        f"{chain_ms:.3f} ms in {chain_launches} launches; bound {out['field_open_kernel']['bound_ms']:.4f} "
-        f"ms by {out['field_open_kernel']['bound_by']} ({nbytes} bytes, {mads} multiply-adds; "
-        f"{out['field_open_kernel']['bound_ms'] / ms:.1%} of the kernel's time) [{card}]")
-    for tag, c, zr, zi in batches:
-        one = [(tag, c, zr, zi)]
-        per = cuda_ms(lambda: open_all(one), 9)
-        log(f"[7] openings {tag} ({c.shape[0]}, 2^{LOG_N}) at {zr.numel()} points: {per:.3f} ms, "
-            f"plan {kernels.field_open_plan(c.shape[0], c.shape[1], zr.numel())} [{card}]")
-    del batches
+                                    chain_launches=chain_launches, table_ms=table_ms,
+                                    launches=plan["launches"], bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[7] openings, the four batches of phase 7 (92, 184, 20, 16 rows of 2^{LOG_N}; 12 points, "
+        f"{inp['z_re'].numel()} in the table) in one call: field_open_table_kernel, "
+        f"field_open_kernel and its sum {ms:.3f} ms in {plan['launches']} launches (the table alone "
+        f"{table_ms:.3f} ms), its words == the plain version's ({plain_ms:.3f} ms); the eager chain on "
+        f"field.cu it replaces {chain_ms:.3f} ms in {chain_launches} launches; bound {bound_ms:.4f} "
+        f"ms by {bound_by} ({nbytes} bytes, {ops} int8 tensor operations, {mads} 32 x 32 "
+        f"multiply-adds for the powers; {bound_ms / ms:.1%} of the "
+        f"kernels' time); plan blocks {plan['blocks']} x slices {plan['slices']} [{card}]")
+    del inp
     # edge points at 2^12: zeta with words at the ends of the range
     for zeta in ((gl.P - 1, 1 << 63), (0, 1), (1 << 32, gl.P - 1)):
         small = opening_inputs(rng, 12, zeta)
-        for (tag, *_), g, w in zip(small, open_all(small), open_all(small, plain=True)):
+        for tag, g, w in zip(small["tags"], open_all(small), open_all(small, plain=True)):
             chk.same("field", g[0], w[0], f"openings {tag} at 2^12, zeta {zeta}, real parts")
             chk.same("field", g[1], w[1], f"openings {tag} at 2^12, zeta {zeta}, imaginary parts")
     torch.cuda.synchronize()
@@ -2204,7 +2248,7 @@ def eager_chains():
                            tuple(fri.TAGS[i] for i in spec_batches))
 
     return mock.patch.multiple(
-        kernels, field_open=prove._open_core_plain, perm_z=prove.perm_rows_plain,
+        kernels, field_open=prove.open_batches_plain, perm_z=prove.perm_rows_plain,
         perm_quotient=lambda *args, window=False: torch.stack(
             prove.perm_quotient_terms_plain(*args)),
         generic_gate_quotient=generic, fri_g=g,
@@ -3021,6 +3065,33 @@ def measure_quotient_kernels(torch, rng, card: str) -> dict:
     return {"perm_quotient_kernel": perm_ms, "generic_gate_quotient_kernel": generic_ms}
 
 
+def measure_open_and_g(torch, rng, card: str) -> dict:
+    """The openings of phase 7's four batches at 2^18 and G at 2^21 with 12
+    specs, one device, timed alone (tools/torch_kernel_times.py holds them
+    against an older checkout in turns: a checkout without
+    ``prove.open_batches`` opens batch by batch through ``prove._open_core``,
+    which every version of the package has)."""
+    from eth_lc_plonky2_tpu_torch.prover import prove
+
+    inp = opening_inputs(rng, LOG_N)
+    if hasattr(prove, "open_batches"):
+        def run():
+            return open_all(inp)
+    else:
+        idx = [torch.tensor(r, device=DEVICE) for r in inp["rows"]]
+
+        def run():
+            return [prove._open_core(c, inp["z_re"][i], inp["z_im"][i])
+                    for c, i in zip(inp["coeffs"], idx)]
+    open_ms = cuda_ms(run, 9)
+    del inp
+    g = g_inputs(rng, LOG_N + RATE_BITS, 12)
+    g_ms = cuda_ms(lambda: g_terms(g), 9)
+    log(f"the openings at 2^{LOG_N} (four batches, 12 points) {open_ms:.3f} ms, fri_g_kernel at "
+        f"2^{LOG_N + RATE_BITS} (12 specs) {g_ms:.3f} ms [{card}]")
+    return {"field_open_kernel": open_ms, "fri_g_kernel": g_ms}
+
+
 def sharded_flagship(torch, mesh, cache_dir: str, seed: int, tag: str) -> dict:
     """The flagship proved by the ranks of ``mesh``: cli.run --synthetic 512
     --bls dummy --seed N with skip_prove loads phase 8's circuit from the
@@ -3196,7 +3267,8 @@ def measure_flagship(torch, card: str, seed: int = 0) -> dict:
 
 
 # the trace's kernel names that one entry of the kernels line stands for
-TRACED_AS = {"field_open_kernel": ("field_open_kernel", "field_open_sum_kernel"),
+TRACED_AS = {"field_open_kernel": ("field_open_table_kernel", "field_open_kernel",
+                                   "field_open_sum_kernel"),
              "perm_z_kernel": ("perm_z_kernel", "perm_z_scan_kernel", "perm_z_fixup_kernel")}
 
 
@@ -3259,7 +3331,7 @@ def main() -> int:
     # each kernel's launches are those of phase 9's traced steady prove of the
     # outer circuit (the inverse's are 0 there: it runs in the first prove, for
     # the circuit's tables); the openings' entry times field_open_kernel with
-    # its column-slice sums, the permutation rows' perm_z_kernel with its scan
+    # its power table and column-slice sums, the permutation rows' perm_z_kernel with its scan
     # and fix-up
     for name, part in {**field_parts, **gate_parts}.items():
         part["launches"] = sum(aggregate["traced"].get(k, {}).get("launches", 0)

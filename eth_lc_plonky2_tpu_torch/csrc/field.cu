@@ -31,25 +31,37 @@
 //    the word-by-word Fermat power of earlier versions was bound by
 //    operations at 3.3 times the time.
 //
-// 2. field_open_kernel (+ field_open_sum_kernel): the openings, the values of
-//    (rows, n) base-field coefficient rows at k points of the quadratic
-//    extension, sum_c coeffs[r][c] * z_j^c.  Replaces what XLA fuses of
+// 2. field_open_table_kernel, field_open_kernel (+ field_open_sum_kernel):
+//    the openings, the values of every batch's (rows, n) base-field
+//    coefficient rows at its k points of the quadratic extension,
+//    sum_c coeffs[r][c] * z_j^c.  Replaces what XLA fuses of
 //    eth_lc_plonky2_tpu/prover/prove.py:551 `_open_core` (ext powers by
-//    log-doubling, two products and two sums over (rows, n) a point), which
-//    eager PyTorch ran as some 276 launches a point.  A block owns a slice of
-//    columns and a group of rows; each warp takes one point and a few rows,
-//    so the block's warps read the same coefficient words (from device memory
-//    once, then from L1) for all of its points.  A thread works out z^c for
-//    its columns in registers, z^c0 by square-and-multiply and then steps of
-//    z^32, and accumulates coeff * re and coeff * im in 96-bit column sums
-//    (gl::Acc: one reduction an output word).  A warp adds up its lanes with
-//    shuffles and writes one partial sum a row, point and slice; a second,
-//    small launch adds the slices.  What bounds it: operations, two 64 x 64
-//    products a coefficient a point (W: 184 x 2^18 words at 8 points), a
-//    little above the bytes' time for phase 7's four batches; the powers cost
-//    one ext product a column a point a thread besides (about a third of a
-//    lane's instructions at 4 rows a thread), and a column's words are loaded
-//    one column ahead.
+//    log-doubling, two products and two sums over (rows, n) a point), one
+//    call for all of a proof's batches.  The function is a product of (rows
+//    x n) coefficients with (n x 2k) power words, K = n = 2^18, so the design
+//    runs it on the int8 tensor cores: with a = sum_a A_a 2^8a and b = sum_b
+//    B_b 2^8b split into byte planes, a b = sum_s 2^8s sum_{a+b=s} A_a B_b,
+//    and each plane pair is one mma.sync m16n8k32 u8 x u8 -> s32 into the
+//    accumulator of its class s = a + b (15 classes, at most 8 pairs each).
+//    A block's columns are at most OPEN_CHUNK = 2^12, so a class sum is below
+//    8 * 255^2 * 2^12 < 2^31 and never wraps; the block folds its 15 class
+//    sums into one canonical word with the weights 2^8s mod p.
+//    The table kernel writes z_j^c once a proof for the union of the batches'
+//    points (9 for the flagship), as byte planes in the order the B fragments
+//    read them (`open_column`); the product kernel takes every batch from a
+//    table of batches: a block owns 32 rows of one batch and one 2^12-column
+//    slice, and its producer thread keeps cp.async.bulk copies of the rows'
+//    and the points' segments in flight into a ring of shared-memory stages
+//    (mbarriers); each consumer warp takes one m16 x n8 tile, turns the
+//    coefficient words into byte planes with byte permutes in registers and
+//    runs the 64 plane pairs; a second, small launch adds the slices.
+//    What bounds it: memory, the coefficients read once (8 bytes a word)
+//    and the table; the tensor work, 64 u8 products a coefficient and
+//    power word, sits below that at the card's int8 rate.  The old form
+//    (a warp a point, 96-bit column sums on the integer pipe) was bound by
+//    the integer multiply-adds at 7% of its bound.  On the card the bulk
+//    copies' count, one a row's stage segment, sets the product's time, so
+//    a stage is OPEN_KS = 256 columns (2 KB a copy) and the ring two deep.
 //
 // 3. perm_quotient_kernel: the permutation argument's terms of the quotient,
 //    for both challenges, in one pass: term 0, l0 * (Z - 1), and for each
@@ -78,17 +90,28 @@
 //    (base rows, ext weights a, ext points z_j and values y_j).  Replaces
 //    what XLA fuses of eth_lc_plonky2_tpu/prover/fri.py:72 `make_g_kernel`
 //    (jitted at :166), which eager PyTorch ran as some 277 launches and a
-//    batched inversion of the (S, n_lde) norms.  One thread a column reads
-//    every row of the four batches once (P, W, Z, Q: 312 rows in phase 7),
+//    batched inversion of the (S, n_lde) norms.  What bounds it: memory,
+//    every row of the four batches read once (P, W, Z, Q: 312 rows, 5.2 GB
+//    at 2^21), against about 2,500 multiply-adds a column for the sums.  So
+//    the rows arrive by bulk asynchronous copies: persistent blocks walk
+//    tiles of G_TILE columns; one producer thread keeps cp.async.bulk copies
+//    in flight (one row's segment of the tile each, G_STAGE_ROWS rows of a
+//    batch a stage) into a ring of G_STAGES stages of dynamic shared memory,
+//    each stage completing on an mbarrier; the row-sum threads, one a
+//    column, take the rows from shared memory while the next stages load,
 //    keeping the four ext sums in 96-bit column sums (a reduction every 128
-//    rows); the weights sit in shared memory.  Then it takes the S specs in
-//    registers: the norm (x - z_re)^2 - 7 z_im^2 of each, ONE Fermat
-//    inversion for all S by Montgomery's trick (gl::batch_prefix, then
-//    gl::batch_back a spec on the way back, each inverse consumed as it
-//    comes; a zero norm is skipped, so its inverse is 0, as the plain
-//    version's), and the weighted sum.  What
-//    bounds it: memory, 312 rows read a column (5.2 GB at 2^21), against
-//    about 2,500 multiply-adds a column for the sums.
+//    rows; the weights sit in shared memory), and hand them to the epilogue
+//    threads, one a column, through two slots of shared memory.  The epilogue
+//    takes the S specs in registers: the norm (x - z_re)^2 - 7 z_im^2 of
+//    each, ONE Fermat inversion for all S by Montgomery's trick
+//    (gl::batch_prefix, then gl::batch_back a spec on the way back, each
+//    inverse consumed as it comes; a zero norm is skipped, so its inverse is
+//    0, as the plain version's), and the weighted sum.  The epilogue is about
+//    a third of a column's instructions, most of them on serial chains; done
+//    by the threads that sum the rows it stalled the ring, so it runs beside
+//    the next tile's sums (at 2^21 on an H100, tools/field_variants.py: the
+//    rows alone stream in 1.8 to 1.9 ms, with the sums 2.2 to 2.3 ms, with
+//    the epilogue beside them 2.6 to 2.7 ms).
 //
 // 5. fri_fold_kernel: one radix-2 FRI fold, 2h ext words to h:
 //        ((e0 + e1) / 2) + beta (e0 - e1) w^-i / (2 shift)
@@ -189,13 +212,94 @@ field_inv_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, lo
 }
 
 // ---------------------------------------------------------------------------
+// Bulk asynchronous copies into a ring of shared-memory stages
+// ---------------------------------------------------------------------------
+
+// A ring of stages: the producer thread waits for a stage's `empty` barrier
+// (every consumer warp arrives once it has read the stage), announces the
+// stage's bytes on its `full` barrier and issues cp.async.bulk copies that
+// complete on it; the consumers wait for `full`.  Round r of a stage is
+// phase r of both barriers, so a wait takes the parity r & 1.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// after the barriers' init, before any thread uses them
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t"
+        ".reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t"
+        "}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both 16-byte
+// aligned), completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // The openings
 // ---------------------------------------------------------------------------
 
 // The tiling; ops/kernels.py `field_open_plan` mirrors it.
-constexpr int OPEN_WARPS = 8;      // warps a block: points_per_block x row subgroups
-constexpr int OPEN_ROWS = 4;       // rows a thread (two column sums each)
-constexpr int OPEN_MAX_COLS = 128; // columns a thread a slice (gl::Acc takes 2^8 products)
+constexpr int OPEN_MAX_BATCHES = 8;  // batches a launch
+constexpr int OPEN_MAX_POINTS = 8;   // points a batch: 16 power rows, OPEN_NTILES n-tiles of 8
+constexpr int OPEN_MTILES = 2;       // m-tiles of 16 coefficient rows a block
+constexpr int OPEN_NTILES = 2;
+constexpr int OPEN_WARPS = 4;        // consumer warps: OPEN_MTILES x OPEN_NTILES tiles
+constexpr int OPEN_ROWS = 32;        // coefficient rows a block: 16 x OPEN_MTILES
+constexpr int OPEN_KS = 256;         // columns a stage: eight k-steps of 32
+constexpr int OPEN_STAGES = 2;
+constexpr int OPEN_CHUNK = 4096;     // columns a block: a class sum stays below 2^31
+constexpr int OPEN_CLASSES = 15;     // plane pairs (a, b) by a + b
+constexpr int OPEN_TABLE_THREADS = 256;
+static_assert(OPEN_WARPS == OPEN_MTILES * OPEN_NTILES && OPEN_ROWS == 16 * OPEN_MTILES, "tiles");
+static_assert(8ll * 255 * 255 * OPEN_CHUNK < (1ll << 31), "a class sum of a block must not wrap");
+static_assert(OPEN_CHUNK % OPEN_KS == 0 && OPEN_KS % 32 == 0, "a block's slice is whole stages");
+// a stage: OPEN_ROWS coefficient rows of OPEN_KS words, then 8 x (the
+// launch's most n-tiles) power rows of OPEN_KS words (bytes); the pitches put
+// the rows a quarter warp reads (A: two rows of 64 bytes; B: four rows of 32)
+// on distinct banks.  A copy moves one row's OPEN_KS words: the copies'
+// count, not their bytes, bounds the kernel (stages of 64 columns ran 0.78
+// to 0.87 ms, 128 0.50 to 0.54 ms, 256 0.41 to 0.45 ms at phase 7's shapes on
+// an H100, tools/field_variants.py).
+constexpr int OPEN_A_PITCH = OPEN_KS * 8 + 64;
+constexpr int OPEN_B_PITCH = OPEN_KS * 8 + 32;
+constexpr int OPEN_THREADS = 32 * (OPEN_WARPS + 1);  // and one producer warp
 
 // a + b phi in GF(p^2) = GF(p)[phi] / (phi^2 - 7), lazy words.
 struct Ext {
@@ -227,71 +331,246 @@ __device__ Ext ext_pow(Ext z, unsigned long long e) {
   return r;
 }
 
-__device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
-  for (int off = 16; off; off >>= 1)
-    v = gl::add(v, (uint64_t)__shfl_down_sync(0xffffffffu, (unsigned long long)v, off));
-  return v;
+// The k order of a 32-column k-step.  Lane (g, t) of a warp reads, of each of
+// its coefficient rows, the words 2t + 8i + h (i < 4, h < 2: 16 bytes at a
+// time, a quarter warp on 128 contiguous bytes of two rows), and byte e of A
+// fragment register f holds the word with i = 2 (f >> 1) + (e >> 1), h = e & 1:
+// logical k = 16 (f >> 1) + 4t + e is column 16 (f >> 1) + 2t + (e & 1) + 8 (e >> 1).
+// The table stores a k-step's 32 power bytes of a plane so that lane t's two
+// B registers are the 8 bytes from 8t: position pos = 8t + 4 hi + e holds
+// logical k = 16 hi + 4t + e, the column below.
+__device__ __forceinline__ int open_column(int pos) {
+  const int t = pos >> 3, hi = (pos >> 2) & 1, e = pos & 3;
+  return 16 * hi + 2 * t + (e & 1) + 8 * (e >> 1);
 }
 
-// Block b = (row group g, slice s) = (b / slices, b % slices) of blockIdx.x
-// and point group blockIdx.y.  Warp w takes point
-// blockIdx.y * points_per_block + w % points_per_block and rows
-// g * rows_per_block + (w / points_per_block) * OPEN_ROWS + q, q < OPEN_ROWS;
-// lane l takes columns s * 32 * cols + l + 32 i, i < cols.  Coefficient
-// (r, c) is coeffs[r * stride + c].  Writes the canonical partial sums
-// partial[((s * 2 + part) * k + j) * rows + r], part 0 the real one.
-__global__ void __launch_bounds__(32 * OPEN_WARPS)
-field_open_kernel(const uint64_t* __restrict__ coeffs, long long stride, long long rows,
-                  long long n, const uint64_t* __restrict__ z_re,
-                  const uint64_t* __restrict__ z_im, int k, int points_per_block,
-                  long long slices, int cols, uint64_t* __restrict__ partial) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int sub = warp / points_per_block;
-  const int j = blockIdx.y * points_per_block + warp % points_per_block;
-  const long long s = blockIdx.x % slices;
-  const long long r0 =
-      (blockIdx.x / slices) * (long long)(OPEN_WARPS / points_per_block) * OPEN_ROWS +
-      (long long)sub * OPEN_ROWS;
-  // uniform across a warp: a warp without a point or rows has nothing to do
-  const bool active = sub < OPEN_WARPS / points_per_block && j < k && r0 < rows;
-  gl::Acc re[OPEN_ROWS], im[OPEN_ROWS];
-  if (active) {
-    const Ext z{z_re[j], z_im[j]};
-    const Ext step = ext_pow(z, 32);
-    const uint64_t step_im7 = gl::mul(step.im, 7);
-    const long long c0 = s * 32ll * cols + lane;
-    Ext zc = ext_pow(z, (unsigned long long)c0);
-    // a column's words are loaded one column ahead, so that their latency
-    // hides behind a column of arithmetic
-    uint64_t cur[OPEN_ROWS], ahead[OPEN_ROWS];
-    const auto load = [&](long long c, uint64_t* w) {
-#pragma unroll
-      for (int q = 0; q < OPEN_ROWS; ++q)
-        w[q] = c < n && r0 + q < rows ? coeffs[(r0 + q) * stride + c] : 0;
-    };
-    load(c0, cur);
-    for (int i = 0; i < cols; ++i) {
-      const long long c = c0 + 32ll * i;
-      if (c >= n) break;
-      load(i + 1 < cols ? c + 32 : n, ahead);
-#pragma unroll
-      for (int q = 0; q < OPEN_ROWS; ++q) {
-        re[q].mac(cur[q], zc.re);
-        im[q].mac(cur[q], zc.im);
-        cur[q] = ahead[q];
-      }
-      zc = ext_mul_by(zc, step, step_im7);
-    }
+// The power table: row 2j + part (part 0 the real one) of point j is n_pad
+// words of byte planes: the 32-column group kg at bytes [256 kg, 256 kg +
+// 256), plane pl at 256 kg + 32 pl + pos, pos the column's place
+// (open_column); zero from column n on.  A warp of block (x, j) takes a run
+// of OPEN_TABLE_RUN groups of point j, stepping z^(32 kg) by z^32; lane pos
+// makes the word at position pos of a group, and each plane's 32 bytes are
+// gathered by shuffles into 8 words that 8 lanes store side by side.
+constexpr int OPEN_TABLE_RUN = 16;
+
+__global__ void __launch_bounds__(OPEN_TABLE_THREADS)
+field_open_table_kernel(const uint64_t* __restrict__ z_re, const uint64_t* __restrict__ z_im,
+                        long long n, long long groups, uint8_t* __restrict__ table) {
+  __shared__ uint64_t zu_re[32], zu_im[32];  // z^open_column(pos), pos < 32
+  const int j = blockIdx.y;
+  const Ext z{z_re[j], z_im[j]};
+  if (threadIdx.x < 32) {
+    const Ext p = ext_pow(z, open_column(threadIdx.x));
+    zu_re[threadIdx.x] = p.re;
+    zu_im[threadIdx.x] = p.im;
   }
-#pragma unroll
-  for (int q = 0; q < OPEN_ROWS; ++q) {
-    const uint64_t a = warp_sum(gl::canon(re[q].reduce_lazy()));
-    const uint64_t b = warp_sum(gl::canon(im[q].reduce_lazy()));
-    if (active && lane == 0 && r0 + q < rows) {
-      partial[((s * 2) * k + j) * rows + r0 + q] = a;
-      partial[((s * 2 + 1) * k + j) * rows + r0 + q] = b;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const long long kg0 =
+      ((long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * OPEN_TABLE_RUN;
+  if (kg0 >= groups) return;  // uniform across the warp
+  const Ext zl{zu_re[lane], zu_im[lane]};
+  const Ext step = ext_pow(z, 32);
+  const uint64_t step_im7 = gl::mul(step.im, 7);
+  Ext base = ext_pow(z, 32ull * (unsigned long long)kg0);
+  const int u = open_column(lane);
+  for (int i = 0; i < OPEN_TABLE_RUN && kg0 + i < groups; ++i) {
+    const long long kg = kg0 + i;
+    uint64_t vr = 0, vi = 0;
+    if (32 * kg + u < n) {
+      const Ext v = ext_mul(base, zl);
+      vr = gl::canon(v.re);
+      vi = gl::canon(v.im);
     }
+    uint8_t* out_re = table + ((2ll * j) * groups + kg) * 256;
+    uint8_t* out_im = table + ((2ll * j + 1) * groups + kg) * 256;
+#pragma unroll
+    for (int pl = 0; pl < 8; ++pl) {
+      // lane 4w gathers the bytes of lanes 4w .. 4w + 3, lowest first
+      uint32_t xr = (uint32_t)(vr >> (8 * pl)) & 0xFF, xi = (uint32_t)(vi >> (8 * pl)) & 0xFF;
+      xr |= __shfl_down_sync(0xffffffffu, xr, 1) << 8;
+      xi |= __shfl_down_sync(0xffffffffu, xi, 1) << 8;
+      xr |= __shfl_down_sync(0xffffffffu, xr, 2) << 16;
+      xi |= __shfl_down_sync(0xffffffffu, xi, 2) << 16;
+      if ((lane & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(out_re + 32 * pl + lane) = xr;
+        *reinterpret_cast<uint32_t*>(out_im + 32 * pl + lane) = xi;
+      }
+    }
+    base = ext_mul_by(base, step, step_im7);
+  }
+}
+
+// One batch of the table of batches.
+struct OpenBatch {
+  const uint64_t* coeffs;  // row r: coeffs + r * stride (words)
+  long long stride;
+  long long out;  // value (part, point j, row r) at out + (part * k + j) * rows + r of a slice
+  int rows, k;
+  int group0;  // its first block of OPEN_ROWS rows in blockIdx.x
+  int point[OPEN_MAX_POINTS];  // point j's rows 2 point[j], 2 point[j] + 1 of the table
+};
+
+struct OpenArgs {
+  OpenBatch batch[OPEN_MAX_BATCHES];
+  int batches;
+  const uint64_t* table;  // (2 * points, n_pad) words of byte planes
+  long long n, n_pad;
+  long long total;        // words of a slice's values: sum of 2 k rows
+  uint64_t* partial;      // slice s at partial + s * total
+  int stage_bytes;        // OPEN_ROWS A rows, then the launch's power rows
+};
+
+// A stage's bytes for power rows of at most `ntiles` n-tiles.
+constexpr long long open_stage_bytes(int ntiles) {
+  return (long long)OPEN_ROWS * OPEN_A_PITCH + 8ll * ntiles * OPEN_B_PITCH;
+}
+
+// y[e] = byte e of x0, x1, x2, x3 (a 4 x 4 byte transpose, 8 permutes).
+__device__ __forceinline__ void byte_transpose(uint32_t x0, uint32_t x1, uint32_t x2, uint32_t x3,
+                                               uint32_t (&y)[4]) {
+  const uint32_t t0 = __byte_perm(x0, x1, 0x5140), t1 = __byte_perm(x0, x1, 0x7362);
+  const uint32_t t2 = __byte_perm(x2, x3, 0x5140), t3 = __byte_perm(x2, x3, 0x7362);
+  y[0] = __byte_perm(t0, t2, 0x5410);
+  y[1] = __byte_perm(t0, t2, 0x7632);
+  y[2] = __byte_perm(t1, t3, 0x5410);
+  y[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// d += a b: one m16n8k32 product of u8 planes into s32 sums.
+__device__ __forceinline__ void mma_u8(uint32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block (blockIdx.x, blockIdx.y): rows [r0, r0 + OPEN_ROWS) of the batch whose
+// groups hold blockIdx.x, columns [OPEN_CHUNK y, OPEN_CHUNK (y + 1)) of n.
+// Warp w < OPEN_WARPS takes m-tile w % OPEN_MTILES (16 rows) and n-tile
+// w / OPEN_MTILES (8 of the batch's 2k power rows, 2j + part for point j),
+// where both exist; warp OPEN_WARPS is the producer.  Writes the canonical
+// values of the slice: partial[y * total + out + (part * k + j) * rows + r].
+__global__ void __launch_bounds__(OPEN_THREADS, 1)
+field_open_kernel(const __grid_constant__ OpenArgs a) {
+  extern __shared__ __align__(128) uint8_t open_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(open_smem + OPEN_STAGES * a.stage_bytes);
+  uint64_t* empty = full + OPEN_STAGES;
+  int b = 0;
+  while (b + 1 < a.batches && (int)blockIdx.x >= a.batch[b + 1].group0) ++b;
+  const OpenBatch& B = a.batch[b];
+  const int r0 = ((int)blockIdx.x - B.group0) * OPEN_ROWS;
+  const int rows = min(OPEN_ROWS, B.rows - r0);
+  const int npc = 2 * B.k;
+  const int mtiles = (rows + 15) / 16, ntiles = (npc + 7) / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mt = warp % OPEN_MTILES, nt = warp / OPEN_MTILES;
+  const long long c_begin = (long long)blockIdx.y * OPEN_CHUNK;
+  const long long c_end = min(a.n, c_begin + OPEN_CHUNK);
+  const int stages = (int)((c_end - c_begin + OPEN_KS - 1) / OPEN_KS);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < OPEN_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], mtiles * ntiles);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (warp == OPEN_WARPS) {
+    if (lane == 0) {
+      for (int it = 0; it < stages; ++it) {
+        const int s = it % OPEN_STAGES;
+        if (it >= OPEN_STAGES) mbar_wait(&empty[s], ((it / OPEN_STAGES) - 1) & 1);
+        const long long c0 = c_begin + (long long)it * OPEN_KS;
+        // the last stage of the columns copies what is left of the rows; the
+        // table's rows are zero from n to n_pad, so a stage's stale words
+        // past n meet zero powers
+        const uint32_t a_bytes = (uint32_t)(min((long long)OPEN_KS, c_end - c0) * 8);
+        uint8_t* st = open_smem + s * a.stage_bytes;
+        mbar_expect_tx(&full[s], rows * a_bytes + npc * OPEN_KS * 8);
+        for (int r = 0; r < rows; ++r)
+          bulk_copy(st + r * OPEN_A_PITCH, B.coeffs + (long long)(r0 + r) * B.stride + c0, a_bytes,
+                    &full[s]);
+        for (int q = 0; q < npc; ++q)
+          bulk_copy(st + OPEN_ROWS * OPEN_A_PITCH + q * OPEN_B_PITCH,
+                    a.table + (long long)(2 * B.point[q >> 1] + (q & 1)) * a.n_pad + c0,
+                    OPEN_KS * 8, &full[s]);
+      }
+      // the block's shared memory stays until the consumers have read it all
+      for (int it = max(0, stages - OPEN_STAGES); it < stages; ++it)
+        mbar_wait(&empty[it % OPEN_STAGES], (it / OPEN_STAGES) & 1);
+    }
+    return;
+  }
+  if (mt >= mtiles || nt >= ntiles) return;
+  const int g = lane >> 2, t = lane & 3;
+  // lane (g, t): coefficient rows 16 mt + g and + 8, from word 2t; power row
+  // 8 nt + g, from byte 8t
+  const uint8_t* a_lane = open_smem + (16 * mt + g) * OPEN_A_PITCH + 16 * t;
+  const uint8_t* b_lane = open_smem + OPEN_ROWS * OPEN_A_PITCH + (8 * nt + g) * OPEN_B_PITCH + 8 * t;
+  uint32_t acc[OPEN_CLASSES][4];
+#pragma unroll
+  for (int s = 0; s < OPEN_CLASSES; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0;
+  for (int it = 0; it < stages; ++it) {
+    const int s = it % OPEN_STAGES;
+    mbar_wait(&full[s], (it / OPEN_STAGES) & 1);
+    const uint8_t* a_st = a_lane + s * a.stage_bytes;
+    const uint8_t* b_st = b_lane + s * a.stage_bytes;
+#pragma unroll
+    for (int ks = 0; ks < OPEN_KS / 32; ++ks) {
+      // lo[f][e], hi[f][e]: the halves of the word in byte e of A register f
+      uint32_t lo[4][4], hi[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int r8 = 0; r8 < 2; ++r8) {  // rows g and g + 8
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(a_st + r8 * 8 * OPEN_A_PITCH + ks * 256 + i * 64);
+          const int f = 2 * (i >> 1) + r8, e = 2 * (i & 1);
+          lo[f][e] = v.x;
+          hi[f][e] = v.y;
+          lo[f][e + 1] = v.z;
+          hi[f][e + 1] = v.w;
+        }
+      }
+      uint32_t planes[8][4];  // plane p of the A fragment
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        uint32_t y[4];
+        byte_transpose(lo[f][0], lo[f][1], lo[f][2], lo[f][3], y);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) planes[p][f] = y[p];
+        byte_transpose(hi[f][0], hi[f][1], hi[f][2], hi[f][3], y);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) planes[4 + p][f] = y[p];
+      }
+#pragma unroll
+      for (int pb = 0; pb < 8; ++pb) {
+        const uint2 bv = *reinterpret_cast<const uint2*>(b_st + ks * 256 + pb * 32);
+#pragma unroll
+        for (int pa = 0; pa < 8; ++pa) mma_u8(acc[pa + pb], planes[pa], bv.x, bv.y);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  // the class sums folded: sum_s acc[s] 2^8s mod p.  Accumulator i is row
+  // 16 mt + g + 8 (i >> 1), power row 8 nt + 2t + (i & 1).
+  gl::Acc fold[4];
+  uint64_t w = 1;
+#pragma unroll
+  for (int s = 0; s < OPEN_CLASSES; ++s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fold[i].mac(acc[s][i], w);
+    w = gl::mul(w, 256);
+  }
+  uint64_t* out = a.partial + (long long)blockIdx.y * a.total + B.out;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 16 * mt + g + 8 * (i >> 1), q = 8 * nt + 2 * t + (i & 1);
+    if (r < B.rows && q < npc)
+      out[(long long)((q & 1) * B.k + (q >> 1)) * B.rows + r] = gl::canon(fold[i].reduce_lazy());
   }
 }
 
@@ -629,6 +908,25 @@ constexpr int G_TAGS = 4;          // batches P, W, Z, Q
 constexpr int G_MAX_SPECS = 16;    // opening points (12 in phase 7)
 constexpr int G_MAX_ROWS = 2048;   // rows of the four batches together (shared memory)
 constexpr int G_CHUNK = 128;       // rows summed before a reduction (gl::Acc takes 2^8)
+// The row-sum and epilogue loops run over a thread's G_COLS columns, and
+// G_COLS = 1 (two columns a thread spilled).  The loops are kept for the code
+// ptxas makes of them, not for generality: the same source with G_COLS
+// substituted by hand (one accumulator pair, a scalar `live`, no arrays)
+// also takes 82 registers and spills nothing, but its row-sum loops carry
+// more register copies (IMAD.MOV and MOV: 161 against 73 in P's stage loop,
+// 513 against 383 instructions; tools/cuda_sass_counts.py --source field.cu),
+// and it ran 2.76 to 2.81 against 2.63 to 2.71 ms at 2^21 (an H100 at 700 W,
+// tools/field_variants.py).  Moving the `live` guard outside the row loop
+// cost more (2.88 to 2.96 ms).  Check the SASS and time both forms before
+// removing the loops.
+constexpr int G_HALF = 256;        // threads of a role
+constexpr int G_COLS = 1;          // columns a thread: x + c G_HALF, c < G_COLS
+constexpr int G_TILE = 256;        // columns a tile: G_COLS G_HALF
+constexpr int G_STAGE_ROWS = 8;    // rows of one batch a stage
+constexpr int G_STAGES = 8;
+constexpr int G_THREADS = 544;     // the row-sum and the epilogue threads, and a producer warp
+static_assert(G_THREADS == 2 * G_HALF + 32 && G_TILE == G_COLS * G_HALF, "G's roles");
+static_assert(G_CHUNK % G_STAGE_ROWS == 0, "a stage's rows share one reduction");
 
 struct GArgs {
   const uint64_t* lde[G_TAGS];  // batch t's row i at column x: lde[t][i * stride[t] + x]
@@ -645,6 +943,8 @@ struct GArgs {
   const uint64_t* z_re;         // (specs,) the points z_j
   const uint64_t* z_im;
   long long n_lde;
+  long long tiles;              // n_lde / tile
+  int tile;                     // columns a tile (even, at most G_TILE)
 };
 
 // The norm (x - z_re)^2 - 7 z_im^2 of spec j (c7[j] = 7 z_im^2), canonical.
@@ -662,11 +962,94 @@ __device__ __forceinline__ uint64_t pick(const uint64_t (&v)[G_TAGS], int t) {
   return t == 0 ? v[0] : t == 1 ? v[1] : t == 2 ? v[2] : v[3];
 }
 
-// out_re[x], out_im[x] = G(x), canonical.  Dynamic shared memory: the
-// weights a_re, a_im of the total rows.
-__global__ void __launch_bounds__(256)
-fri_g_kernel(GArgs g, uint64_t* __restrict__ out_re, uint64_t* __restrict__ out_im) {
-  extern __shared__ uint64_t weights[];  // a_re[0..total), a_im[0..total)
+// G(x) at column x of the coset, canonical: the epilogue of one column, from
+// its four ext sums b_re, b_im.  The norms' inverses by Montgomery's trick,
+// one Fermat inversion of all of them (a zero norm's inverse is 0, as the
+// plain version's), each consumed as the walk back makes it.  Rolled loops:
+// the epilogue threads run this code while the row-sum threads run theirs,
+// and unrolled (some 7,000 instructions) the two roles evict each other from
+// the instruction cache (3.25 to 3.32 against 2.61 to 2.72 ms at 2^21 on an
+// H100, tools/field_variants.py).
+struct GSpecs {
+  const uint64_t *zre, *zim, *c7, *yre, *yim, *are, *aim, *aim7;
+};
+
+// x^(2^n), lazy, a rolled loop.
+__device__ __forceinline__ uint64_t sq_rolled(uint64_t x, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) x = gl::mul_lazy(x, x);
+  return x;
+}
+
+// gl::inv_fermat's chain with rolled squarings, out of line: a^(p-2), canonical.
+__device__ __noinline__ uint64_t inv_rolled(uint64_t a) {
+  const uint64_t t2 = gl::mul_lazy(sq_rolled(a, 1), a);
+  const uint64_t t3 = gl::mul_lazy(sq_rolled(t2, 1), a);
+  const uint64_t t6 = gl::mul_lazy(sq_rolled(t3, 3), t3);
+  const uint64_t t12 = gl::mul_lazy(sq_rolled(t6, 6), t6);
+  const uint64_t t24 = gl::mul_lazy(sq_rolled(t12, 12), t12);
+  const uint64_t t30 = gl::mul_lazy(sq_rolled(t24, 6), t6);
+  const uint64_t t31 = gl::mul_lazy(sq_rolled(t30, 1), a);
+  const uint64_t t63 = gl::mul_lazy(sq_rolled(t31, 32), t31);
+  return gl::canon(gl::mul_lazy(sq_rolled(t63, 1), a));
+}
+
+__device__ __forceinline__ Ext g_epilogue(const GArgs& g, const GSpecs& sp, uint64_t xv,
+                                          const uint64_t (&b_re)[G_TAGS],
+                                          const uint64_t (&b_im)[G_TAGS]) {
+  const NormOf norm_of{xv, sp.zre, sp.c7};
+  uint64_t prefix[G_MAX_SPECS], norms[G_MAX_SPECS];
+  uint64_t run = 1;
+#pragma unroll 1
+  for (int j = 0; j < g.specs; ++j) {
+    const uint64_t d = norm_of(j);
+    norms[j] = d;
+    prefix[j] = run;
+    if (d != 0) run = gl::mul_lazy(run, d);
+  }
+  uint64_t inv = inv_rolled(run);
+  gl::Acc acc_re, acc_im;
+#pragma unroll 1
+  for (int j = g.specs - 1; j >= 0; --j) {
+    const uint64_t dre = gl::sub(xv, sp.zre[j]);
+    const uint64_t ninv = gl::batch_back(inv, prefix[j], norms[j]);
+    // 1 / (x - z) = (dre + z_im phi) / norm
+    const Ext den{gl::mul(dre, ninv), gl::mul(sp.zim[j], ninv)};
+    const int t = g.spec_tag[j];
+    const Ext num{gl::sub(pick(b_re, t), sp.yre[j]), gl::sub(pick(b_im, t), sp.yim[j])};
+    const Ext q = ext_mul(num, den);
+    acc_re.mac(q.re, sp.are[j]);
+    acc_re.mac(q.im, sp.aim7[j]);
+    acc_im.mac(q.re, sp.aim[j]);
+    acc_im.mac(q.im, sp.are[j]);
+  }
+  return {gl::canon(acc_re.reduce_lazy()), gl::canon(acc_im.reduce_lazy())};
+}
+
+// out_re[x], out_im[x] = G(x), canonical.  Block b takes the tiles b, b +
+// gridDim.x, ...; a tile's stages are its batches' rows in order, G_STAGE_ROWS
+// of one batch at a time (the last of a batch may hold fewer), each a tile's
+// segment of those rows.  Three roles: the producer thread fills the ring;
+// row-sum thread x (warps 0 to 7) takes column x of each tile's rows from
+// the ring and hands its four ext sums to epilogue thread x (warps 8 to 15)
+// through one of two hand-off slots (barriers `hfull`,
+// `hempty`), so that a tile's epilogue (the specs' norms, their inversion,
+// the weighted sum) runs while the next tile's rows load and are summed.
+// Dynamic shared memory: the ring (G_STAGES stages of G_STAGE_ROWS x tile
+// words), the two hand-off slots (2 G_TAGS rows of tile words each), the
+// weights a_re, a_im of the total rows, then the barriers: the stages' full
+// and empty, the slots' full and empty.
+__global__ void __launch_bounds__(G_THREADS, 1)
+fri_g_kernel(const __grid_constant__ GArgs g, uint64_t* __restrict__ out_re,
+             uint64_t* __restrict__ out_im) {
+  extern __shared__ __align__(128) uint64_t g_smem[];
+  uint64_t* ring = g_smem;
+  uint64_t* hand = ring + G_STAGES * G_STAGE_ROWS * g.tile;
+  uint64_t* weights = hand + 2 * 2 * G_TAGS * g.tile;  // a_re[0..total), a_im[0..total)
+  uint64_t* full = weights + 2 * g.total;
+  uint64_t* empty = full + G_STAGES;
+  uint64_t* hfull = empty + G_STAGES;
+  uint64_t* hempty = hfull + 2;
   __shared__ uint64_t s_zre[G_MAX_SPECS], s_zim[G_MAX_SPECS], s_c7[G_MAX_SPECS];
   __shared__ uint64_t s_yre[G_MAX_SPECS], s_yim[G_MAX_SPECS];
   __shared__ uint64_t s_are[G_MAX_SPECS], s_aim[G_MAX_SPECS], s_aim7[G_MAX_SPECS];
@@ -686,61 +1069,146 @@ fri_g_kernel(GArgs g, uint64_t* __restrict__ out_re, uint64_t* __restrict__ out_
     s_aim[j] = g.a_im[g.total + j];
     s_aim7[j] = gl::mul(g.a_im[g.total + j], 7);
   }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], G_HALF / 32);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&hfull[s], G_HALF);
+      mbar_init(&hempty[s], G_HALF);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= g.n_lde) return;
-
-  // B_t(x) for the four batches: every row read once, down its column
-  uint64_t b_re[G_TAGS], b_im[G_TAGS];
-#pragma unroll
-  for (int t = 0; t < G_TAGS; ++t) {
-    uint64_t sum_re = 0, sum_im = 0;
-    const uint64_t* col = g.lde[t] + x;
-    const uint64_t* w_re = weights + g.offset[t];
-    const uint64_t* w_im = weights + g.total + g.offset[t];
-    for (int i0 = 0; i0 < g.rows[t]; i0 += G_CHUNK) {
-      const int i1 = min(g.rows[t], i0 + G_CHUNK);
-      gl::Acc acc_re, acc_im;
-#pragma unroll 8
-      for (int i = i0; i < i1; ++i) {
-        const uint64_t v = col[(long long)i * g.stride[t]];
-        acc_re.mac(w_re[i], v);
-        acc_im.mac(w_im[i], v);
+  const int lane = threadIdx.x & 31;
+  const uint32_t seg = (uint32_t)g.tile * 8;  // bytes of a row's segment
+  if (threadIdx.x >= 2 * G_HALF) {  // the producer warp
+    if (lane == 0) {
+      int it = 0;
+      for (long long tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
+        const long long c0 = tile * g.tile;
+        for (int t = 0; t < G_TAGS; ++t) {
+          for (int i0 = 0; i0 < g.rows[t]; i0 += G_STAGE_ROWS, ++it) {
+            const int s = it % G_STAGES;
+            if (it >= G_STAGES) mbar_wait(&empty[s], ((it / G_STAGES) - 1) & 1);
+            const int nr = min(G_STAGE_ROWS, g.rows[t] - i0);
+            mbar_expect_tx(&full[s], nr * seg);
+            uint64_t* st = ring + (long long)s * G_STAGE_ROWS * g.tile;
+            for (int r = 0; r < nr; ++r)
+              bulk_copy(st + (long long)r * g.tile, g.lde[t] + (long long)(i0 + r) * g.stride[t] + c0,
+                        seg, &full[s]);
+          }
+        }
       }
-      sum_re = gl::add(sum_re, gl::canon(acc_re.reduce_lazy()));
-      sum_im = gl::add(sum_im, gl::canon(acc_im.reduce_lazy()));
+      // the block's shared memory stays until the consumers have read it all
+      for (int i = max(0, it - G_STAGES); i < it; ++i)
+        mbar_wait(&empty[i % G_STAGES], (i / G_STAGES) & 1);
     }
-    b_re[t] = sum_re;
-    b_im[t] = sum_im;
+    return;
   }
-
-  // the norms' inverses by Montgomery's trick, one Fermat inversion of all
-  // of them (a zero norm's inverse is 0, as the plain version's), each
-  // consumed as the walk back makes it; a norm is recomputed where the trick
-  // reads it again rather than kept
-  const uint64_t xv = g.x[x];
-  const NormOf norm_of{xv, s_zre, s_c7};
-  uint64_t prefix[G_MAX_SPECS];
-  uint64_t inv = gl::inv_fermat(gl::batch_prefix<G_MAX_SPECS>(prefix, g.specs, norm_of));
-  gl::Acc acc_re, acc_im;
+  const int xt = threadIdx.x % G_HALF;  // columns xt + c G_HALF of a tile, c < G_COLS
+  bool live[G_COLS];
 #pragma unroll
-  for (int j = G_MAX_SPECS - 1; j >= 0; --j) {
-    if (j < g.specs) {
-      const uint64_t dre = gl::sub(xv, s_zre[j]);
-      const uint64_t ninv = gl::batch_back(inv, prefix[j], norm_of(j));
-      // 1 / (x - z) = (dre + z_im phi) / norm
-      const Ext den{gl::mul(dre, ninv), gl::mul(s_zim[j], ninv)};
-      const int t = g.spec_tag[j];
-      const Ext num{gl::sub(pick(b_re, t), s_yre[j]), gl::sub(pick(b_im, t), s_yim[j])};
-      const Ext q = ext_mul(num, den);
-      acc_re.mac(q.re, s_are[j]);
-      acc_re.mac(q.im, s_aim7[j]);
-      acc_im.mac(q.re, s_aim[j]);
-      acc_im.mac(q.im, s_are[j]);
+  for (int c = 0; c < G_COLS; ++c) live[c] = xt + c * G_HALF < g.tile;
+  if (threadIdx.x < G_HALF) {  // the row sums
+    int it = 0, k = 0;
+    for (long long tile = blockIdx.x; tile < g.tiles; tile += gridDim.x, ++k) {
+      // B_t(x) for the four batches: every row read once, from the ring;
+      // b[c][0] the real sums of column xt + c G_HALF, b[c][1] the imaginary
+      uint64_t b[G_COLS][2][G_TAGS];
+#pragma unroll
+      for (int t = 0; t < G_TAGS; ++t) {
+        uint64_t sum[G_COLS][2];
+        gl::Acc acc[G_COLS][2];
+#pragma unroll
+        for (int c = 0; c < G_COLS; ++c) sum[c][0] = sum[c][1] = 0;
+        const uint64_t* w_re = weights + g.offset[t];
+        const uint64_t* w_im = weights + g.total + g.offset[t];
+        for (int i0 = 0; i0 < g.rows[t]; i0 += G_STAGE_ROWS, ++it) {
+          const int s = it % G_STAGES;
+          mbar_wait(&full[s], (it / G_STAGES) & 1);
+          const int nr = min(G_STAGE_ROWS, g.rows[t] - i0);
+          const uint64_t* st = ring + (long long)s * G_STAGE_ROWS * g.tile + xt;
+#pragma unroll
+          for (int r = 0; r < G_STAGE_ROWS; ++r) {
+            if (r < nr) {
+              const uint64_t wr = w_re[i0 + r], wi = w_im[i0 + r];
+#pragma unroll
+              for (int c = 0; c < G_COLS; ++c) {
+                if (live[c]) {
+                  const uint64_t v = st[r * g.tile + c * G_HALF];
+                  acc[c][0].mac(wr, v);
+                  acc[c][1].mac(wi, v);
+                }
+              }
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[s]);
+          if ((i0 + G_STAGE_ROWS) % G_CHUNK == 0) {
+#pragma unroll
+            for (int c = 0; c < G_COLS; ++c) {
+#pragma unroll
+              for (int part = 0; part < 2; ++part) {
+                sum[c][part] = gl::add(sum[c][part], gl::canon(acc[c][part].reduce_lazy()));
+                acc[c][part] = gl::Acc();
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < G_COLS; ++c) {
+#pragma unroll
+          for (int part = 0; part < 2; ++part)
+            b[c][part][t] = gl::add(sum[c][part], gl::canon(acc[c][part].reduce_lazy()));
+        }
+      }
+      const int slot = k & 1;
+      if (k >= 2) mbar_wait(&hempty[slot], ((k >> 1) - 1) & 1);
+      uint64_t* h = hand + (long long)slot * 2 * G_TAGS * g.tile + xt;
+#pragma unroll
+      for (int c = 0; c < G_COLS; ++c) {
+        if (live[c]) {
+#pragma unroll
+          for (int t = 0; t < G_TAGS; ++t) {
+            h[t * g.tile + c * G_HALF] = b[c][0][t];
+            h[(G_TAGS + t) * g.tile + c * G_HALF] = b[c][1][t];
+          }
+        }
+      }
+      mbar_arrive(&hfull[slot]);
+    }
+    return;
+  }
+  const GSpecs sp{s_zre, s_zim, s_c7, s_yre, s_yim, s_are, s_aim, s_aim7};
+  int k = 0;  // the epilogue
+  for (long long tile = blockIdx.x; tile < g.tiles; tile += gridDim.x, ++k) {
+    const int slot = k & 1;
+    mbar_wait(&hfull[slot], (k >> 1) & 1);
+    uint64_t b_re[G_COLS][G_TAGS], b_im[G_COLS][G_TAGS];
+    const uint64_t* h = hand + (long long)slot * 2 * G_TAGS * g.tile + xt;
+#pragma unroll
+    for (int c = 0; c < G_COLS; ++c) {
+      if (live[c]) {
+#pragma unroll
+        for (int t = 0; t < G_TAGS; ++t) {
+          b_re[c][t] = h[t * g.tile + c * G_HALF];
+          b_im[c][t] = h[(G_TAGS + t) * g.tile + c * G_HALF];
+        }
+      }
+    }
+    mbar_arrive(&hempty[slot]);
+#pragma unroll
+    for (int c = 0; c < G_COLS; ++c) {
+      if (live[c]) {
+        const long long x = tile * g.tile + xt + c * G_HALF;
+        const Ext v = g_epilogue(g, sp, g.x[x], b_re[c], b_im[c]);
+        out_re[x] = v.re;
+        out_im[x] = v.im;
+      }
     }
   }
-  out_re[x] = gl::canon(acc_re.reduce_lazy());
-  out_im[x] = gl::canon(acc_im.reduce_lazy());
 }
 
 // ---------------------------------------------------------------------------
@@ -801,28 +1269,84 @@ extern "C" int elp_field_inv(const void* in, void* out, long long n, int threads
   return (int)cudaGetLastError();
 }
 
-// One launch of field_open_kernel: grid (slices x row groups, point groups).
-extern "C" int elp_field_open(const void* coeffs, long long stride, long long rows, long long n,
-                              const void* z_re, const void* z_im, int k, int points_per_block,
-                              long long slices, int cols, long long row_groups,
-                              long long point_groups, void* partial, void* stream) {
-  if (points_per_block < 1 || points_per_block > OPEN_WARPS || cols < 1 ||
-      cols > OPEN_MAX_COLS || slices < 1 || row_groups < 1 || point_groups < 1 ||
-      slices * row_groups > 0x7FFFFFFFll || point_groups > 65535)
+// The power table of `points` points (z_re, z_im) into `table` ((2 points,
+// n_pad) words of byte planes, zero from column n on): one launch.
+extern "C" int elp_field_open_table(const void* z_re, const void* z_im, int num_points, long long n,
+                                    long long n_pad, void* table, void* stream) {
+  if (num_points < 1 || num_points > 65535 || n < 1 || n_pad < n || n_pad % OPEN_KS)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(slices * row_groups), (unsigned)point_groups);
-  field_open_kernel<<<grid, 32 * OPEN_WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(coeffs), stride, rows, n, static_cast<const uint64_t*>(z_re),
-      static_cast<const uint64_t*>(z_im), k, points_per_block, slices, cols,
-      static_cast<uint64_t*>(partial));
+  const long long groups = n_pad / 32;
+  const dim3 grid(blocks_for(groups, OPEN_TABLE_THREADS / 32 * OPEN_TABLE_RUN, 1ll << 30),
+                  (unsigned)num_points);
+  field_open_table_kernel<<<grid, OPEN_TABLE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(z_re), static_cast<const uint64_t*>(z_im), n, groups,
+      static_cast<uint8_t*>(table));
   return (int)cudaGetLastError();
 }
 
-extern "C" int elp_field_open_sum(const void* partial, long long slices, long long count,
-                                  void* out, int threads, void* stream) {
-  field_open_sum_kernel<<<blocks_for(count, threads, 1ll << 30), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(partial), slices, count, static_cast<uint64_t*>(out));
+// The openings of `batches` batches from the power table of `num_points`
+// points, in one or two launches: field_open_kernel over `blocks` row groups
+// and `slices` column slices into `partial` ((slices, total) words), and,
+// with more than one slice, field_open_sum_kernel into `out` (total words;
+// with one slice `partial` is `out`).  Batch b: `coeffs[b]` (rows[b], n)
+// with row stride `stride[b]` (words, even; rows 16-byte aligned), ks[b]
+// points, its point j at row pair points[b * OPEN_MAX_POINTS + j] of the
+// table, its values at outs[b] of a slice, its first row group group0[b].
+// ops/kernels.py `field_open_plan` computes the sizes.
+extern "C" int elp_field_open(int batches, const void* const* coeffs, const long long* stride,
+                              const int* rows, const int* ks, const int* points,
+                              const long long* outs, const int* group0, int blocks,
+                              long long slices, int num_points, long long n, long long n_pad,
+                              const void* table, long long total, void* partial, void* out,
+                              void* stream) {
+  if (batches < 1 || batches > OPEN_MAX_BATCHES || num_points < 1 || n < 2 || (n & 1) ||
+      n_pad < n || n_pad % OPEN_KS || slices != (n + OPEN_CHUNK - 1) / OPEN_CHUNK ||
+      slices > 65535 || blocks < 1 || total < 1)
+    return (int)cudaErrorInvalidValue;
+  OpenArgs a{};
+  int groups = 0;
+  long long count = 0;
+  for (int b = 0; b < batches; ++b) {
+    OpenBatch& B = a.batch[b];
+    if (rows[b] < 1 || ks[b] < 1 || ks[b] > OPEN_MAX_POINTS || (stride[b] & 1) ||
+        (rows[b] > 1 && stride[b] < n) || (reinterpret_cast<uintptr_t>(coeffs[b]) & 15) ||
+        group0[b] != groups || outs[b] != count)
+      return (int)cudaErrorInvalidValue;
+    B.coeffs = static_cast<const uint64_t*>(coeffs[b]);
+    B.stride = stride[b];
+    B.rows = rows[b];
+    B.k = ks[b];
+    B.group0 = group0[b];
+    B.out = outs[b];
+    for (int j = 0; j < ks[b]; ++j) {
+      const int p = points[b * OPEN_MAX_POINTS + j];
+      if (p < 0 || p >= num_points) return (int)cudaErrorInvalidValue;
+      B.point[j] = p;
+    }
+    groups += (rows[b] + OPEN_ROWS - 1) / OPEN_ROWS;
+    count += 2ll * ks[b] * rows[b];
+  }
+  if (groups != blocks || count != total || (reinterpret_cast<uintptr_t>(table) & 15))
+    return (int)cudaErrorInvalidValue;
+  int ntiles = 1;
+  for (int b = 0; b < batches; ++b) ntiles = max(ntiles, (2 * ks[b] + 7) / 8);
+  a.stage_bytes = (int)open_stage_bytes(ntiles);
+  const int shared = OPEN_STAGES * a.stage_bytes + 2 * OPEN_STAGES * 8;
+  a.batches = batches;
+  a.table = static_cast<const uint64_t*>(table);
+  a.n = n;
+  a.n_pad = n_pad;
+  a.total = total;
+  a.partial = static_cast<uint64_t*>(slices == 1 ? out : partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(field_open_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             shared);
+  if (err != cudaSuccess) return (int)err;
+  field_open_kernel<<<dim3((unsigned)blocks, (unsigned)slices), OPEN_THREADS, shared, s>>>(
+      a);
+  if ((err = cudaGetLastError()) != cudaSuccess || slices == 1) return (int)err;
+  field_open_sum_kernel<<<blocks_for(total, 256, 1ll << 30), 256, 0, s>>>(
+      static_cast<const uint64_t*>(partial), slices, total, static_cast<uint64_t*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -887,20 +1411,25 @@ extern "C" int elp_perm_z(const void* wires, long long wires_stride, const void*
 }
 
 // One launch: G on the LDE coset into out_re, out_im (n_lde words each).
-// `lde`, `stride`, `rows`: the four batches P, W, Z, Q; `spec_tag`: the
-// batch of each of `specs` specs (ints, read on the host).
+// `lde`, `stride`, `rows`: the four batches P, W, Z, Q (rows 16-byte aligned,
+// even strides); `spec_tag`: the batch of each of `specs` specs (ints, read
+// on the host); `tile` columns a tile (even, dividing n_lde), `blocks`
+// persistent blocks.  ops/kernels.py `fri_g_plan` computes them.
 extern "C" int elp_fri_g(const void* const* lde, const long long* stride, const int* rows,
                          const int* spec_tag, int specs, const void* x, const void* a_re,
                          const void* a_im, const void* y_re, const void* y_im, const void* z_re,
-                         const void* z_im, long long n_lde, void* out_re, void* out_im,
-                         int threads, void* stream) {
-  if (specs < 1 || specs > G_MAX_SPECS || n_lde < 1 || threads < G_MAX_SPECS || threads > 256)
+                         const void* z_im, long long n_lde, int tile, int blocks, void* out_re,
+                         void* out_im, void* stream) {
+  if (specs < 1 || specs > G_MAX_SPECS || n_lde < 2 || tile < 2 || tile > G_TILE || (tile & 1) ||
+      n_lde % tile || blocks < 1)
     return (int)cudaErrorInvalidValue;
   const auto w = [](const void* p) { return static_cast<const uint64_t*>(p); };
   GArgs g{};
   int total = 0;
   for (int t = 0; t < G_TAGS; ++t) {
-    if (rows[t] < 0 || (rows[t] > 0 && stride[t] < n_lde)) return (int)cudaErrorInvalidValue;
+    if (rows[t] < 0 || (rows[t] > 0 && ((stride[t] & 1) || (rows[t] > 1 && stride[t] < n_lde) ||
+                                        (reinterpret_cast<uintptr_t>(lde[t]) & 15))))
+      return (int)cudaErrorInvalidValue;
     g.lde[t] = w(lde[t]);
     g.stride[t] = stride[t];
     g.rows[t] = rows[t];
@@ -922,10 +1451,16 @@ extern "C" int elp_fri_g(const void* const* lde, const long long* stride, const 
   g.z_re = w(z_re);
   g.z_im = w(z_im);
   g.n_lde = n_lde;
-  const size_t shared = 2 * (size_t)total * sizeof(uint64_t);
-  fri_g_kernel<<<blocks_for(n_lde, threads, 1ll << 30), threads, shared,
-                 static_cast<cudaStream_t>(stream)>>>(g, static_cast<uint64_t*>(out_re),
-                                                      static_cast<uint64_t*>(out_im));
+  g.tile = tile;
+  g.tiles = n_lde / tile;
+  const size_t shared = ((size_t)G_STAGES * G_STAGE_ROWS * tile + 4 * (size_t)G_TAGS * tile +
+                         2 * (size_t)total + 2 * G_STAGES + 4) *
+                        sizeof(uint64_t);
+  cudaError_t err =
+      cudaFuncSetAttribute(fri_g_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  if (err != cudaSuccess) return (int)err;
+  fri_g_kernel<<<(unsigned)blocks, G_THREADS, shared, static_cast<cudaStream_t>(stream)>>>(
+      g, static_cast<uint64_t*>(out_re), static_cast<uint64_t*>(out_im));
   return (int)cudaGetLastError();
 }
 

@@ -42,17 +42,27 @@ POSEIDON_THREADS = 256  # csrc/poseidon.cu: __launch_bounds__(256, ...), the mos
 FIELD_THREADS = 256  # csrc/field.cu: __launch_bounds__(256)
 FIELD_OPS = {"add": 0, "sub": 1, "mul": 2}  # csrc/field.cu: OP_ADD, OP_SUB, OP_MUL
 FIELD_INV_RUN = 16  # csrc/field.cu: INV_RUN, the words a thread inverts together
-# csrc/field.cu's G kernel: G_TAGS batches, G_MAX_SPECS specs, G_MAX_ROWS rows in all
+# csrc/field.cu's G kernel: G_TAGS batches, G_MAX_SPECS specs, G_MAX_ROWS rows
+# in all; persistent blocks (one an SM) walk tiles of G_TILE
+# columns, the rows arriving G_STAGE_ROWS at a time by bulk copies
 G_TAGS = 4
 G_MAX_SPECS = 16
 G_MAX_ROWS = 2048
-# csrc/field.cu's openings: OPEN_WARPS warps a block, each a point and
-# OPEN_ROWS rows, 16 to OPEN_MAX_COLS columns a lane a slice of the columns
-OPEN_WARPS = 8
-OPEN_ROWS = 4
-OPEN_MAX_COLS = 128
-OPEN_MIN_COLS = 16
-OPEN_MIN_BLOCKS = 2 * 132  # two blocks for each of the H100's 132 SMs, where the columns allow
+G_TILE = 256
+G_STAGE_ROWS = 8
+# csrc/field.cu's openings: a launch takes a table of at most OPEN_MAX_BATCHES
+# entries of at most OPEN_MAX_POINTS points each (a batch with more points
+# takes several entries, more entries take more launches);
+# a block takes OPEN_ROWS rows of one entry and OPEN_CHUNK columns, OPEN_KS
+# columns a stage; the power table's rows are padded to whole stages
+OPEN_MAX_BATCHES = 8
+OPEN_MAX_POINTS = 8
+OPEN_ROWS = 32
+OPEN_MTILES = 2
+OPEN_NTILES = 2
+OPEN_KS = 256
+OPEN_CHUNK = 4096
+OPEN_CLASSES = 15
 # csrc/field.cu's permutation terms: PERM_CHALLENGES, PERM_MAX_ROUTED, PERM_MAX_CHUNKS
 PERM_CHALLENGES = 2
 PERM_MAX_ROUTED = 256
@@ -144,15 +154,18 @@ def _libraries() -> dict:
                      "elp_merkle_tail": [vp, ll, i32, vp, i32, vp]},
         "field": {"elp_field_binary": [i32, vp, ll, ll, vp, ll, ll, vp, ll, ll, i32, vp],
                   "elp_field_inv": [vp, vp, ll, i32, vp],
-                  "elp_field_open": [vp, ll, ll, ll, vp, vp, i32, i32, ll, i32, ll, ll, vp, vp],
-                  "elp_field_open_sum": [vp, ll, ll, vp, i32, vp],
+                  "elp_field_open_table": [vp, vp, i32, ll, ll, vp, vp],
+                  "elp_field_open": [i32, ctypes.POINTER(vp), ctypes.POINTER(ll),
+                                     ctypes.POINTER(i32), ctypes.POINTER(i32), ctypes.POINTER(i32),
+                                     ctypes.POINTER(ll), ctypes.POINTER(i32), i32, ll, i32, ll, ll,
+                                     vp, ll, vp, vp, vp],
                   "elp_perm_quotient": [vp, ll, vp, ll, vp, ll, vp, vp, vp, vp, vp, vp, vp, ll,
                                         ll, i32, i32, i32, vp, i32, vp],
                   "elp_perm_z": [vp, ll, vp, ll, vp, vp, vp, vp, ll, i32, i32, i32, vp, vp, i32, ll,
                                  ll, ll, i32, vp],
                   "elp_fri_g": [ctypes.POINTER(vp), ctypes.POINTER(ll), ctypes.POINTER(i32),
-                                ctypes.POINTER(i32), i32, vp, vp, vp, vp, vp, vp, vp, ll, vp, vp,
-                                i32, vp],
+                                ctypes.POINTER(i32), i32, vp, vp, vp, vp, vp, vp, vp, ll, i32, i32,
+                                vp, vp, vp],
                   "elp_fri_fold": [vp, vp, vp, ctypes.c_ulonglong, ctypes.c_ulonglong, vp, vp, vp,
                                    vp, ll, i32, vp]},
         "gates": {"elp_sha_gate_quotient": [vp, ll, ll, ll, i32, ctypes.POINTER(i32), vp, vp, vp, vp,
@@ -373,65 +386,162 @@ def field_inv(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def field_open_plan(rows: int, n: int, k: int) -> dict:
-    """How ``field_open_kernel`` tiles the evaluation of (rows, n) coefficients
-    at k points: ``points_per_block`` warps a row subgroup take one point
-    each, a block covers ``rows_per_block`` rows of ``row_groups`` and
-    ``32 * cols`` columns of ``slices``; ``launches`` is 2 when the slices'
-    partial sums need the second, summing launch, else 1.  The columns a
-    lane takes shrink (to OPEN_MIN_COLS) until the grid has OPEN_MIN_BLOCKS
-    blocks or the columns run out."""
-    if rows < 1 or n < 1 or k < 1:
-        raise ValueError(f"field open: {rows} rows of {n} coefficients at {k} points")
-    ppb = min(k, OPEN_WARPS)
-    rows_per_block = (OPEN_WARPS // ppb) * OPEN_ROWS
-    row_groups = -(-rows // rows_per_block)
-    point_groups = -(-k // ppb)
-    cols = OPEN_MAX_COLS
-    while cols > OPEN_MIN_COLS and row_groups * point_groups * -(-n // (32 * cols)) < OPEN_MIN_BLOCKS:
-        cols //= 2
-    cols = min(cols, -(-n // 32))
-    slices = -(-n // (32 * cols))
-    if slices * row_groups >= 1 << 31 or point_groups > 65535:
-        raise ValueError(f"field open: a grid of {slices * row_groups} x {point_groups} blocks")
-    return {"points_per_block": ppb, "rows_per_block": rows_per_block, "row_groups": row_groups,
-            "point_groups": point_groups, "cols": cols, "slices": slices,
-            "launches": 1 if slices == 1 else 2}
+def open_column(pos: int) -> int:
+    """csrc/field.cu ``open_column``: the column of a 32-column k-step whose
+    power byte the table stores at position ``pos`` of a plane's 32 bytes
+    (lane t's two B registers are the bytes from 8t)."""
+    t, hi, e = pos >> 3, (pos >> 2) & 1, pos & 3
+    return 16 * hi + 2 * t + (e & 1) + 8 * (e >> 1)
 
 
-def field_open(coeffs: torch.Tensor, z_re: torch.Tensor, z_im: torch.Tensor) -> tuple:
-    """Launch ``field_open_kernel`` (and ``field_open_sum_kernel`` over its
-    slices): the values of the (rows, n) coefficient rows at the k ext points
-    (z_re[j], z_im[j]), as (k, rows) real and imaginary words."""
-    for t, name in ((coeffs, "coeffs"), (z_re, "z_re"), (z_im, "z_im")):
-        _check(t, name)
-    if (coeffs.dim() != 2 or coeffs.stride(1) != 1 or coeffs.stride(0) < coeffs.shape[1]
-            or z_re.dim() != 1 or z_re.shape != z_im.shape or not z_re.is_contiguous()
-            or not z_im.is_contiguous() or len({coeffs.device, z_re.device, z_im.device}) != 1):
-        raise ValueError(f"field open: coefficients {tuple(coeffs.shape)} with strides "
-                         f"{coeffs.stride()}, points {tuple(z_re.shape)} and {tuple(z_im.shape)}")
-    rows, n = coeffs.shape
-    k = z_re.shape[0]
-    if rows == 0 or k == 0:
-        empty = torch.empty((k, rows), dtype=torch.int64, device=coeffs.device)
-        return empty, empty.clone()
-    plan = field_open_plan(rows, n, k)
-    lib = _libraries()["field"]
-    partial = torch.empty((plan["slices"], 2, k, rows), dtype=torch.int64, device=coeffs.device)
-    err = lib.elp_field_open(coeffs.data_ptr(), coeffs.stride(0), rows, n, z_re.data_ptr(),
-                             z_im.data_ptr(), k, plan["points_per_block"], plan["slices"],
-                             plan["cols"], plan["row_groups"], plan["point_groups"],
-                             partial.data_ptr(), _stream(coeffs))
+def field_open_plan(shapes: list, n: int) -> dict:
+    """How one launch of ``field_open_kernel`` takes the openings of batches
+    of (rows, k) ``shapes`` (rows coefficient rows of n columns at k points):
+    batch b's ``groups[b]`` blocks of OPEN_ROWS rows start at block
+    ``group0[b]`` of the grid's x, whose y is the ``slices`` column slices of
+    OPEN_CHUNK columns, each walked in stages of OPEN_KS columns; a slice's
+    values of batch b, (2, k, rows), start at word ``out[b]`` of ``total``.
+    ``ntiles[b]`` n-tiles of 8 of its 2k power rows and ``mtiles[b]`` (per
+    group) m-tiles of 16 rows are the warps with work; the power table's rows
+    are ``n_pad`` words; ``launches``: the table, the product and, with more
+    than one slice, their sum."""
+    if not 1 <= len(shapes) <= OPEN_MAX_BATCHES:
+        raise ValueError(f"field open: {len(shapes)} batches (1 to {OPEN_MAX_BATCHES} a launch)")
+    if n < 2 or n % 2:
+        raise ValueError(f"field open: {n} columns (the bulk copies take an even number, at least 2)")
+    groups, group0, out, ntiles, mtiles = [], [], [], [], []
+    blocks = total = 0
+    for rows, k in shapes:
+        if rows < 1 or not 1 <= k <= OPEN_MAX_POINTS:
+            raise ValueError(f"field open: {rows} rows at {k} points (1 to {OPEN_MAX_POINTS} points)")
+        groups.append(-(-rows // OPEN_ROWS))
+        group0.append(blocks)
+        out.append(total)
+        ntiles.append(-(-2 * k // 8))
+        mtiles.append([-(-min(OPEN_ROWS, rows - g * OPEN_ROWS) // 16) for g in range(groups[-1])])
+        blocks += groups[-1]
+        total += 2 * k * rows
+    slices = -(-n // OPEN_CHUNK)
+    if blocks >= 1 << 31 or slices > 65535:
+        raise ValueError(f"field open: a grid of {blocks} x {slices} blocks")
+    return {"groups": groups, "group0": group0, "blocks": blocks, "out": out, "total": total,
+            "ntiles": ntiles, "mtiles": mtiles, "slices": slices,
+            "slice_cols": min(OPEN_CHUNK, n), "n_pad": -(-n // OPEN_KS) * OPEN_KS,
+            "launches": 2 if slices == 1 else 3}
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """The tensor's first word is 16-byte aligned (what a bulk copy needs)."""
+    return t.data_ptr() % 16 == 0
+
+
+def field_open_table(z_re: torch.Tensor, z_im: torch.Tensor, n: int) -> torch.Tensor:
+    """Launch ``field_open_table_kernel``: the power table of the k ext points
+    (z_re, z_im) over n columns, (2k, n_pad) words (n_pad = n rounded up to
+    whole stages): row 2j + part of point j holds the byte planes of part
+    (0 real, 1 imaginary) of z_j^c, each 32-column group's 256 bytes plane
+    by plane in the order the product reads them (csrc/field.cu
+    ``open_column``), zero from column n on; ``prove.open_table_plain`` is
+    its plain version."""
+    _check(z_re, "z_re")
+    _check(z_im, "z_im")
+    if (z_re.dim() != 1 or z_re.shape != z_im.shape or not z_re.is_contiguous()
+            or not z_im.is_contiguous() or z_re.shape[0] < 1 or n < 1):
+        raise ValueError(f"field open table: points {tuple(z_re.shape)} and {tuple(z_im.shape)} "
+                         f"over {n} columns")
+    n_pad = -(-n // OPEN_KS) * OPEN_KS
+    table = torch.empty((2 * z_re.shape[0], n_pad), dtype=torch.int64, device=z_re.device)
+    err = _libraries()["field"].elp_field_open_table(z_re.data_ptr(), z_im.data_ptr(),
+                                                     z_re.shape[0], n, n_pad, table.data_ptr(),
+                                                     _stream(z_re))
     launches["field"] += 1
+    _raise_on(err, "field open table")
+    return table
+
+
+def open_entries(point_rows: list) -> list:
+    """The openings' table of batches: (batch, first point, points) entries of
+    at most OPEN_MAX_POINTS points, a batch's points in order (a batch without
+    points has none)."""
+    return [(b, j, len(rows[j : j + OPEN_MAX_POINTS])) for b, rows in enumerate(point_rows)
+            for j in range(0, len(rows), OPEN_MAX_POINTS)]
+
+
+def field_open_plans(rows: list, point_rows: list, n: int) -> list:
+    """The product launches of ``field_open`` for batches of ``rows[b]``
+    coefficient rows at points ``point_rows[b]``: (entries, plan) for each
+    group of at most OPEN_MAX_BATCHES entries of ``open_entries`` (a batch
+    without rows takes none), in order; one table launch goes before them, so
+    a call launches 1 + sum(plan["launches"] - 1) kernels."""
+    entries = [(b, j, kb) for b, j, kb in open_entries(point_rows) if rows[b]]
+    groups = [entries[g : g + OPEN_MAX_BATCHES] for g in range(0, len(entries), OPEN_MAX_BATCHES)]
+    return [(group, field_open_plan([(rows[b], kb) for b, _, kb in group], n)) for group in groups]
+
+
+def field_open(coeffs: list, z_re: torch.Tensor, z_im: torch.Tensor, point_rows: list) -> list:
+    """Launch ``field_open_table_kernel``, then ``field_open_kernel`` (and
+    ``field_open_sum_kernel`` over its slices) once for each group of
+    ``field_open_plans``: the values of each batch's
+    (rows, n) coefficient rows ``coeffs[b]`` at its points z[i] for i in
+    ``point_rows[b]`` (indices into the ext points (z_re, z_im)), as one
+    ((k, rows) real, (k, rows) imaginary) pair a batch."""
+    for i, t in enumerate([*coeffs, z_re, z_im]):
+        _check(t, f"field open argument {i}")
+    if (z_re.dim() != 1 or z_re.shape != z_im.shape or not z_re.is_contiguous()
+            or not z_im.is_contiguous() or len(coeffs) != len(point_rows)):
+        raise ValueError(f"field open: points {tuple(z_re.shape)} and {tuple(z_im.shape)}, "
+                         f"{len(coeffs)} batches and {len(point_rows)} point lists")
+    dev = z_re.device
+    n = coeffs[0].shape[1] if coeffs and coeffs[0].dim() == 2 else -1
+    for c, rows_of in zip(coeffs, point_rows):
+        if (c.dim() != 2 or c.shape[1] != n or (n > 1 and c.stride(1) != 1) or c.device != dev
+                or (c.shape[0] > 1 and (c.stride(0) < n or c.stride(0) % 2)) or not _aligned(c)
+                or any(not 0 <= i < z_re.shape[0] for i in rows_of)):
+            raise ValueError(f"field open: coefficients {tuple(c.shape)} with strides {c.stride()} "
+                             f"on {c.device} at points {list(rows_of)} of {z_re.shape[0]} (rows of "
+                             f"{n} words, even row strides, 16-byte aligned)")
+    results = [None] * len(coeffs)
+    launches_of = field_open_plans([c.shape[0] for c in coeffs], point_rows, n)
+    for b in set(range(len(coeffs))) - {b for group, _ in launches_of for b, _, _ in group}:
+        empty = torch.empty((len(point_rows[b]), coeffs[b].shape[0]), dtype=torch.int64, device=dev)
+        results[b] = (empty, empty.clone())
+    if not launches_of:
+        return results
+    table = field_open_table(z_re, z_im, n)
+    parts: dict = {}
+    for group, plan in launches_of:
+        for (b, _, _), values in zip(group, _field_open_launch(coeffs, z_re, table, point_rows,
+                                                                group, plan, n)):
+            parts.setdefault(b, []).append(values)
+    for b, values in parts.items():
+        both = values[0] if len(values) == 1 else torch.cat(values, dim=1)
+        results[b] = (both[0], both[1])
+    return results
+
+
+def _field_open_launch(coeffs, z_re, table, point_rows, entries, plan, n) -> list:
+    """One launch of ``field_open_kernel`` (and its slices' sum) over a group
+    of ``field_open_plans``: each entry's values, (2, points, rows)."""
+    shapes = [(coeffs[b].shape[0], kb) for b, _, kb in entries]
+    vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    nb = len(entries)
+    points = [0] * (nb * OPEN_MAX_POINTS)
+    for i, (b, j, kb) in enumerate(entries):
+        points[i * OPEN_MAX_POINTS : i * OPEN_MAX_POINTS + kb] = point_rows[b][j : j + kb]
+    out = torch.empty(plan["total"], dtype=torch.int64, device=z_re.device)
+    partial = (out if plan["slices"] == 1 else
+               torch.empty((plan["slices"], plan["total"]), dtype=torch.int64, device=z_re.device))
+    err = _libraries()["field"].elp_field_open(
+        nb, (vp * nb)(*[coeffs[b].data_ptr() for b, _, _ in entries]),
+        (ll * nb)(*[coeffs[b].stride(0) if coeffs[b].shape[0] > 1 else n for b, _, _ in entries]),
+        (i32 * nb)(*[r for r, _ in shapes]), (i32 * nb)(*[kb for _, kb in shapes]),
+        (i32 * len(points))(*points), (ll * nb)(*plan["out"]), (i32 * nb)(*plan["group0"]),
+        plan["blocks"], plan["slices"], z_re.shape[0], n, plan["n_pad"], table.data_ptr(),
+        plan["total"], partial.data_ptr(), out.data_ptr(), _stream(z_re))
+    launches["field"] += plan["launches"] - 1
     _raise_on(err, "field open")
-    if plan["slices"] == 1:
-        return partial[0, 0], partial[0, 1]
-    out = torch.empty((2, k, rows), dtype=torch.int64, device=coeffs.device)
-    err = lib.elp_field_open_sum(partial.data_ptr(), plan["slices"], out.numel(), out.data_ptr(),
-                                 FIELD_THREADS, _stream(coeffs))
-    launches["field"] += 1
-    _raise_on(err, "field open sum")
-    return out[0], out[1]
+    return [out[at : at + 2 * kb * rows].view(2, kb, rows)
+            for (rows, kb), at in zip(shapes, plan["out"])]
 
 
 def perm_quotient_plan(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas: list,
@@ -762,21 +872,32 @@ def _rows_view(t, n: int, device, name: str, what: str) -> None:
                          f"rows with unit column stride on {device}")
 
 
-def fri_g_plan(ldes, apow, y, z, x, spec_batches) -> dict:
+def fri_g_plan(ldes, apow, y, z, x, spec_batches, sms: int) -> dict:
     """How ``fri_g_kernel`` reads G's arguments: checks what it assumes and
     returns the columns, each batch's rows, row stride and first weight (the
-    weights of P, W, Z, Q follow each other), the total rows, the specs and
-    each spec's batch index.
+    weights of P, W, Z, Q follow each other), the total rows, the specs, each
+    spec's batch index, the columns of a tile, the tiles and the persistent
+    blocks (one on each of the card's ``sms`` multiprocessors, at most one a
+    tile).
 
     ``ldes`` are the four batches' (rows, n_lde) LDEs in P, W, Z, Q order;
     ``apow`` (re, im) rows of total + specs weights; ``y`` and ``z`` (re, im)
-    rows of one word a spec; ``x`` the (n_lde,) coset; ``spec_batches`` the
-    index into ``ldes`` of each spec's batch."""
+    rows of one word a spec; ``x`` the (n_lde,) coset (or a shard's window of
+    it); ``spec_batches`` the index into ``ldes`` of each spec's batch.
+
+    The rows arrive by bulk copies of a tile's segment of a row, so each
+    batch's rows must be 16-byte aligned (an aligned first word, an even row
+    stride) and the columns whole tiles: a tile is min(G_TILE, n_lde)
+    columns, an even number.  A plan that does not hold raises."""
     if len(ldes) != G_TAGS:
         raise ValueError(f"fri G: {len(ldes)} batches, the kernel takes {G_TAGS}")
     n_lde = x.shape[0] if x.dim() == 1 else 0
     if n_lde < 1:
         raise ValueError(f"fri G: coset of shape {tuple(x.shape)}")
+    tile = min(G_TILE, n_lde)
+    if tile % 2 or n_lde % tile:
+        raise ValueError(f"fri G: {n_lde} columns are not whole tiles of {tile} (an even number "
+                         f"of at most {G_TILE})")
     dev = x.device
     rows, strides, offsets, total = [], [], [], 0
     for t, lde in enumerate(ldes):
@@ -785,6 +906,9 @@ def fri_g_plan(ldes, apow, y, z, x, spec_batches) -> dict:
         strides.append(lde.stride(0) if lde.shape[0] > 1 else n_lde)
         offsets.append(total)
         total += lde.shape[0]
+        if lde.shape[0] and (strides[-1] % 2 or not _aligned(lde)):
+            raise ValueError(f"fri G: batch {t}'s rows are not 16-byte aligned (row stride "
+                             f"{strides[-1]}, first word at byte {lde.data_ptr() % 16} of 16)")
     specs = len(spec_batches)
     if not 1 <= specs <= G_MAX_SPECS or total > G_MAX_ROWS:
         raise ValueError(f"fri G: {specs} specs and {total} rows (the kernel takes 1 to "
@@ -795,8 +919,10 @@ def fri_g_plan(ldes, apow, y, z, x, spec_batches) -> dict:
     for name, pair, length in (("apow", apow, total + specs), ("y", y, specs), ("z", z, specs)):
         for part, t in zip(("re", "im"), pair):
             _dense_row(t, length, dev, f"{name} {part}", "fri G")
+    tiles = n_lde // tile
     return {"n_lde": n_lde, "rows": rows, "strides": strides, "offsets": offsets, "total": total,
-            "specs": specs, "spec_tag": list(spec_batches)}
+            "specs": specs, "spec_tag": list(spec_batches), "tile": tile, "tiles": tiles,
+            "blocks": min(tiles, sms)}
 
 
 def fri_g(ldes, apow, y, z, x, spec_batches) -> tuple:
@@ -805,15 +931,16 @@ def fri_g(ldes, apow, y, z, x, spec_batches) -> tuple:
     (re, im) rows of n_lde words (see ``fri_g_plan`` for the arguments)."""
     for i, t in enumerate([*ldes, *apow, *y, *z, x]):
         _check(t, f"fri G argument {i}")
-    plan = fri_g_plan(ldes, apow, y, z, x, spec_batches)
+    plan = fri_g_plan(ldes, apow, y, z, x, spec_batches,
+                      torch.cuda.get_device_properties(x.device).multi_processor_count)
     out = torch.empty((2, plan["n_lde"]), dtype=torch.int64, device=x.device)
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     err = _libraries()["field"].elp_fri_g(
         (vp * G_TAGS)(*[t.data_ptr() for t in ldes]), (ll * G_TAGS)(*plan["strides"]),
         (i32 * G_TAGS)(*plan["rows"]), (i32 * G_MAX_SPECS)(*plan["spec_tag"]), plan["specs"],
         x.data_ptr(), apow[0].data_ptr(), apow[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(),
-        z[0].data_ptr(), z[1].data_ptr(), plan["n_lde"], out[0].data_ptr(), out[1].data_ptr(),
-        FIELD_THREADS, _stream(x))
+        z[0].data_ptr(), z[1].data_ptr(), plan["n_lde"], plan["tile"], plan["blocks"],
+        out[0].data_ptr(), out[1].data_ptr(), _stream(x))
     launches["field"] += 1
     _raise_on(err, "fri G")
     return out[0], out[1]

@@ -570,18 +570,37 @@ def _open_core(coeffs, z_re_f, z_im_f):
     """Evaluate base-coefficient polys (batch, n) at k ext points.
 
     z_re_f/z_im_f: field tensors of shape (k,).  Returns (re, im) field
-    tensors of shape (k, batch): value of poly b at point j.  On the card
-    this is csrc/field.cu's ``field_open_kernel`` (two launches at most); a
-    CPU tensor runs ``_open_core_plain``.
+    tensors of shape (k, batch): value of poly b at point j.  One batch of
+    ``open_batches``.
     """
-    if kernels.on_card(coeffs):
-        return kernels.field_open(coeffs, z_re_f, z_im_f)
-    return _open_core_plain(coeffs, z_re_f, z_im_f)
+    return open_batches([coeffs], z_re_f, z_im_f, [tuple(range(z_re_f.shape[0]))])[0]
+
+
+def open_batches(coeffs: list, z_re_f, z_im_f, point_rows: list) -> list:
+    """Each batch ``coeffs[b]`` (rows_b, n) at the points z[i], i in
+    ``point_rows[b]``, of the (k,) field tensors z_re_f, z_im_f: one (re, im)
+    pair of (len(point_rows[b]), rows_b) tensors a batch.  On the card this
+    is csrc/field.cu's openings, one call for all the batches (the power
+    table, the product, the slices' sum); a CPU tensor runs
+    ``open_batches_plain``."""
+    if kernels.on_card(z_re_f):
+        return kernels.field_open(coeffs, z_re_f, z_im_f, point_rows)
+    return open_batches_plain(coeffs, z_re_f, z_im_f, point_rows)
+
+
+def open_batches_plain(coeffs: list, z_re_f, z_im_f, point_rows: list) -> list:
+    """The plain version of ``open_batches``: ``_open_core_plain`` a batch."""
+    out = []
+    for c, rows_of in zip(coeffs, point_rows):
+        idx = torch.tensor(list(rows_of), dtype=torch.int64, device=z_re_f.device)
+        out.append(_open_core_plain(c, z_re_f[idx], z_im_f[idx]))
+    return out
 
 
 def _open_core_plain(coeffs, z_re_f, z_im_f):
-    """The plain version of ``_open_core``: for each point, its ext powers by
-    log-doubling, then two products with the coefficients and two sums."""
+    """The plain version of one batch's openings: for each point, its ext
+    powers by log-doubling, then two products with the coefficients and two
+    sums."""
     n = coeffs.shape[-1]
     outs_re, outs_im = [], []
     for j in range(z_re_f.shape[0]):
@@ -591,15 +610,46 @@ def _open_core_plain(coeffs, z_re_f, z_im_f):
     return torch.stack(outs_re), torch.stack(outs_im)
 
 
+def open_table_plain(z_re_f, z_im_f, n: int) -> torch.Tensor:
+    """The plain version of ``kernels.field_open_table``: the powers z_j^c, c
+    < n, of each point as the rows 2j (real) and 2j + 1 (imaginary), zero to
+    n_pad, each 32-column group's words split into 8 byte planes of 32 bytes,
+    a plane's bytes in the product's order (``kernels.open_column``)."""
+    k = z_re_f.shape[0]
+    n_pad = -(-n // kernels.OPEN_KS) * kernels.OPEN_KS
+    values = torch.zeros((2 * k, n_pad), dtype=torch.int64, device=z_re_f.device)
+    for j in range(k):
+        zp_re, zp_im = ge.powers_device((z_re_f[j], z_im_f[j]), n)
+        values[2 * j, :n], values[2 * j + 1, :n] = zp_re, zp_im
+    column = torch.tensor([kernels.open_column(p) for p in range(32)], device=values.device)
+    by_position = values.view(2 * k, n_pad // 32, 32)[:, :, column].contiguous()
+    planes = by_position.view(torch.uint8).view(2 * k, n_pad // 32, 32, 8).permute(0, 1, 3, 2)
+    return planes.contiguous().view(torch.int64).reshape(2 * k, n_pad)
+
+
 def eval_poly_ext_many(coeffs, z_exts: list):
     """Evaluate base-coefficient polynomials (batch, n) at host ext points.
 
     Returns ((k, batch) re, (k, batch) im) on the coefficients' device: the
     caller decides when to transfer.
     """
-    z_re = scalars_f([z[0] for z in z_exts], coeffs.device)
-    z_im = scalars_f([z[1] for z in z_exts], coeffs.device)
-    return _open_core(coeffs, z_re, z_im)
+    return eval_poly_ext_batches([(coeffs, z_exts)])[0]
+
+
+def eval_poly_ext_batches(items: list) -> list:
+    """Each (coeffs (batch, n), host ext points) of ``items`` evaluated, in one
+    call of ``open_batches``: the points' union goes to the device once, each
+    batch reads its own.  Returns one ((k, batch) re, (k, batch) im) pair an
+    item, on the coefficients' device."""
+    union: dict = {}
+    for _, z_exts in items:
+        for z in z_exts:
+            union.setdefault((int(z[0]), int(z[1])), len(union))
+    dev = items[0][0].device
+    z_re = scalars_f([z[0] for z in union], dev)
+    z_im = scalars_f([z[1] for z in union], dev)
+    rows = [tuple(union[(int(z[0]), int(z[1]))] for z in z_exts) for _, z_exts in items]
+    return open_batches([c for c, _ in items], z_re, z_im, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -643,10 +693,12 @@ class Phases:
     def commit_coeffs(self, coeffs: torch.Tensor) -> CommitmentBatch:
         return commit_coeffs(coeffs, self.rate, self.cap_h)
 
-    def open(self, batch: CommitmentBatch, points: list):
-        """Each polynomial of ``batch`` at host ext ``points``, on the device:
-        ((k, num_polys) re, (k, num_polys) im); ``to_host`` reads them."""
-        return eval_poly_ext_many(batch.coeffs, points)
+    def open(self, items: dict) -> dict:
+        """Each polynomial of each batch at its host ext points, ``items`` =
+        {tag: (batch, points)}, in one call: {tag: ((k, num_polys) re, (k,
+        num_polys) im)} on the device; ``to_host`` reads each."""
+        values = eval_poly_ext_batches([(b.coeffs, pts) for b, pts in items.values()])
+        return dict(zip(items, values))
 
     def to_host(self, batch: CommitmentBatch, values) -> tuple:
         """[device sync: the opening values] (re, im) u64 (k, num_polys)."""
@@ -720,7 +772,7 @@ def prove_with(ph: Phases, witness: Witness, prof: Profiler | None = None) -> Pr
     quotient_batch = ph.commit_coeffs(chunk_coeffs)
     ch.observe_cap(quotient_batch.cap)  # [device sync]
 
-    # 4. opening point + openings (one batched evaluation per batch)
+    # 4. opening point + openings (one batched evaluation of all batches)
     prof.phase("openings")
     zeta = ch.challenge_ext()
     omega = gl.primitive_root_of_unity(data.log_n)
@@ -735,8 +787,8 @@ def prove_with(ph: Phases, witness: Witness, prof: Profiler | None = None) -> Pr
     tag_offsets: dict[str, list[int]] = {}
     for tag, offset in point_specs:
         tag_offsets.setdefault(tag, []).append(offset)
-    open_dev = {tag: ph.open(batches[tag], [point_at(o) for o in offs])
-                for tag, offs in tag_offsets.items()}
+    open_dev = ph.open({tag: (batches[tag], [point_at(o) for o in offs])
+                        for tag, offs in tag_offsets.items()})
     openings = {}
     for tag, offs in tag_offsets.items():  # [device sync: the opening values]
         re_u, im_u = ph.to_host(batches[tag], open_dev[tag])

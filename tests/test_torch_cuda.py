@@ -199,17 +199,22 @@ def test_sha_and_poseidon_proof_on_card_verifies(dev):
             verify(data, vk, prove.prove(pd, forged))
 
 
-OPEN_OFFSETS = (0, -1, -2, -3, -4, -7, -15, -16)
+# phase 7's offsets, then more for batches of more points than an entry holds
+OPEN_OFFSETS = (0, -1, -2, -3, -4, -7, -15, -16, 2, 3, 5, 6, 9, 10, 11, 13)
 
 
 @pytest.mark.parametrize("zeta", ["seeded", "edge"])
-@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("k", [1, 8, 12, 16])
 @pytest.mark.parametrize("log_n", [4, 12, 18])
 def test_field_open_kernel_matches_plain(dev, log_n, k, zeta):
-    """field_open_kernel (and its sum over the slices) against the plain
-    openings on the card: 37 rows read through a row stride wider than n,
-    points zeta * omega^o at phase 7's offsets, edge words in the
-    coefficients and, for "edge", in zeta."""
+    """The openings' kernels (the power table, the product on the int8 tensor
+    cores, the slices' sum) against the plain openings on the card, one call
+    for a table of three batches: 37 rows read through a row stride wider
+    than n, 20 and 5 rows (none a multiple of 16), points zeta * omega^o at
+    phase 7's offsets and Z's next row, shared between batches through the
+    table's union, edge words in the coefficients and, for "edge", in zeta.
+    With more than 8 points the first batch spans two entries and the table
+    is taken three times, 12 entries in two launches of the product."""
     import chip_smoke
     from eth_lc_plonky2_tpu_torch.ops import goldilocks_ext as ge
 
@@ -218,18 +223,39 @@ def test_field_open_kernel_matches_plain(dev, log_n, k, zeta):
     wide = _rand((37, n + 8), log_n + k)
     edge = chip_smoke.field_edge_words()
     wide[:, : min(n, len(edge))] = edge[: min(n, len(edge))]
-    coeffs = gl.from_u64(wide, dev)[:, :n]
+    coeffs = [gl.from_u64(wide, dev)[:, :n], gl.from_u64(_rand((20, n), 1), dev),
+              gl.from_u64(_rand((5, n), 2), dev)]
     z = ((p - 1, 1 << 63) if zeta == "edge"
          else tuple(int(v) for v in rng.integers(0, p, size=2, dtype=np.uint64)))
     omega = gl.primitive_root_of_unity(log_n)
-    points = [ge.h_mul(z, (pow(omega, o % n, p), 0)) for o in OPEN_OFFSETS[:k]]
+    points = [ge.h_mul(z, (pow(omega, o % n, p), 0)) for o in OPEN_OFFSETS[:k] + (1,)]
     z_re = gl.from_u64([q[0] for q in points], dev)
     z_im = gl.from_u64([q[1] for q in points], dev)
+    point_rows = [tuple(range(k)), (0, k), (k,)]
+    if k > kernels.OPEN_MAX_POINTS:
+        coeffs, point_rows = coeffs * 3, point_rows * 3
+    plans = kernels.field_open_plans([c.shape[0] for c in coeffs], point_rows, n)
+    assert len(plans) == (1 if k <= kernels.OPEN_MAX_POINTS else 2)
     before = kernels.launches["field"]
-    got = kernels.field_open(coeffs, z_re, z_im)
-    assert kernels.launches["field"] == before + kernels.field_open_plan(37, n, k)["launches"]
-    want = chip_smoke.on_plain(lambda: prove._open_core_plain(coeffs, z_re, z_im))
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = kernels.field_open(coeffs, z_re, z_im, point_rows)
+    assert kernels.launches["field"] == before + 1 + sum(p["launches"] - 1 for _, p in plans)
+    want = chip_smoke.on_plain(lambda: prove.open_batches_plain(coeffs, z_re, z_im, point_rows))
+    for g, w in zip(got, want):
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+
+
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 100, 1 << 18])
+def test_field_open_table_kernel_matches_plain(dev, n):
+    """field_open_table_kernel against its plain version: the byte planes of
+    the powers of 3 points (one an edge point) over n columns, zero to the
+    padding, in the product's order; one launch."""
+    pts = [(gl.P - 1, 1 << 63), (0, 1), tuple(int(v) for v in _rand((2,), n))]
+    z_re = gl.from_u64([q[0] for q in pts], dev)
+    z_im = gl.from_u64([q[1] for q in pts], dev)
+    before = kernels.launches["field"]
+    got = kernels.field_open_table(z_re, z_im, n)
+    assert kernels.launches["field"] == before + 1
+    assert torch.equal(got, prove.open_table_plain(z_re, z_im, n))
 
 
 @pytest.mark.parametrize("log_n_lde", [7, 12, 15])
@@ -268,11 +294,12 @@ def test_generic_gate_kernel_matches_plain(dev, log_n_lde):
 
 
 @pytest.mark.parametrize("num_specs", [5, 12])
-@pytest.mark.parametrize("log_n_lde", [12, 21])
+@pytest.mark.parametrize("log_n_lde", [7, 12, 21])
 def test_fri_g_kernel_matches_plain(dev, log_n_lde, num_specs):
     """fri_g_kernel against the plain G on the card: phase 7's batches (92,
     184, 20, 16 rows), 5 or 12 specs, one norm zero at one column, edge
-    words; one launch."""
+    words; one tile of 2^7 columns, or tiles of G_TILE walked by persistent
+    blocks; one launch."""
     import chip_smoke
 
     inp = chip_smoke.g_inputs(np.random.default_rng(log_n_lde + num_specs), log_n_lde, num_specs)

@@ -1,12 +1,15 @@
 """The two fused passes of ``csrc/field.cu`` on the CPU: the openings
-(``field_open_kernel``) and the quotient's permutation terms
+(``field_open_table_kernel``, ``field_open_kernel`` on the int8 tensor cores,
+``field_open_sum_kernel``) and the quotient's permutation terms
 (``perm_quotient_kernel``).
 
 A CUDA kernel cannot run here, so this file holds their plain versions
 against the JAX package (numpy backend) on the same seeded inputs, exactly,
-and tests the launch plans that the wrappers compute in plain Python: which
-warp and lane of which block reads which coefficient, the row strides into
-the wires' and the preprocessed LDEs, the next-row roll and the alpha powers.
+and tests the launch plans that the wrappers compute in plain Python: the
+openings' fragment layouts (which lane and byte holds which coefficient and
+power word), which warp of which block reads which coefficient, a numpy
+emulation of the byte-plane class sums; the row strides into the wires' and
+the preprocessed LDEs, the next-row roll and the alpha powers.
 ``tests/test_torch_cuda.py`` holds the kernels against these plain versions
 on the card."""
 
@@ -75,64 +78,269 @@ def test_open_core_plain_equals_the_jax_packages(batch, n, k, zeta):
     assert kernels.launches == before
 
 
-def _open_tiling(rows: int, n: int, k: int):
+def _open_column(pos: int) -> int:
+    """csrc/field.cu ``open_column``: the column of a k-step whose power byte
+    sits at position ``pos`` of a plane's 32."""
+    t, hi, e = pos >> 3, (pos >> 2) & 1, pos & 3
+    return 16 * hi + 2 * t + (e & 1) + 8 * (e >> 1)
+
+
+def _fragment_columns():
+    """The columns of one m16n8k32 product's operands within a k-step, by the
+    kernel's own lane arithmetic: (a_col[m, k], b_col[k, n]), the column of the
+    coefficient word that lane and byte hold as A's element (row m, logical k),
+    and of the power word as B's element (k, column n), after PTX's fragment
+    layouts for .u8 (A: register f of lane (g, t) holds row g + 8 (f & 1), k =
+    16 (f >> 1) + 4t + e in byte e; B: register r of lane (g, t) holds column
+    g, k = 16 r + 4t + e in byte e)."""
+    a_col = np.full((16, 32), -1)
+    b_col = np.full((32, 8), -1)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for i in range(4):  # the four 16-byte loads of a row, words 2t + 8i, + 1
+            for r8 in range(2):
+                f, e0 = 2 * (i >> 1) + r8, 2 * (i & 1)
+                for h in range(2):
+                    m, k = g + 8 * (f & 1), 16 * (f >> 1) + 4 * t + e0 + h
+                    assert a_col[m, k] == -1
+                    a_col[m, k] = 2 * t + 8 * i + h
+        for r in range(2):  # the 8 bytes from 8t of a plane's 32: bv.x, bv.y
+            for e in range(4):
+                k = 16 * r + 4 * t + e
+                assert b_col[k, g] == -1
+                b_col[k, g] = _open_column(8 * t + 4 * r + e)
+    return a_col, b_col
+
+
+def test_open_fragments_pair_each_column_with_its_power():
+    """Every product of A and B in a k-step meets the coefficient and the
+    power of one column, and a k-step's 32 columns each once a row."""
+    a_col, b_col = _fragment_columns()
+    assert (a_col >= 0).all() and (b_col >= 0).all()
+    for m in range(16):
+        assert sorted(a_col[m]) == list(range(32))
+        for n in range(8):
+            assert (a_col[m] == b_col[:, n]).all()
+    assert sorted(_open_column(p) for p in range(32)) == list(range(32))
+
+
+def _open_tiling(shapes: list, n: int):
     """What ``field_open_kernel`` reads and writes under ``field_open_plan``,
-    by the kernel's own index arithmetic: (reads, writes), where reads[j, r, c]
-    counts the lanes that multiply coefficient (r, c) by point j's power and
-    writes[s, part, j, r] the stores of a partial sum."""
-    plan = kernels.field_open_plan(rows, n, k)
-    ppb, slices, cols = plan["points_per_block"], plan["slices"], plan["cols"]
-    reads = np.zeros((k, rows, n), dtype=np.int64)
-    writes = np.zeros((slices, 2, k, rows), dtype=np.int64)
-    lanes_i = np.arange(32)[:, None] + 32 * np.arange(cols)[None, :]
-    for bx in range(slices * plan["row_groups"]):
-        for by in range(plan["point_groups"]):
-            for warp in range(kernels.OPEN_WARPS):
-                sub, j = warp // ppb, by * ppb + warp % ppb
-                s = bx % slices
-                r0 = ((bx // slices) * (kernels.OPEN_WARPS // ppb) + sub) * kernels.OPEN_ROWS
-                if not (sub < kernels.OPEN_WARPS // ppb and j < k and r0 < rows):
-                    continue
-                c = (s * 32 * cols + lanes_i).reshape(-1)
-                c = c[c < n]
-                for q in range(kernels.OPEN_ROWS):
-                    if r0 + q < rows:
-                        np.add.at(reads[j, r0 + q], c, 1)
-                        writes[s, :, j, r0 + q] += 1
+    by the kernel's own index arithmetic: (plan, reads, writes), where
+    reads[b][q, r, c] counts the products of coefficient (r, c) of batch b
+    with power row q (2j + part of its point j) and writes[s, i] the stores
+    of word i of slice s's values.  Also checks that a stage's products meet
+    only copied coefficient words, or zero powers past n."""
+    plan = kernels.field_open_plan(shapes, n)
+    a_col, _ = _fragment_columns()
+    reads = [np.zeros((2 * k, rows, n), dtype=np.int64) for rows, k in shapes]
+    writes = np.zeros((plan["slices"], plan["total"]), dtype=np.int64)
+    for b, (rows, k) in enumerate(shapes):
+        npc = 2 * k
+        assert plan["ntiles"][b] <= kernels.OPEN_NTILES
+        for grp in range(plan["groups"][b]):
+            r0 = grp * kernels.OPEN_ROWS
+            rows_blk = min(kernels.OPEN_ROWS, rows - r0)
+            for y in range(plan["slices"]):
+                c_begin = y * kernels.OPEN_CHUNK
+                c_end = min(n, c_begin + kernels.OPEN_CHUNK)
+                for it in range(-(-(c_end - c_begin) // kernels.OPEN_KS)):
+                    c0 = c_begin + it * kernels.OPEN_KS
+                    copied = min(kernels.OPEN_KS, c_end - c0)  # A's columns of the stage
+                    for warp in range(kernels.OPEN_MTILES * kernels.OPEN_NTILES):
+                        mt, nt = warp % kernels.OPEN_MTILES, warp // kernels.OPEN_MTILES
+                        if mt >= plan["mtiles"][b][grp] or nt >= plan["ntiles"][b]:
+                            continue
+                        for ks in range(kernels.OPEN_KS // 32):
+                            m_rows = r0 + 16 * mt + np.arange(16)
+                            cols = c0 + 32 * ks + a_col  # (16, 32)
+                            assert ((cols < c0 + copied) | (cols >= n)).all()
+                            for q in 8 * nt + np.arange(8):
+                                for m, r in enumerate(m_rows):
+                                    if r < r0 + rows_blk and q < npc:
+                                        c = cols[m][cols[m] < n]
+                                        np.add.at(reads[b][q, r], c, 1)
+                # the writes of the block's warps, once a slice
+                for warp in range(kernels.OPEN_MTILES * kernels.OPEN_NTILES):
+                    mt, nt = warp % kernels.OPEN_MTILES, warp // kernels.OPEN_MTILES
+                    if mt >= plan["mtiles"][b][grp] or nt >= plan["ntiles"][b]:
+                        continue
+                    for lane in range(32):
+                        g, t = lane >> 2, lane & 3
+                        for i in range(4):
+                            r = r0 + 16 * mt + g + 8 * (i >> 1)
+                            q = 8 * nt + 2 * t + (i & 1)
+                            if r < rows and q < npc:
+                                writes[y, plan["out"][b] + ((q & 1) * k + (q >> 1)) * rows + r] += 1
     return plan, reads, writes
 
 
-@pytest.mark.parametrize("rows,n,k", [(1, 1, 1), (1, 16, 1), (5, 100, 3), (20, 256, 2),
-                                      (37, 1000, 8), (9, 4096, 10), (92, 1 << 12, 1),
-                                      (16, 1 << 14, 1)])
-def test_field_open_plan_reads_every_word_once_a_point(rows, n, k):
-    """Every (point, row, column) is multiplied in by exactly one lane, and
-    every partial sum the summing launch reads is written exactly once."""
-    plan, reads, writes = _open_tiling(rows, n, k)
-    assert (reads == 1).all()
+OPEN_TABLES = [[(1, 1)], [(1, 1)], [(5, 3)], [(20, 2), (3, 1)], [(37, 8)], [(9, 7), (40, 5)],
+               [(92, 1), (33, 2)], [(16, 1)]]
+OPEN_COLUMNS = [2, 16, 100, 256, 1000, 4096, 1 << 12, 1 << 14]
+# rows-n-k of a table's first batch, with the batches after it
+OPEN_IDS = ["-".join([f"{t[0][0]}-{n}-{t[0][1]}"] + [f"{r}-{k}" for r, k in t[1:]])
+            for t, n in zip(OPEN_TABLES, OPEN_COLUMNS)]
+
+
+@pytest.mark.parametrize("shapes,n", list(zip(OPEN_TABLES, OPEN_COLUMNS)), ids=OPEN_IDS)
+def test_field_open_plan_reads_every_word_once_a_point(shapes, n):
+    """Every (power row, coefficient row, column) product is taken by exactly
+    one lane of one block, and every value of a slice is written exactly
+    once; one launch for the table, one for the product and one for the
+    slices' sum where there is more than one slice."""
+    plan, reads, writes = _open_tiling(shapes, n)
+    for r in reads:
+        assert (r == 1).all()
     assert (writes == 1).all()
-    assert plan["launches"] == (1 if plan["slices"] == 1 else 2)
-    # a lane's column sums take at most 2^8 products (gl::Acc)
-    assert 1 <= plan["cols"] <= kernels.OPEN_MAX_COLS <= 256
+    assert plan["launches"] == (2 if plan["slices"] == 1 else 3)
+    assert plan["slice_cols"] <= kernels.OPEN_CHUNK and plan["n_pad"] % kernels.OPEN_KS == 0
 
 
 def test_field_open_plan_at_the_main_paths_shapes():
-    """Phase 7's four batches at 2^18 coefficients: two launches each (8 a
-    proof), at least two blocks an SM of the H100, one point a warp."""
+    """Phase 7's four batches at 2^18 coefficients in one launch of the
+    product: 3 + 6 + 1 + 1 row groups, 64 slices of 2^12 columns, W's 16
+    power rows two n-tiles, three launches a proof."""
     n = 1 << 18
-    want = {(92, 1): (1, 32, 3, 64, 128), (184, 8): (8, 4, 46, 128, 64),
-            (20, 2): (2, 16, 2, 32, 256), (16, 1): (1, 32, 1, 16, 512)}
-    for (rows, k), (ppb, rpb, groups, cols, slices) in want.items():
-        plan = kernels.field_open_plan(rows, n, k)
-        assert (plan["points_per_block"], plan["rows_per_block"], plan["row_groups"], plan["cols"],
-                plan["slices"], plan["launches"]) == (ppb, rpb, groups, cols, slices, 2)
-        assert plan["row_groups"] * plan["slices"] * plan["point_groups"] >= kernels.OPEN_MIN_BLOCKS
+    plan = kernels.field_open_plan([(92, 1), (184, 8), (20, 2), (16, 1)], n)
+    assert plan["groups"] == [3, 6, 1, 1] and plan["group0"] == [0, 3, 9, 10]
+    assert plan["blocks"] == 11 and plan["slices"] == 64 and plan["slice_cols"] == 1 << 12
+    assert plan["ntiles"] == [1, 2, 1, 1]
+    assert plan["mtiles"] == [[2, 2, 2], [2] * 6, [2], [1]]
+    assert plan["out"] == [0, 184, 184 + 2944, 184 + 2944 + 80] and plan["total"] == 3240
+    assert plan["n_pad"] == n and plan["launches"] == 3
+    assert plan["blocks"] * plan["slices"] >= 2 * 132  # two blocks for each of the H100's SMs
 
 
 @pytest.mark.parametrize("rows,n,k", [(0, 16, 1), (4, 0, 1), (4, 16, 0)])
 def test_field_open_plan_refuses_empty_shapes(rows, n, k):
     with pytest.raises(ValueError):
-        kernels.field_open_plan(rows, n, k)
+        kernels.field_open_plan([(rows, k)], n)
+
+
+@pytest.mark.parametrize("shapes,n", [([(4, 1)], 15), ([(4, 9)], 16), ([(4, 1)] * 9, 16)],
+                         ids=["odd columns", "9 points", "9 entries"])
+def test_field_open_plan_refuses(shapes, n):
+    """An odd column count (the bulk copies move 16 bytes at a time), more
+    points than an entry's n-tiles hold, more entries than a launch takes."""
+    with pytest.raises(ValueError):
+        kernels.field_open_plan(shapes, n)
+
+
+@pytest.mark.parametrize("counts", [[1], [8, 1, 2, 1], [9], [0, 17, 3]])
+def test_open_entries_split_batches_into_n_tiles(counts):
+    """A batch with more points than one entry's n-tiles hold takes several
+    entries of the batch table, its points in order; one without points
+    takes none."""
+    point_rows = [tuple(range(10, 10 + c)) for c in counts]
+    entries = kernels.open_entries(point_rows)
+    assert all(1 <= kb <= kernels.OPEN_MAX_POINTS for _, _, kb in entries)
+    for b, rows in enumerate(point_rows):
+        got = [rows[j : j + kb] for bb, j, kb in entries if bb == b]
+        assert sum(got, ()) == rows
+    assert len(entries) == sum(-(-c // kernels.OPEN_MAX_POINTS) for c in counts)
+
+
+@pytest.mark.parametrize("rows,counts", [([92, 184, 20, 16], [1, 8, 2, 1]),
+                                         ([37, 20, 5] * 3, [12, 2, 1] * 3),
+                                         ([4] * 9, [1] * 9), ([5, 0, 7], [17, 3, 0])])
+def test_field_open_plans_group_entries_into_launches(rows, counts):
+    """field_open's launches: every entry of a batch with rows in exactly one
+    group, the groups in order and each of at most OPEN_MAX_BATCHES entries,
+    so that no number of batches or points raises; one launch at the main
+    path's shapes."""
+    n = 1 << 12
+    point_rows = [tuple(range(c)) for c in counts]
+    plans = kernels.field_open_plans(rows, point_rows, n)
+    got = [e for group, _ in plans for e in group]
+    assert got == [e for e in kernels.open_entries(point_rows) if rows[e[0]]]
+    for group, plan in plans:
+        assert 1 <= len(group) <= kernels.OPEN_MAX_BATCHES
+        assert plan == kernels.field_open_plan([(rows[b], kb) for b, _, kb in group], n)
+    assert len(plans) == -(-len(got) // kernels.OPEN_MAX_BATCHES)
+    if counts == [1, 8, 2, 1]:
+        assert len(plans) == 1
+
+
+def _planes(words: np.ndarray) -> np.ndarray:
+    """(..., n) u64 -> (8, ..., n) byte planes, plane 0 the lowest byte."""
+    return np.stack([((words >> np.uint64(8 * p)) & np.uint64(0xFF)).astype(np.float64)
+                     for p in range(8)])
+
+
+def _emulate_open(coeffs: np.ndarray, points: list) -> tuple:
+    """The openings as field_open_kernel computes them, in numpy: byte planes
+    of the coefficients and of the powers (the table, zero past n), for each
+    slice of OPEN_CHUNK columns the 15 class sums sum_{a+b=s} A_a B_b^T
+    (exact in float64: each is below 2^31), folded with 2^8s mod p, and the
+    slices added mod p.  Returns ((k, rows) re, (k, rows) im) as u64 and the
+    largest class sum."""
+    rows, n = coeffs.shape
+    n_pad = -(-n // kernels.OPEN_KS) * kernels.OPEN_KS
+    power_rows = np.zeros((2 * len(points), n_pad), dtype=np.uint64)
+    for j, z in enumerate(points):
+        v = (1, 0)
+        for c in range(n):
+            power_rows[2 * j, c], power_rows[2 * j + 1, c] = v
+            v = ge.h_mul(v, z)
+    a_planes, b_planes = _planes(coeffs), _planes(power_rows[:, :n])
+    weights = [pow(2, 8 * s, P) for s in range(kernels.OPEN_CLASSES)]
+    total = np.zeros((rows, 2 * len(points)), dtype=object)
+    largest = 0
+    for c0 in range(0, n, kernels.OPEN_CHUNK):
+        sl = slice(c0, min(n, c0 + kernels.OPEN_CHUNK))
+        for s in range(kernels.OPEN_CLASSES):
+            cls = np.zeros((rows, 2 * len(points)))
+            for a in range(max(0, s - 7), min(7, s) + 1):
+                cls += a_planes[a][:, sl] @ b_planes[s - a][:, sl].T
+            largest = max(largest, int(cls.max()))
+            assert cls.max() < 2 ** 31
+            total = (total + cls.astype(np.int64).astype(object) * weights[s]) % P
+    out = total.T.astype(np.uint64)  # (2k, rows)
+    return (out[0::2], out[1::2]), largest
+
+
+# the largest words whose bytes are all 0xFF but one (below p), p - 1 and 0
+WORST = np.array([0xFFFFFFFEFFFFFFFF, P - 1, 0], dtype=np.uint64)
+
+
+@pytest.mark.parametrize("rows,n,words", [(37, 4196, "worst"), (5, 100, "p - 1"),
+                                          (16, 8192 + 64, "mixed"), (3, 2, "worst")])
+def test_byte_plane_class_sums_equal_the_plain_openings(rows, n, words):
+    """The byte-plane product with the K chunk, emulated in numpy at worst-case
+    words and at ragged rows and columns, equals ``_open_core_plain`` word for
+    word, and no class sum reaches 2^31."""
+    rng = np.random.default_rng(rows + n)
+    if words == "worst":
+        coeffs = np.full((rows, n), WORST[0], dtype=np.uint64)
+    elif words == "p - 1":
+        coeffs = np.full((rows, n), WORST[1], dtype=np.uint64)
+    else:
+        coeffs = rng.choice(WORST, size=(rows, n))
+        coeffs[::2] = _rand((len(coeffs[::2]), n), n)
+    z = tuple(int(v) for v in _rand((2,), rows))
+    omega = gl.primitive_root_of_unity(13)
+    points = [z, ge.h_mul(z, (omega, 0)), (P - 1, P - 1)]
+    (re, im), largest = _emulate_open(coeffs, points)
+    want = pr._open_core_plain(gl.from_u64(coeffs), gl.from_u64([q[0] for q in points]),
+                               gl.from_u64([q[1] for q in points]))
+    assert np.array_equal(re, gl.to_u64(want[0])) and np.array_equal(im, gl.to_u64(want[1]))
+    assert 0 < largest < 2 ** 31
+    # the bound itself: 8 pairs of 0xFF bytes over a whole chunk
+    assert 8 * 255 * 255 * kernels.OPEN_CHUNK < 2 ** 31
+
+
+def test_open_batches_plain_reads_each_batchs_points():
+    """One call for several batches gives each batch its own points, as
+    ``_open_core_plain`` of that batch alone; the union of host points is
+    made once (``eval_poly_ext_batches``)."""
+    coeffs = [gl.from_u64(_rand((r, 64), r)) for r in (3, 5, 2)]
+    z = [tuple(int(v) for v in _rand((2,), i)) for i in range(4)]
+    items = [(coeffs[0], [z[0]]), (coeffs[1], [z[0], z[1], z[2]]), (coeffs[2], [z[3], z[2]])]
+    got = pr.eval_poly_ext_batches(items)
+    for (c, pts), (re, im) in zip(items, got):
+        want = pr._open_core_plain(c, gl.from_u64([q[0] for q in pts]), gl.from_u64([q[1] for q in pts]))
+        assert torch.equal(re, want[0]) and torch.equal(im, want[1])
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +444,7 @@ def test_fused_wrappers_raise_on_cpu_tensors():
     before = dict(kernels.launches)
     c = gl.from_u64(_rand((3, 16), 1))
     with pytest.raises(ValueError):
-        kernels.field_open(c, c[0, :2], c[1, :2])
+        kernels.field_open([c], c[0, :2], c[1, :2], [(0, 1)])
     with pytest.raises(ValueError):
         kernels.perm_quotient(*_perm_args())
     assert kernels.launches == before

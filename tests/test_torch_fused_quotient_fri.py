@@ -453,7 +453,7 @@ def test_g_kernel_walk_equals_the_plain_version(num_specs):
     t = gl.from_u64
     plan = kernels.fri_g_plan([t(a) for a in ldes], (t(apow[0]), t(apow[1])), (t(y[0]), t(y[1])),
                               (t(z[0]), t(z[1])), t(x_u64),
-                              tuple(fri.TAGS.index(tag) for tag in tags))
+                              tuple(fri.TAGS.index(tag) for tag in tags), 132)
     assert plan["offsets"] == [0, 92, 276, 296] and plan["total"] == 312
     for x in (0, 5, 6, 63):
         want = (int(gl.to_u64(got[0])[x]), int(gl.to_u64(got[1])[x]))
@@ -480,7 +480,8 @@ def test_batch_inversion_order_skips_zero_norms():
 
 
 G_FAULTS = ["three batches", "too many specs", "too many rows", "strided rows", "short apow",
-            "unknown batch", "int32 x"]
+            "unknown batch", "int32 x", "odd row stride", "misaligned rows", "ragged tiles",
+            "odd columns"]
 
 
 @pytest.mark.parametrize("fault", G_FAULTS)
@@ -506,8 +507,65 @@ def test_fri_g_plan_refuses(fault):
         tags = (0, 1, kernels.G_TAGS)
     elif fault == "int32 x":
         x = x.to(torch.int32)
+    elif fault == "odd row stride":  # a bulk copy's source must be 16-byte aligned
+        ldes[1] = t(_rand((5, 65), 3))[:, :64]
+    elif fault == "misaligned rows":
+        ldes[0] = t(_rand((3 * 64 + 1,), 4))[1:].view(3, 64)
+    elif fault in ("ragged tiles", "odd columns"):  # 600 = 512 + 88; 63 columns, one odd tile
+        cols = 600 if fault == "ragged tiles" else 63
+        ldes = [t(_rand((c, cols), i)) for i, c in enumerate((3, 5, 2, 2))]
+        x = t(_rand((cols,), 11))
     with pytest.raises(ValueError):
-        kernels.fri_g_plan(ldes, apow, y, z, x, tags)
+        kernels.fri_g_plan(ldes, apow, y, z, x, tags, 132)
+    if fault in ("odd row stride", "misaligned rows", "ragged tiles"):  # the same, made whole
+        ldes = [t(_rand((c, 256), i)) for i, c in enumerate((3, 5, 2, 2))]
+        kernels.fri_g_plan(ldes, apow, y, z, t(_rand((256,), 11)), tags, 132)
+
+
+def _g_ring_walk(plan) -> np.ndarray:
+    """fri_g_kernel's ring on the host: the producer's copies and the
+    consumers' reads of every block, stage by stage, as the kernel orders
+    them (tiles b, b + blocks, ...; a tile's batches in order, G_STAGE_ROWS
+    rows of one batch a stage).  Returns reads[t][i, x], how often the
+    consumers take row i of batch t at column x from a stage that the
+    producer filled with it."""
+    tile, tiles, rows = plan["tile"], plan["tiles"], plan["rows"]
+    reads = [np.zeros((r, plan["n_lde"]), dtype=np.int64) for r in rows]
+    for b in range(plan["blocks"]):
+        filled = []  # the producer: (stage's rows (t, i0 + r), columns)
+        for tl in range(b, tiles, plan["blocks"]):
+            for t in range(kernels.G_TAGS):
+                for i0 in range(0, rows[t], kernels.G_STAGE_ROWS):
+                    nr = min(kernels.G_STAGE_ROWS, rows[t] - i0)
+                    filled.append([(t, i0 + r, tl * tile) for r in range(nr)])
+        it = 0  # the consumers, in their own loop's order
+        for tl in range(b, tiles, plan["blocks"]):
+            for t in range(kernels.G_TAGS):
+                for i0 in range(0, rows[t], kernels.G_STAGE_ROWS):
+                    stage = filled[it]
+                    for r in range(min(kernels.G_STAGE_ROWS, rows[t] - i0)):
+                        ts, i, c0 = stage[r]
+                        assert (ts, i, c0) == (t, i0 + r, tl * tile)
+                        reads[t][i, c0 : c0 + tile] += 1
+                    it += 1
+        assert it == len(filled)
+    return reads
+
+
+@pytest.mark.parametrize("cols,sms", [(64, 132), (1 << 12, 4), (1 << 13, 132), (6 * 512, 1)])
+def test_g_ring_reads_every_row_once(cols, sms):
+    """Every row of every batch at every column is taken from the ring exactly
+    once, from a stage the producer filled with that row: phase 7's batches
+    (92, 184, 20, 16 rows), one tile or many, fewer blocks than tiles."""
+    t = gl.from_u64
+    ldes = [t(_rand((c, cols), i)) for i, c in enumerate((92, 184, 20, 16))]
+    apow = (t(_rand((312 + 3,), 7)), t(_rand((312 + 3,), 8)))
+    y = z = (t(_rand((3,), 9)), t(_rand((3,), 10)))
+    plan = kernels.fri_g_plan(ldes, apow, y, z, t(_rand((cols,), 11)), (0, 1, 2), sms)
+    assert plan["tile"] == min(cols, kernels.G_TILE) and plan["tiles"] * plan["tile"] == cols
+    assert plan["blocks"] == min(plan["tiles"], sms)
+    for r in _g_ring_walk(plan):
+        assert (r == 1).all()
 
 
 # ---------------------------------------------------------------------------
@@ -598,8 +656,15 @@ def test_kernel_sources_hold_the_modules_constants():
                     for m in re.finditer(r"constexpr int (\w+) = (\d+);", f.read())}
 
     field = constants("field.cu")
-    assert (field["G_TAGS"], field["G_MAX_SPECS"], field["G_MAX_ROWS"]) == (
-        kernels.G_TAGS, kernels.G_MAX_SPECS, kernels.G_MAX_ROWS)
+    assert (field["G_TAGS"], field["G_MAX_SPECS"], field["G_MAX_ROWS"], field["G_TILE"],
+            field["G_STAGE_ROWS"]) == (kernels.G_TAGS, kernels.G_MAX_SPECS, kernels.G_MAX_ROWS,
+                                       kernels.G_TILE, kernels.G_STAGE_ROWS)
+    assert {name: field[name] for name in (
+        "OPEN_MAX_BATCHES", "OPEN_MAX_POINTS", "OPEN_ROWS", "OPEN_MTILES", "OPEN_NTILES",
+        "OPEN_KS", "OPEN_CHUNK", "OPEN_CLASSES")} == {
+        name: getattr(kernels, name) for name in (
+            "OPEN_MAX_BATCHES", "OPEN_MAX_POINTS", "OPEN_ROWS", "OPEN_MTILES", "OPEN_NTILES",
+            "OPEN_KS", "OPEN_CHUNK", "OPEN_CLASSES")}
     assert len(fri.TAGS) == kernels.G_TAGS
     gates_cu = constants("gates.cu")
     assert (gates_cu["GEN_MAX_CONSTRAINTS"], gates_cu["GEN_BS_MAX_BITS"],

@@ -13,8 +13,10 @@ name; then ``measure_gate_kernels``: the SHA-256 and Poseidon gates' kernels
 at (184, 2^21) against the generic loop; then ``measure_perm_polys``: the
 permutation rows of both challenges at (80, 2^18) through
 ``prove.compute_permutation_polys``; then ``measure_quotient_kernels``: the
-permutation terms' and the generic share's kernels at 2^21); a turn prints
-its log lines and then one JSON line of the numbers.
+permutation terms' and the generic share's kernels at 2^21; then
+``measure_open_and_g``: the openings of phase 7's four batches at 2^18 and
+FRI's G at 2^21); a turn prints its log lines and then one JSON line of the
+numbers.
 
     python3 tools/torch_kernel_times.py --parent DIR --flagship
 
@@ -56,6 +58,7 @@ def turn(tag: str, root: str, flagship: bool) -> None:
     res["gates"] = smoke.measure_gate_kernels(torch, chk, rng, card)
     res["perm_polys"] = smoke.measure_perm_polys(torch, rng, card)
     res["quotient_kernels"] = smoke.measure_quotient_kernels(torch, rng, card)
+    res["open_and_g"] = smoke.measure_open_and_g(torch, rng, card)
     if flagship and importlib.util.find_spec("eth_lc_plonky2_tpu_torch.cli") is not None:
         res["flagship"] = smoke.measure_flagship(torch, card)
     print(json.dumps({"tag": tag, "build_s": build["seconds"], **res}), flush=True)
