@@ -1474,20 +1474,22 @@ def check_gate_kernels(torch, chk: Checker, rng) -> None:
 
 
 def ptxas_info(text: str) -> dict:
-    """{kernel (mangled name): {"registers", "spill_bytes", "shared_bytes"}} from
-    an ``-Xptxas -v`` report."""
+    """{kernel (mangled name): {"registers", "spill_bytes", "stack_bytes",
+    "shared_bytes"}} from an ``-Xptxas -v`` report."""
     out, current = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             current = out.setdefault(m.group(1), {"registers": None, "spill_bytes": None,
-                                                  "shared_bytes": 0})
+                                                  "stack_bytes": None, "shared_bytes": 0})
             continue
         if current is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if m:
-            current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            current["stack_bytes"] = int(m.group(1))
+            current["spill_bytes"] = int(m.group(2)) + int(m.group(3))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             current["registers"] = int(m.group(1))
@@ -1497,17 +1499,17 @@ def ptxas_info(text: str) -> dict:
 
 
 def kernel_registers(name: str) -> dict:
-    """ptxas's registers, spills and static shared memory of the kernel whose
-    mangled name holds ``name`` (of a kernel with a window form, its
-    one-device instantiation, template argument false: ``ILb0E``), from this
-    process's build; None each where the library was built before (no
+    """ptxas's registers, spills, stack frame and static shared memory of the
+    kernel whose mangled name holds ``name`` (of a kernel with a window form,
+    its one-device instantiation, template argument false: ``ILb0E``), from
+    this process's build; None each where the library was built before (no
     report)."""
     from eth_lc_plonky2_tpu_torch.ops import kernels
 
     found = [v for k, v in ptxas_info(kernels.build()["ptxas"]).items()
              if name in k and "ILb1E" not in k]
     return found[0] if len(found) == 1 else dict.fromkeys(("registers", "spill_bytes",
-                                                           "shared_bytes"))
+                                                           "stack_bytes", "shared_bytes"))
 
 
 def measure_gate_kernels(torch, chk: Checker, rng, card: str) -> dict:
@@ -1672,15 +1674,16 @@ def perm_terms(inputs, plain: bool = False):
     return torch.stack(on_plain(lambda: prove.perm_quotient_terms_plain(*inputs)))
 
 
-def generic_inputs(rng, n_lde: int) -> dict:
+def generic_inputs(rng, n_lde: int, past_visit: int = 0, num_pi: int = 12) -> dict:
     """Phase 7's generic share of the quotient at n_lde columns on the card,
     as the quotient passes it: the gates in the light-client circuit's
     selector order (arith 20 ops, basesum2, const 6, noop, poseidon, sha256),
     a (184, n_lde) wires LDE, a (92, n_lde) preprocessed LDE (6 selectors, 6
-    constant rows, 80 sigmas), 12 Lagrange rows, public inputs at seeded
-    columns below 80, two alpha rows of 1 + 10 + 12 + 130 powers and two
-    accumulators; random words with the edge words in the first and last
-    columns."""
+    constant rows, 80 sigmas), ``num_pi`` (12; the flagship has 16) Lagrange
+    rows, public inputs at seeded columns below 80 (the last ``past_visit``
+    of them at or past 80, the first two of those in one column), two alpha
+    rows of 1 + 10 + num_pi + 130 powers and two accumulators; random words
+    with the edge words in the first and last columns."""
     from types import SimpleNamespace
 
     import torch
@@ -1698,17 +1701,28 @@ def generic_inputs(rng, n_lde: int) -> dict:
 
     gates = [G.ArithmeticGate(20), G.BaseSum2Gate(), G.ConstantGate(6), G.NoopGate(),
              PoseidonGate(), Sha256RoundGate()]
-    num_pi = 12
     pi_cols = [int(c) for c in rng.integers(0, NUM_ROUTED, size=num_pi)]
+    if past_visit:
+        past = [int(c) for c in rng.integers(NUM_ROUTED, NUM_WIRES, size=past_visit)]
+        pi_cols[num_pi - past_visit :] = [past[0]] + past[:-1]
     pi = rng.integers(0, gl.P, size=num_pi, dtype=np.uint64)
     pi[:5] = edge[:5]
     return {"generic": prove.split_gates(SimpleNamespace(gates=gates))[0], "wires": rows(NUM_WIRES),
             "pre": rows(92), "num_sel": len(gates), "num_con": 6, "lr": rows(num_pi),
             "pi": gl.from_u64(pi, DEVICE), "pi_cols_host": pi_cols,
-            "pi_cols": torch.tensor(pi_cols, dtype=torch.int64, device=DEVICE),
+            "pi_cols": torch.tensor(pi_cols, dtype=torch.int64, device=pi_cols_device()),
             "apows": [gl.from_u64(rng.integers(0, gl.P, size=1 + 10 + num_pi + 130, dtype=np.uint64),
                                   DEVICE) for _ in range(2)],
             "accs": list(rows(2)), "pi0": 1 + 10, "k0": 1 + 10 + num_pi}
+
+
+def pi_cols_device() -> str:
+    """Where ``kernels.generic_gate_quotient`` takes the public inputs'
+    columns: on the host since its plan places them (an older checkout, timed
+    in turns by tools/torch_kernel_times.py, read them on the card)."""
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    return "cpu" if hasattr(kernels, "GEN_TILE") else DEVICE
 
 
 def generic_terms(inp, mode: str = "kernel"):
@@ -1930,16 +1944,19 @@ def check_fused_field_kernels(torch, chk: Checker, rng, card: str) -> dict:
     n_lde = 1 << (LOG_N + RATE_BITS)
     rows_read = 2 * NUM_ROUTED + NUM_Z + 2  # wires, sigmas, Z rows, x, l0
     bound = bound_of((rows_read + 2) * n_lde * 8, PERM_MADS_PER_COLUMN * n_lde)
+    regs = kernel_registers("perm_quotient_kernel")
     out["perm_quotient_kernel"] = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
                                        chain_launches=chain_launches,
-                                       **dict(zip(("bound_ms", "bound_by"), bound)))
+                                       **dict(zip(("bound_ms", "bound_by"), bound)),
+                                       registers=regs["registers"], stack_bytes=regs["stack_bytes"])
     r = out["perm_quotient_kernel"]
     log(f"[7] permutation terms at (80, 2^{LOG_N + RATE_BITS}), 2 challenges, chunk 8: "
         f"perm_quotient_kernel {ms:.3f} ms in 1 launch, its words == the plain version's "
         f"({plain_ms:.3f} ms); the eager chain on field.cu it replaces {chain_ms:.3f} ms in "
         f"{chain_launches} launches; bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({rows_read} "
         f"rows read, 2 written; {PERM_MADS_PER_COLUMN} multiply-adds a column; "
-        f"{r['bound_ms'] / ms:.1%} of the kernel's time) [{card}]")
+        f"{r['bound_ms'] / ms:.1%} of the kernel's time); {regs['registers']} registers, "
+        f"{regs['stack_bytes']} bytes of stack, {regs['spill_bytes']} bytes spilled [{card}]")
     del inputs, got
     for log_n_lde in (7, 12):  # every column's next row and the roll's wrap in a small domain
         small = perm_inputs(rng, log_n_lde)
@@ -2008,10 +2025,15 @@ def check_fused_quotient_fri_kernels(torch, chk: Checker, rng, card: str) -> dic
 
     out = {}
     n_lde = 1 << (LOG_N + RATE_BITS)
-    for log_n_lde in (7, 12):
-        inp = generic_inputs(rng, 1 << log_n_lde)
+    # public inputs at columns past the 80 the gates visit; 16 (the flagship's:
+    # a ring of 3 stages) and 64 (tiles of 128 columns) public inputs
+    for log_n_lde, past, num_pi in ((7, 0, 12), (7, 3, 12), (12, 0, 12), (12, 3, 16),
+                                    (12, 3, 64)):
+        inp = generic_inputs(rng, 1 << log_n_lde, past, num_pi)
         got = launches_of(lambda: generic_terms(inp), {"gates": 1}, "generic gates")
-        chk.same("gates", got, generic_terms(inp, "plain"), f"generic gates at n_lde 2^{log_n_lde}")
+        chk.same("gates", got, generic_terms(inp, "plain"),
+                 f"generic gates at n_lde 2^{log_n_lde}, {num_pi} public inputs, {past} past the "
+                 f"visit")
     inp = generic_inputs(rng, n_lde)
     launches_of(lambda: generic_terms(inp), {"gates": 1}, "generic gates at 2^21")
     ms, plain_ms, chain_ms, chain_launches = timed_against_plain(
@@ -2023,15 +2045,19 @@ def check_fused_quotient_fri_kernels(torch, chk: Checker, rng, card: str) -> dic
         inp["pi"], inp["pi_cols"], inp["apows"], scratch, inp["pi0"], inp["k0"]), 9)
     del inp, scratch
     bound = bound_of(GENERIC_ROWS * n_lde * 8, GENERIC_MADS_PER_COLUMN * n_lde)
+    regs = kernel_registers("generic_gate_quotient_kernel")
     out["generic_gate_quotient_kernel"] = dict(
         ms=launch_ms, with_copies_ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
-        chain_launches=chain_launches, bound_ms=bound[0], bound_by=bound[1])
+        chain_launches=chain_launches, bound_ms=bound[0], bound_by=bound[1],
+        registers=regs["registers"], stack_bytes=regs["stack_bytes"])
     log(f"[7] generic gates and 12 public inputs at (184, 2^{LOG_N + RATE_BITS}), 2 challenges: "
         f"generic_gate_quotient_kernel {launch_ms:.3f} ms in 1 launch ({ms:.3f} ms with the "
         f"accumulators' copies), its words == the plain version's ({plain_ms:.3f} ms); the eager "
         f"chain on field.cu it replaces {chain_ms:.3f} ms in {chain_launches} launches; bound "
         f"{bound[0]:.4f} ms by {bound[1]} ({GENERIC_ROWS} rows, {GENERIC_MADS_PER_COLUMN} "
-        f"multiply-adds a column; {bound[0] / launch_ms:.1%} of the kernel's time) [{card}]")
+        f"multiply-adds a column; {bound[0] / launch_ms:.1%} of the kernel's time); "
+        f"{regs['registers']} registers, {regs['stack_bytes']} bytes of stack, "
+        f"{regs['spill_bytes']} bytes spilled [{card}]")
 
     for num_specs in sorted(G_SPEC_TAGS):
         inp = g_inputs(rng, 12, num_specs)

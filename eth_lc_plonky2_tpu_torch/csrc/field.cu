@@ -78,11 +78,26 @@
 //    row strides (sigma as rows of the preprocessed LDE, no copy), and Z at
 //    the next row is column (x + 2^rate) mod n_lde, as ops/ntt.py `roll_lde`
 //    (in the window form, WINDOW = true, a shard's points: column x + 2^rate
-//    of a window whose halo holds it, unwrapped; the one-device form is the
-//    other instantiation, the kernel as it was).
-//    What bounds it: memory, 182 words read and 2 written a column (80 wires,
-//    80 sigmas, 20 Z rows, x, l0; 3.1 GB at 2^21) against 686 products; each
-//    word is loaded one step ahead of its use.
+//    of a window whose halo holds it, unwrapped).
+//    What bounds it: its bound by bytes is 182 words read and 2 written a
+//    column (80 wires, 80 sigmas, 20 Z rows, x, l0; 3.1 GB at 2^21, 0.92 ms
+//    at 3.35 TB/s), above the 3,386 32-bit multiply-adds of its cheapest
+//    form (0.42 ms).  On the card the integer pipe bounds it: a lazy product
+//    is some 20 integer instructions, not 5 multiply-adds, and the 8
+//    products a wire make about 17,000 instructions a column, which issue at
+//    two cycles a warp (about 2.1 ms at 2^21: the kernel with its copies cut
+//    runs 2.05 to 2.15 ms, its copies alone 1.08 ms; PERF.md).  So the rows
+//    arrive by bulk asynchronous copies, off the threads that compute:
+//    persistent blocks (two an SM, 16 warps) walk tiles of PERM_TILE
+//    columns, a thread a column; a stage is a chunk's 8 wire and 8 sigma
+//    rows (one copy of a 2-D tensor map each) and its next chain rows (the
+//    tile's first stage x, l0 and Z), in a ring of PERM_STAGES stages of
+//    dynamic shared memory, each completing on an mbarrier; the warp that
+//    releases a stage last refills it, so no thread only copies and no warp
+//    waits for another.  Z at the next row, 2 of the 184 words, stays a
+//    direct load, so the wrap and the window's halo read as before.  One
+//    96-bit column sum a challenge takes alpha (chain[k+1] den - chain[k]
+//    num) (fewer registers than two).
 //
 // 4. fri_g_kernel: FRI's combined opening polynomial on the LDE coset,
 //        G(x) = sum_j a_{total+j} (B_{tag(j)}(x) - y_j) / (x - z_j),
@@ -149,6 +164,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bulk.cuh"
 #include "goldilocks.cuh"
 
 namespace {
@@ -209,66 +225,6 @@ field_inv_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, lo
       if (w < n) out[w] = inv[i];
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// Bulk asynchronous copies into a ring of shared-memory stages
-// ---------------------------------------------------------------------------
-
-// A ring of stages: the producer thread waits for a stage's `empty` barrier
-// (every consumer warp arrives once it has read the stage), announces the
-// stage's bytes on its `full` barrier and issues cp.async.bulk copies that
-// complete on it; the consumers wait for `full`.  Round r of a stage is
-// phase r of both barriers, so a wait takes the parity r & 1.
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// after the barriers' init, before any thread uses them
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t"
-        ".reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t"
-        "}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16) from global `src` to shared `dst` (both 16-byte
-// aligned), completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -592,6 +548,21 @@ field_open_sum_kernel(const uint64_t* __restrict__ partial, long long slices, lo
 constexpr int PERM_CHALLENGES = 2;   // the prover's two challenges, one launch
 constexpr int PERM_MAX_ROUTED = 256; // routed wires (shared memory for beta k_i)
 constexpr int PERM_MAX_CHUNKS = 64;  // chunks: alpha^0 .. alpha^m in shared memory
+// The ring; ops/kernels.py perm_quotient_plan mirrors it.  Persistent blocks
+// (PERM_MIN_BLOCKS an SM) walk tiles of `tile` = min(PERM_TILE, n_lde)
+// columns, one thread a column.  A tile's first stage is its head: x (slot
+// 0), l0 (slot 1) and Z of challenge j (slot 2 + j); then each chunk k of
+// `chunk` routed wires takes ceil(chunk / PERM_PAIRS) stages: wire i0 + r of
+// the chunk in slot r and its sigma row in slot PERM_PAIRS + r, and the
+// chunk's last stage, but for the last chunk's, also the chain row k + 1
+// (challenge j's partial k) of each challenge in slot 2 PERM_PAIRS + j.  Z
+// at the next trace row is read from device memory.
+constexpr int PERM_TILE = 256;
+constexpr int PERM_PAIRS = 8;
+constexpr int PERM_STAGE_ROWS = 2 * PERM_PAIRS + PERM_CHALLENGES;  // slots of a stage
+constexpr int PERM_STAGES = 3;
+constexpr int PERM_MIN_BLOCKS = 2;
+static_assert(PERM_STAGE_ROWS >= 2 + PERM_CHALLENGES, "the head fits a stage");
 
 struct PermArgs {
   const uint64_t* wires;  // routed wire i at column x: wires[i * wires_stride + x]
@@ -608,21 +579,90 @@ struct PermArgs {
   const uint64_t* alpha[PERM_CHALLENGES];  // alpha_j^0 .. alpha_j^m
   long long n_lde;  // the columns computed: a power of two
   long long next;   // 2^rate: the column of the next trace row
+  long long tiles;  // n_lde / tile
+  int tile;         // columns a tile: min(PERM_TILE, n_lde)
   int routed, chunk;
+  // the wires' and sigma rows in boxes of PERM_PAIRS rows of a tile (made
+  // where routed >= PERM_PAIRS); a stage of fewer pairs copies row by row
+  CUtensorMap wires_map, sigma_map;
 };
 
-// out[j * n_lde + x] = sum_k alpha_j^k * term_k(x), canonical.
+// Fill ring slot s with stage st of the tile at column c0: the layout above,
+// a tensor copy of PERM_PAIRS wire (sigma) rows or one bulk copy a row's
+// segment of the tile, completing on the slot's `full` barrier.
+__device__ __forceinline__ void perm_fill(const PermArgs& a, uint64_t* ring, uint64_t* full, int s,
+                                          long long c0, int st, int per_chunk, int m) {
+  constexpr int NC = PERM_CHALLENGES;
+  const int T = a.tile;
+  const uint32_t seg = (uint32_t)T * 8;  // bytes of a row's segment
+  uint64_t* dst = ring + (long long)s * PERM_STAGE_ROWS * T;
+  if (st == 0) {  // the head
+    mbar_expect_tx(&full[s], (2 + NC) * seg);
+    bulk_copy(dst, a.x + c0, seg, &full[s]);
+    bulk_copy(dst + T, a.l0 + c0, seg, &full[s]);
+    for (int j = 0; j < NC; ++j)
+      bulk_copy(dst + (2 + j) * T, a.zs + (long long)j * m * a.zs_stride + c0, seg, &full[s]);
+    return;
+  }
+  const int k = (st - 1) / per_chunk, q = (st - 1) % per_chunk;
+  const int i0 = q * PERM_PAIRS, np = min(PERM_PAIRS, a.chunk - i0);
+  const bool chain = q == per_chunk - 1 && k + 1 < m;
+  mbar_expect_tx(&full[s], (2 * np + (chain ? NC : 0)) * seg);
+  if (np == PERM_PAIRS) {
+    bulk_copy_rows(dst, &a.wires_map, (int)c0, k * a.chunk + i0, &full[s]);
+    bulk_copy_rows(dst + PERM_PAIRS * T, &a.sigma_map, (int)c0, k * a.chunk + i0, &full[s]);
+  } else {
+    for (int r = 0; r < np; ++r) {
+      const long long col = (long long)k * a.chunk + i0 + r;
+      bulk_copy(dst + r * T, a.wires + col * a.wires_stride + c0, seg, &full[s]);
+      bulk_copy(dst + (PERM_PAIRS + r) * T, a.sigma + col * a.sigma_stride + c0, seg, &full[s]);
+    }
+  }
+  if (chain) {
+    for (int j = 0; j < NC; ++j)
+      bulk_copy(dst + (2 * PERM_PAIRS + j) * T, a.zs + ((long long)j * m + 1 + k) * a.zs_stride + c0,
+                seg, &full[s]);
+  }
+}
+
+// out[j * n_lde + x] = sum_k alpha_j^k * term_k(x), canonical.  Block b takes
+// the tiles b, b + gridDim.x, ..., thread xt column xt of each.  No thread is
+// only a producer: thread 0 fills the first PERM_STAGES stages, and the warp
+// that releases stage it last refills its slot with stage it + PERM_STAGES
+// (last_to_release), so a block is PERM_TILE threads, PERM_MIN_BLOCKS fit an
+// SM, and no warp waits for another.  Dynamic shared memory: the ring
+// (PERM_STAGES stages of PERM_STAGE_ROWS x tile words), beta_j k_i (2 x
+// routed words), the stages' full barriers, then their release counts.
 template <bool WINDOW>
-__global__ void __launch_bounds__(256)
-perm_quotient_kernel(PermArgs a, uint64_t* __restrict__ out) {
+__global__ void __launch_bounds__(PERM_TILE, PERM_MIN_BLOCKS)
+perm_quotient_kernel(const __grid_constant__ PermArgs a, uint64_t* __restrict__ out) {
   constexpr int NC = PERM_CHALLENGES;
   static_assert(NC == 2, "the alpha rows below are written out for two challenges");
-  __shared__ uint64_t beta_k[NC][PERM_MAX_ROUTED];
+  extern __shared__ __align__(128) uint64_t perm_smem[];
   __shared__ uint64_t alpha[NC][PERM_MAX_CHUNKS + 1];
   __shared__ uint64_t beta[NC], gamma[NC];
+  const int T = a.tile;
+  uint64_t* ring = perm_smem;
+  uint64_t* beta_k = ring + (long long)PERM_STAGES * PERM_STAGE_ROWS * T;  // [j * routed + i]
+  uint64_t* full = beta_k + NC * a.routed;
+  int* released = reinterpret_cast<int*>(full + PERM_STAGES);
   const int m = a.routed / a.chunk;
+  const int per_chunk = (a.chunk + PERM_PAIRS - 1) / PERM_PAIRS;  // stages a chunk
+  const int per_tile = 1 + m * per_chunk;                         // stages a tile
+  // a position in the block's walk: its tile's first column and its stage in the tile
+  struct Pos {
+    long long c0;
+    int st;
+  };
+  const long long c_step = (long long)gridDim.x * T, c_end = a.tiles * T;
+  const auto step = [&](Pos& p) {
+    if (++p.st == per_tile) {
+      p.st = 0;
+      p.c0 += c_step;
+    }
+  };
   for (int t = threadIdx.x; t < NC * a.routed; t += blockDim.x)
-    beta_k[t / a.routed][t % a.routed] = gl::mul(a.betas[t / a.routed], a.k_shifts[t % a.routed]);
+    beta_k[t] = gl::mul(a.betas[t / a.routed], a.k_shifts[t % a.routed]);
   for (int t = threadIdx.x; t <= m; t += blockDim.x) {
     alpha[0][t] = a.alpha[0][t];
     alpha[1][t] = a.alpha[1][t];
@@ -631,62 +671,106 @@ perm_quotient_kernel(PermArgs a, uint64_t* __restrict__ out) {
     beta[threadIdx.x] = a.betas[threadIdx.x];
     gamma[threadIdx.x] = a.gammas[threadIdx.x];
   }
-  __syncthreads();
-  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= a.n_lde) return;
-  const uint64_t xv = a.x[x];
-  const uint64_t l0 = a.l0[x];
-  const long long x_next = WINDOW ? x + a.next : (x + a.next) & (a.n_lde - 1);
-  // the sum of the terms as two sums: sum alpha * (chain[k+1] * den_k) and
-  // sum alpha * (chain[k] * num_k), l0 * Z and l0 for term 0
-  gl::Acc pos[NC], neg[NC];
-  uint64_t prev[NC];  // chain[k]
-#pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const uint64_t z = a.zs[(long long)j * m * a.zs_stride + x];
-    pos[j].mac(alpha[j][0], gl::mul_lazy(l0, z));
-    neg[j].mac(alpha[j][0], l0);
-    prev[j] = z;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PERM_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    mbar_fence_init();
   }
-  // each word is loaded one wire (a chain word one chunk) ahead of its use,
-  // so that its latency hides behind the arithmetic
-  uint64_t w = a.wires[x], sg = a.sigma[x];
-  for (int c = 0; c < m; ++c) {
-    uint64_t next[NC];  // chain[k+1]
+  // the walk: `fill` the next stage to fill (PERM_STAGES ahead of the one
+  // read), slot s of parity `phase` the one read
+  Pos fill{(long long)blockIdx.x * T, 0};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PERM_STAGES && fill.c0 < c_end; ++s, step(fill))
+      perm_fill(a, ring, full, s, fill.c0, fill.st, per_chunk, m);
+  } else {
+    for (int s = 0; s < PERM_STAGES; ++s) step(fill);
+  }
+  __syncthreads();
+  // a thread past the tile (a tile below PERM_TILE) computes column 0's
+  // words and stores nothing: no branch in the loops
+  const int xt = threadIdx.x;
+  const bool live = xt < T;
+  const int xc = live ? xt : 0;
+  int s = 0;
+  uint32_t phase = 0;
+  // the stage read: release its slot, which the last warp to do so refills
+  const auto release = [&]() {
+    if (last_to_release(&released[s], PERM_TILE / 32) && fill.c0 < c_end)
+      perm_fill(a, ring, full, s, fill.c0, fill.st, per_chunk, m);
+    step(fill);
+    if (++s == PERM_STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  };
+  const auto stage = [&]() {
+    mbar_wait(&full[s], phase);
+    return ring + (long long)s * PERM_STAGE_ROWS * T + xc;
+  };
+  for (long long tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    const long long x = tile * T + xc;
+    // Z at the next trace row, 2 words of 184 a column: a direct load, issued
+    // here so that its latency hides behind the tile
+    const long long x_next = WINDOW ? x + a.next : (x + a.next) & (a.n_lde - 1);
+    uint64_t z_next[NC];
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
-      next[j] = c + 1 < m ? a.zs[((long long)j * m + c + 1) * a.zs_stride + x]
-                          : a.zs[(long long)j * m * a.zs_stride + x_next];
-    uint64_t num[NC], den[NC];  // lazy running products of the chunk
-    for (int i = 0; i < a.chunk; ++i) {
-      const int col = c * a.chunk + i;
-      uint64_t w_ahead = 0, sg_ahead = 0;
-      if (col + 1 < a.routed) {
-        w_ahead = a.wires[(long long)(col + 1) * a.wires_stride + x];
-        sg_ahead = a.sigma[(long long)(col + 1) * a.sigma_stride + x];
+    for (int j = 0; j < NC; ++j) z_next[j] = a.zs[(long long)j * m * a.zs_stride + x_next];
+    // the sum of the terms, alpha_0 l0 (Z - 1) and alpha_{k+1} (chain[k+1]
+    // den_k - chain[k] num_k), one 96-bit column sum a challenge
+    gl::Acc sum[NC];
+    uint64_t prev[NC];  // chain[k]
+    const uint64_t* st = stage();
+    const uint64_t xv = st[0], l0 = st[T];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const uint64_t z = st[(2 + j) * T];
+      sum[j].mac(alpha[j][0], gl::sub_lazy(gl::mul_lazy(l0, z), l0));
+      prev[j] = z;
+    }
+    release();
+    for (int k = 0; k < m; ++k) {
+      uint64_t num[NC], den[NC], next[NC];  // lazy running products of the chunk; chain[k+1]
+      for (int q = 0; q < per_chunk; ++q) {
+        st = stage();
+        const int i0 = q * PERM_PAIRS, np = min(PERM_PAIRS, a.chunk - i0);
+#pragma unroll
+        for (int r = 0; r < PERM_PAIRS; ++r) {
+          if (r < np) {
+            const uint64_t w = st[r * T], sg = st[(PERM_PAIRS + r) * T];
+            const int i = i0 + r, col = k * a.chunk + i;  // the wire's place in its chunk
+#pragma unroll
+            for (int j = 0; j < NC; ++j) {
+              const uint64_t wg = gl::add_lazy(w, gamma[j]);
+              const uint64_t nt = gl::mul_add_lazy(beta_k[j * a.routed + col], xv, wg);  // w + beta k_i x + gamma
+              const uint64_t dt = gl::mul_add_lazy(beta[j], sg, wg);  // w + beta sigma_i + gamma
+              num[j] = i ? gl::mul_lazy(num[j], nt) : nt;
+              den[j] = i ? gl::mul_lazy(den[j], dt) : dt;
+            }
+          }
+        }
+        if (q == per_chunk - 1) {
+#pragma unroll
+          for (int j = 0; j < NC; ++j)
+            next[j] = k + 1 < m ? st[(2 * PERM_PAIRS + j) * T] : z_next[j];
+        }
+        release();
       }
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
-        const uint64_t wg = gl::add(w, gamma[j]);
-        const uint64_t nt = gl::mul_add_lazy(beta_k[j][col], xv, wg);  // w + beta k_i x + gamma
-        const uint64_t dt = gl::mul_add_lazy(beta[j], sg, wg);          // w + beta sigma_i + gamma
-        num[j] = i ? gl::mul_lazy(num[j], nt) : nt;
-        den[j] = i ? gl::mul_lazy(den[j], dt) : dt;
+        const uint64_t t = gl::sub_lazy(gl::mul_lazy(next[j], den[j]),
+                                        gl::canon(gl::mul_lazy(prev[j], num[j])));
+        sum[j].mac(alpha[j][k + 1], t);
+        prev[j] = next[j];
       }
-      w = w_ahead;
-      sg = sg_ahead;
     }
+    if (live) {
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      pos[j].mac(alpha[j][c + 1], gl::mul_lazy(next[j], den[j]));
-      neg[j].mac(alpha[j][c + 1], gl::mul_lazy(prev[j], num[j]));
-      prev[j] = next[j];
+      for (int j = 0; j < NC; ++j)
+        out[(long long)j * a.n_lde + x] = gl::canon(sum[j].reduce_lazy());
     }
   }
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-    out[(long long)j * a.n_lde + x] =
-        gl::sub(gl::canon(pos[j].reduce_lazy()), gl::canon(neg[j].reduce_lazy()));
 }
 
 // ---------------------------------------------------------------------------
@@ -1351,24 +1435,42 @@ extern "C" int elp_field_open(int batches, const void* const* coeffs, const long
 }
 
 // One launch for the two challenges; `out` is (2, n_lde) and overlaps no input.
-// `mask` is n_lde - 1 (the next row wraps), or -1 for the window form.
+// `mask` is n_lde - 1 (the next row wraps), or -1 for the window form.  The
+// wires, sigma and Z rows, x and l0 start 16-byte aligned with even row
+// strides; `tile` columns a tile (min(PERM_TILE, n_lde), at least 16: a
+// tensor copy's shared memory is 128-byte aligned), `blocks` persistent
+// blocks.  ops/kernels.py `perm_quotient_plan` computes them.
 extern "C" int elp_perm_quotient(const void* wires, long long wires_stride, const void* sigma,
                                  long long sigma_stride, const void* zs, long long zs_stride,
                                  const void* x, const void* l0, const void* k_shifts,
                                  const void* betas, const void* gammas, const void* alpha0,
                                  const void* alpha1, long long n_lde, long long mask, int rate,
-                                 int routed, int chunk, void* out, int threads, void* stream) {
-  if (n_lde < 1 || (n_lde & (n_lde - 1)) || (mask != n_lde - 1 && mask != -1) || rate < 0 ||
-      rate > 30 || chunk < 1 ||
-      routed < chunk || routed % chunk || routed > PERM_MAX_ROUTED ||
-      routed / chunk > PERM_MAX_CHUNKS || threads < 1 || threads > 256)
+                                 int routed, int chunk, void* out, int tile, int blocks,
+                                 void* stream) {
+  const auto misaligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; };
+  if (n_lde < 16 || n_lde > (1ll << 30) || (n_lde & (n_lde - 1)) || (mask != n_lde - 1 && mask != -1) || rate < 0 ||
+      rate > 30 || chunk < 1 || routed < chunk || routed % chunk || routed > PERM_MAX_ROUTED ||
+      routed / chunk > PERM_MAX_CHUNKS || tile != (n_lde < PERM_TILE ? n_lde : PERM_TILE) ||
+      blocks < 1 || (wires_stride & 1) || (sigma_stride & 1) || (zs_stride & 1) ||
+      misaligned(wires) || misaligned(sigma) || misaligned(zs) || misaligned(x) || misaligned(l0))
     return (int)cudaErrorInvalidValue;
   const auto w = [](const void* p) { return static_cast<const uint64_t*>(p); };
-  const PermArgs a{w(wires), wires_stride, w(sigma), sigma_stride, w(zs), zs_stride, w(x), w(l0),
-                   w(k_shifts), w(betas), w(gammas), {w(alpha0), w(alpha1)}, n_lde,
-                   1ll << rate, routed, chunk};
+  PermArgs a{w(wires), wires_stride, w(sigma), sigma_stride, w(zs), zs_stride, w(x), w(l0),
+             w(k_shifts), w(betas), w(gammas), {w(alpha0), w(alpha1)}, n_lde,
+             1ll << rate, n_lde / tile, tile, routed, chunk};
+  if (routed >= PERM_PAIRS) {
+    int e = rows_map(&a.wires_map, wires, routed, n_lde, wires_stride, PERM_PAIRS, tile);
+    if (!e) e = rows_map(&a.sigma_map, sigma, routed, n_lde, sigma_stride, PERM_PAIRS, tile);
+    if (e) return e;
+  }
   const auto kernel = mask == -1 ? perm_quotient_kernel<true> : perm_quotient_kernel<false>;
-  kernel<<<blocks_for(n_lde, threads, 1ll << 30), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t shared =
+      ((size_t)PERM_STAGES * PERM_STAGE_ROWS * tile + 2 * (size_t)routed + PERM_STAGES) * 8 +
+      PERM_STAGES * sizeof(int);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, PERM_TILE, shared, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<uint64_t*>(out));
   return (int)cudaGetLastError();
 }

@@ -67,21 +67,36 @@
 // The multiply-adds of each gate's cheapest form, and its bound, are counted
 // in chip_smoke.py (SHA_GATE_MADS, POSEIDON_GATE_MADS).
 //
-// The generic gates (generic_gate_quotient_kernel) visit the wire columns
-// once, in order, four at a time with the next four already loading; each
-// word goes to every generic gate that reads it (ArithmeticGate op w / 4 in
-// role w % 4, BaseSum2Gate slot w / 33 as its value or a bit, whose sum and
-// booleanity both take it, ConstantGate slot w), each gate into its own
-// 96-bit column sums a challenge.  The public-input terms
-// lr_i (w_{c_i} - pi_i) read their wire and Lagrange rows once each.  What
-// bounds it: memory, about 110 rows read a column in the light-client
-// circuit (80 wires, 3 selectors, 8 constant rows, 12 Lagrange rows and 12
-// public-input wires, 2 accumulators) against about 200
-// multiply-accumulates and 150 products.
+// The generic gates (generic_gate_quotient_kernel) replace the generic loop
+// of eth_lc_plonky2_tpu/prover/prove.py:484-520 with the public inputs.  They
+// visit the wire columns once, in order; each word goes to every generic gate
+// that reads it (ArithmeticGate op w / 4 in role w % 4, BaseSum2Gate slot
+// w / 33 as its value or a bit, whose sum and booleanity both take it,
+// ConstantGate slot w), each gate into its own 96-bit column sums a
+// challenge, and each public input's term lr_i (w_{c_i} - pi_i) takes its
+// wire from the same pass.  What bounds it: its bound by bytes is about 105
+// rows read a column in the light-client circuit (80 wires, 3 selectors, 6
+// constant rows, 12 Lagrange rows, 2 accumulators; 0.53 ms at 2^21), above
+// its cheapest form's 1,540 32-bit multiply-adds (0.19 ms); on the card the
+// integer pipe bounds it, as the permutation terms (field.cu): with its
+// copies cut the kernel runs as long as with them (PERF.md).  The rows
+// arrive by bulk asynchronous copies: persistent blocks (two an SM, 16
+// warps) walk tiles of GEN_TILE columns, a thread a column; a tile's head
+// (selectors, constant rows, Lagrange rows, accumulators: a row's segment a
+// copy, the Lagrange rows 8 a copy of a 2-D tensor map) lands in a head slot
+// kept for the tile, and the wire rows, GEN_STAGE_ROWS a stage (one tensor
+// copy), stream through a ring of GEN_STAGES stages, each completing on an
+// mbarrier; the warp that releases a stage (a head) last refills it, so no
+// thread only copies and no warp waits for another.  The plan places each
+// public input's wire on the host: a column below `visit` is read from the
+// stage that holds it, one at or past it from a stage of such columns after
+// the visited ones, so no wire row is read twice and the kernel reads the
+// columns from shared memory only.
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "bulk.cuh"
 #include "goldilocks.cuh"
 #include "poseidon.cuh"
 
@@ -525,145 +540,277 @@ poseidon_gate_quotient_kernel(PoseidonArgs g) {
 constexpr int GEN_MAX_CONSTRAINTS = 256;  // a gate's constraints: one gl::Acc, no reduction between
 constexpr int GEN_BS_MAX_BITS = 32;       // BaseSum2Gate bits a slot (its 33 wires a slot)
 constexpr int GEN_BS_STRIDE = 33;         // wires a BaseSum2Gate slot
+// The ring; ops/kernels.py generic_gate_plan mirrors it.  Persistent blocks
+// (GEN_MIN_BLOCKS an SM of GEN_TILE threads) walk tiles of `tile` columns
+// (GEN_TILE, or fewer where the head would not fit beside a ring of two
+// stages), one thread a column, a block max(32, tile) threads.  A tile's head, kept
+// for the whole tile in the head slot: the gates' selectors, the constant
+// rows they read, the public inputs' Lagrange rows and the two accumulators
+// (head rows h_sel, h_const, h_lr, h_acc).  One slot: two held a block to
+// one an SM (PERF.md).  Its wire rows
+// stream through a ring of `ring` stages (GEN_STAGES, or down to 2 where the
+// head would not fit) of GEN_STAGE_ROWS rows: the `visit` columns in order,
+// then the public inputs' columns at or past `visit` (`extra`, each once).
+constexpr int GEN_TILE = 256;
+constexpr int GEN_STAGE_ROWS = 8;
+constexpr int GEN_STAGES = 4;
+constexpr int GEN_MIN_BLOCKS = 2;
 
-// Each generic gate at most once; a count of 0 leaves the gate out.
+// Each generic gate at most once; a null selector leaves the gate out.
 struct GenericArgs {
   const uint64_t* wires;   // wire w at column x: wires[w * wires_stride + x]
   long long wires_stride;
   const uint64_t* consts;  // constant column i at column x: consts[i * consts_stride + x]
   long long consts_stride;
-  const uint64_t* sel_arith;  // the gates' selector rows
-  const uint64_t* sel_bs;
-  const uint64_t* sel_const;
+  const uint64_t* sel[3];     // the selector rows of arith, basesum2, const
   int arith_ops;              // ArithmeticGate(num_ops)
   int bs_bits, bs_slots;      // BaseSum2Gate(num_bits, num_slots)
   int const_slots;            // ConstantGate(num_slots)
   int visit;                  // wire columns visited: the most any of the three reads
+  int nconst;                 // constant columns in the head: the most any of the three reads
   const uint64_t* lr;         // public input i's Lagrange row: lr[i * lr_stride + x]
   long long lr_stride;
   const uint64_t* pi;         // (num_pi,) the public inputs
-  const long long* pi_col;    // (num_pi,) their wire columns
   int num_pi;
+  // the plan's table (ints): the public inputs in stage order, i | slot << 16
+  // (num_pi); each stage's first entry, and the count (stages + 1); the
+  // columns at or past visit (extra)
+  const int* table;
+  int stages, extra;
+  int ring;                   // stages of the ring: 2 to GEN_STAGES
   const uint64_t* alpha[NCH]; // alpha_j^0, alpha_j^1, ...: reads [pi0, pi0 + num_pi), [k0, k0 + slots)
   int pi0, k0, slots;         // slots: the most constraints of the three gates
   uint64_t* acc[NCH];         // (n_lde,) updated in place
-  long long n_lde;
+  long long n_lde, tiles;
+  int tile;
+  int head_rows, h_sel[3], h_const, h_lr, h_acc;  // h_sel -1 for an absent gate
+  // the visited wire rows and the Lagrange rows in boxes of GEN_STAGE_ROWS
+  // rows of a tile (made where there are that many); fewer rows are copied
+  // row by row
+  CUtensorMap wires_map, lr_map;
 };
 
+// Fill the head slot `h` with the head of the tile at column c0: one bulk
+// copy a row's segment (a tensor copy of GEN_STAGE_ROWS Lagrange rows),
+// completing on its barrier.
+__device__ __forceinline__ void gen_fill_head(const GenericArgs& g, uint64_t* h, uint64_t* hfull,
+                                              long long c0) {
+  const int T = g.tile;
+  const uint32_t seg = (uint32_t)T * 8;
+  mbar_expect_tx(hfull, g.head_rows * seg);
+  for (int q = 0; q < 3; ++q)
+    if (g.h_sel[q] >= 0) bulk_copy(h + g.h_sel[q] * T, g.sel[q] + c0, seg, hfull);
+  for (int i = 0; i < g.nconst; ++i)
+    bulk_copy(h + (g.h_const + i) * T, g.consts + i * g.consts_stride + c0, seg, hfull);
+  int i = 0;
+  for (; i + GEN_STAGE_ROWS <= g.num_pi; i += GEN_STAGE_ROWS)
+    bulk_copy_rows(h + (g.h_lr + i) * T, &g.lr_map, (int)c0, i, hfull);
+  for (; i < g.num_pi; ++i)
+    bulk_copy(h + (g.h_lr + i) * T, g.lr + i * g.lr_stride + c0, seg, hfull);
+  for (int j = 0; j < NCH; ++j) bulk_copy(h + (g.h_acc + j) * T, g.acc[j] + c0, seg, hfull);
+}
+
+// Fill ring slot s with wire stage st of the tile at column c0 (a tensor copy
+// of GEN_STAGE_ROWS visited rows, or a bulk copy a row).
+__device__ __forceinline__ void gen_fill_stage(const GenericArgs& g, uint64_t* ring, uint64_t* full,
+                                               const int* extra, int s, long long c0, int st,
+                                               int wire_stages) {
+  const int T = g.tile;
+  const uint32_t seg = (uint32_t)T * 8;
+  uint64_t* dst = ring + (long long)s * GEN_STAGE_ROWS * T;
+  const int w0 = st * GEN_STAGE_ROWS, e0 = (st - wire_stages) * GEN_STAGE_ROWS;
+  const int nr = st < wire_stages ? min(GEN_STAGE_ROWS, g.visit - w0)
+                                  : min(GEN_STAGE_ROWS, g.extra - e0);
+  mbar_expect_tx(&full[s], nr * seg);
+  if (st < wire_stages && nr == GEN_STAGE_ROWS) {
+    bulk_copy_rows(dst, &g.wires_map, (int)c0, w0, &full[s]);
+    return;
+  }
+  for (int r = 0; r < nr; ++r) {
+    const long long col = st < wire_stages ? w0 + r : extra[e0 + r];
+    bulk_copy(dst + r * T, g.wires + col * g.wires_stride + c0, seg, &full[s]);
+  }
+}
+
 // acc_j[x] += sum over the public inputs and the generic gates, canonical.
-// Dynamic shared memory: per challenge the alpha powers of the public
-// inputs, then of the constraint slots; then the public inputs' words.
-__global__ void __launch_bounds__(256)
-generic_gate_quotient_kernel(GenericArgs g) {
-  extern __shared__ uint64_t gen_shared[];
-  const int per = g.num_pi + g.slots;
-  uint64_t* alpha = gen_shared;                 // alpha[j * per + i]: public input i
-  uint64_t* pi = gen_shared + NCH * per;        // then slot k at j * per + num_pi + k
+// Block b takes the tiles b, b + gridDim.x, ..., thread xt column xt of each.
+// No thread is only a producer: thread 0 fills the first head and stages,
+// and the warp that releases a stage (a tile's head) last refills its slot
+// with stage it + ring (the next tile's head; last_to_release), so no thread
+// only copies, GEN_MIN_BLOCKS of GEN_TILE threads fit an SM, and no warp
+// waits for another.  Dynamic shared memory: the ring (ring x GEN_STAGE_ROWS x tile
+// words), the head slot (head_rows x tile), per challenge the alpha powers
+// of the public inputs, then of the constraint slots; the public inputs'
+// words; the full barriers of the stages and the head; then ints: the
+// release counts of the stages and the head, and the table.
+__global__ void __launch_bounds__(GEN_TILE, GEN_MIN_BLOCKS)
+generic_gate_quotient_kernel(const __grid_constant__ GenericArgs g) {
+  extern __shared__ __align__(128) uint64_t gen_smem[];
+  const int T = g.tile, per = g.num_pi + g.slots;
+  uint64_t* ring = gen_smem;
+  uint64_t* head = ring + (long long)g.ring * GEN_STAGE_ROWS * T;
+  uint64_t* alpha = head + (long long)g.head_rows * T;  // alpha[j * per + i]: public input i
+  uint64_t* pi = alpha + NCH * per;                                 //   then slot k at j * per + num_pi + k
+  uint64_t* full = pi + g.num_pi;
+  uint64_t* hfull = full + g.ring;
+  int* released = reinterpret_cast<int*>(hfull + 1);  // the stages', then the head's
+  int* table = released + g.ring + 1;
+  const int warps = blockDim.x / 32;
+  const int* pi_order = table;                      // i | slot << 16, in stage order
+  const int* pi_first = table + g.num_pi;           // stage s: entries [pi_first[s], pi_first[s + 1])
+  const int* extra = pi_first + g.stages + 1;       // the columns at or past visit
+  const int wire_stages = (g.visit + GEN_STAGE_ROWS - 1) / GEN_STAGE_ROWS;
+  const long long c_step = (long long)gridDim.x * T, c_end = g.tiles * T;
+  // a position in the block's walk of wire stages: its tile's first column and
+  // its stage in the tile
+  struct Pos {
+    long long c0;
+    int st;
+  };
+  const auto step = [&](Pos& p) {
+    if (++p.st == g.stages) {
+      p.st = 0;
+      p.c0 += c_step;
+    }
+  };
   for (int t = threadIdx.x; t < per; t += blockDim.x) {
 #pragma unroll
     for (int j = 0; j < NCH; ++j)
       alpha[j * per + t] = t < g.num_pi ? g.alpha[j][g.pi0 + t] : g.alpha[j][g.k0 + t - g.num_pi];
   }
   for (int t = threadIdx.x; t < g.num_pi; t += blockDim.x) pi[t] = g.pi[t];
+  for (int t = threadIdx.x; t < g.num_pi + g.stages + 1 + g.extra; t += blockDim.x)
+    table[t] = g.table[t];
+  __syncthreads();  // the extra columns, before thread 0 fills a stage
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.ring; ++s) mbar_init(&full[s], 1);
+    mbar_init(hfull, 1);
+    for (int s = 0; s <= g.ring; ++s) released[s] = 0;
+    mbar_fence_init();
+  }
+  // the walk: the next stage to fill (`ring` ahead of the one read) and the
+  // next tile's head
+  Pos fill{(long long)blockIdx.x * T, 0};
+  long long head_c0 = (long long)blockIdx.x * T;
+  if (threadIdx.x == 0) {
+    if (head_c0 < c_end) gen_fill_head(g, head, hfull, head_c0);
+    for (int s = 0; s < g.ring && fill.c0 < c_end; ++s, step(fill))
+      gen_fill_stage(g, ring, full, extra, s, fill.c0, fill.st, wire_stages);
+  } else {
+    for (int s = 0; s < g.ring; ++s) step(fill);
+  }
+  head_c0 += c_step;
   __syncthreads();
-  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= g.n_lde) return;
+  // a thread past the tile (a tile below 32 columns) computes column 0's
+  // words and stores nothing: no branch in the loops
+  const int xt = threadIdx.x;
+  const bool live = xt < T;
+  const int xc = live ? xt : 0;
   const uint64_t* ak[NCH];
 #pragma unroll
   for (int j = 0; j < NCH; ++j) ak[j] = alpha + j * per + g.num_pi;
-
-  uint64_t total[NCH];
-  // the public inputs: lr_i (w_{c_i} - pi_i), a reduction every 128 terms
+  int s = 0;
+  uint32_t phase = 0, hphase = 0;
+  for (long long tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
+    mbar_wait(hfull, hphase);
+    const uint64_t* h = head + xc;
+    const uint64_t c0 = g.nconst > 0 ? h[g.h_const * T] : 0;
+    const uint64_t c1 = g.nconst > 1 ? h[(g.h_const + 1) * T] : 0;
+    uint64_t total[NCH];           // the public inputs' terms, lazy
+    gl::Acc arith[NCH], bs[NCH], cst[NCH];
 #pragma unroll
-  for (int j = 0; j < NCH; ++j) total[j] = 0;
-  for (int i0 = 0; i0 < g.num_pi; i0 += 128) {
-    const int i1 = min(g.num_pi, i0 + 128);
-    gl::Acc sum[NCH];
-#pragma unroll 4
-    for (int i = i0; i < i1; ++i) {
-      const uint64_t w = g.wires[g.pi_col[i] * g.wires_stride + x];
-      const uint64_t t = gl::mul(g.lr[(long long)i * g.lr_stride + x], gl::sub(w, pi[i]));
+    for (int j = 0; j < NCH; ++j) total[j] = 0;
+    uint64_t a = 0, ab = 0, c = 0;   // the ArithmeticGate op in progress: a, a b, c
+    uint64_t value = 0;               // the BaseSum2Gate slot in progress: its value
+    Wide bits;                        //   and sum_i bit_i 2^i
+    int slot = 0, r = 0;              // wire w is BaseSum2Gate slot `slot`, place r
+    const auto visit = [&](int w, uint64_t v) {
+      if (w < 4 * g.arith_ops) {  // op w / 4: out = c0 a b + c1 c
+        const int role = w & 3;
+        if (role == 0) {
+          a = v;
+        } else if (role == 1) {
+          ab = gl::mul(a, v);
+        } else if (role == 2) {
+          c = v;
+        } else {
+          const uint64_t con = gl::sub(gl::add(gl::mul(c0, ab), gl::mul(c1, c)), v);
 #pragma unroll
-      for (int j = 0; j < NCH; ++j) sum[j].mac(alpha[j * per + i], t);
-    }
-#pragma unroll
-    for (int j = 0; j < NCH; ++j) total[j] = gl::add(total[j], gl::canon(sum[j].reduce_lazy()));
-  }
-
-  // one pass over the wire columns
-  const uint64_t c0 = g.consts[x];
-  const uint64_t c1 = g.consts_stride ? g.consts[g.consts_stride + x] : 0;
-  gl::Acc arith[NCH], bs[NCH], cst[NCH];
-  uint64_t a = 0, ab = 0, c = 0;   // the ArithmeticGate op in progress: a, a b, c
-  uint64_t value = 0;               // the BaseSum2Gate slot in progress: its value
-  Wide bits;                        //   and sum_i bit_i 2^i
-  int slot = 0, r = 0;              // wire w is BaseSum2Gate slot `slot`, place r
-  const auto visit = [&](int w, uint64_t v) {
-    if (w < 4 * g.arith_ops) {  // op w / 4: out = c0 a b + c1 c
-      const int role = w & 3;
-      if (role == 0) {
-        a = v;
-      } else if (role == 1) {
-        ab = gl::mul(a, v);
-      } else if (role == 2) {
-        c = v;
-      } else {
-        const uint64_t con = gl::sub(gl::add(gl::mul(c0, ab), gl::mul(c1, c)), v);
-#pragma unroll
-        for (int j = 0; j < NCH; ++j) arith[j].mac(ak[j][w >> 2], con);
+          for (int j = 0; j < NCH; ++j) arith[j].mac(ak[j][w >> 2], con);
+        }
       }
-    }
-    if (w < GEN_BS_STRIDE * g.bs_slots) {  // slot: [sum - value, bit_0^2 - bit_0, ...]
-      const int first = slot * (1 + g.bs_bits);
-      if (r == 0) {
-        value = v;
-        bits = Wide();
-      } else if (r <= g.bs_bits) {
-        bits.add_shl(v, r - 1);
-        const uint64_t con = gl::sub(gl::mul(v, v), v);
+      if (w < GEN_BS_STRIDE * g.bs_slots) {  // slot: [sum - value, bit_0^2 - bit_0, ...]
+        const int first = slot * (1 + g.bs_bits);
+        if (r == 0) {
+          value = v;
+          bits = Wide();
+        } else if (r <= g.bs_bits) {
+          bits.add_shl(v, r - 1);
+          const uint64_t con = gl::sub(gl::mul(v, v), v);
 #pragma unroll
-        for (int j = 0; j < NCH; ++j) bs[j].mac(ak[j][first + r], con);
+          for (int j = 0; j < NCH; ++j) bs[j].mac(ak[j][first + r], con);
+        }
+        if (r == g.bs_bits) {
+          const uint64_t con = gl::sub(bits.reduce(), value);
+#pragma unroll
+          for (int j = 0; j < NCH; ++j) bs[j].mac(ak[j][first], con);
+        }
+        if (++r == GEN_BS_STRIDE) {
+          r = 0;
+          ++slot;
+        }
       }
-      if (r == g.bs_bits) {
-        const uint64_t con = gl::sub(bits.reduce(), value);
+      if (w < g.const_slots) {  // wire w == constant column w
+        const uint64_t cw = w == 0 ? c0 : w == 1 ? c1 : h[(g.h_const + w) * T];
+        const uint64_t con = gl::sub(v, cw);
 #pragma unroll
-        for (int j = 0; j < NCH; ++j) bs[j].mac(ak[j][first], con);
+        for (int j = 0; j < NCH; ++j) cst[j].mac(ak[j][w], con);
       }
-      if (++r == GEN_BS_STRIDE) {
-        r = 0;
-        ++slot;
-      }
-    }
-    if (w < g.const_slots) {  // wire w == constant column w
-      const uint64_t cw = w == 0 ? c0 : w == 1 ? c1 : g.consts[w * g.consts_stride + x];
-      const uint64_t con = gl::sub(v, cw);
-#pragma unroll
-      for (int j = 0; j < NCH; ++j) cst[j].mac(ak[j][w], con);
-    }
-  };
-  // four columns at a time, the next four loading meanwhile
-  const uint64_t* col = g.wires + x;
-  const auto load4 = [&](int w0, uint64_t (&v)[4]) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) v[q] = w0 + q < g.visit ? col[(long long)(w0 + q) * g.wires_stride] : 0;
-  };
-  uint64_t cur[4], ahead[4];
-  load4(0, cur);
+    };
+    for (int st = 0; st < g.stages; ++st) {
+      mbar_wait(&full[s], phase);
+      const uint64_t* row = ring + (long long)s * GEN_STAGE_ROWS * T + xc;
+      {
+        if (st < wire_stages) {
+          const int w0 = st * GEN_STAGE_ROWS;
 #pragma unroll 1
-  for (int w0 = 0; w0 < g.visit; w0 += 4) {
-    load4(w0 + 4, ahead);
+          for (int q0 = 0; q0 < GEN_STAGE_ROWS; q0 += 4) {  // as rolled as the roles allow
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (w0 + q < g.visit) visit(w0 + q, cur[q]);
-      cur[q] = ahead[q];
+            for (int q = 0; q < 4; ++q)
+              if (w0 + q0 + q < g.visit) visit(w0 + q0 + q, row[(q0 + q) * T]);
+          }
+        }
+        // the public inputs whose column this stage holds: lr_i (w_{c_i} - pi_i)
+        for (int p = pi_first[st]; p < pi_first[st + 1]; ++p) {
+          const int i = pi_order[p] & 0xFFFF, q = pi_order[p] >> 16;
+          const uint64_t t = gl::mul_lazy(h[(g.h_lr + i) * T], gl::sub(row[q * T], pi[i]));
+#pragma unroll
+          for (int j = 0; j < NCH; ++j) total[j] = gl::mul_add_lazy(alpha[j * per + i], t, total[j]);
+        }
+      }
+      if (last_to_release(&released[s], warps) && fill.c0 < c_end)
+        gen_fill_stage(g, ring, full, extra, s, fill.c0, fill.st, wire_stages);
+      step(fill);
+      if (++s == g.ring) {
+        s = 0;
+        phase ^= 1;
+      }
     }
-  }
+    if (live) {
+      const long long x = tile * T + xt;
 #pragma unroll
-  for (int j = 0; j < NCH; ++j) {
-    if (g.arith_ops) total[j] = gl::add(total[j], gl::mul(g.sel_arith[x], arith[j].reduce_lazy()));
-    if (g.bs_slots) total[j] = gl::add(total[j], gl::mul(g.sel_bs[x], bs[j].reduce_lazy()));
-    if (g.const_slots) total[j] = gl::add(total[j], gl::mul(g.sel_const[x], cst[j].reduce_lazy()));
-    g.acc[j][x] = gl::add(g.acc[j][x], total[j]);
+      for (int j = 0; j < NCH; ++j) {
+        total[j] = gl::canon(total[j]);
+        if (g.h_sel[0] >= 0) total[j] = gl::add(total[j], gl::mul(h[g.h_sel[0] * T], arith[j].reduce_lazy()));
+        if (g.h_sel[1] >= 0) total[j] = gl::add(total[j], gl::mul(h[g.h_sel[1] * T], bs[j].reduce_lazy()));
+        if (g.h_sel[2] >= 0) total[j] = gl::add(total[j], gl::mul(h[g.h_sel[2] * T], cst[j].reduce_lazy()));
+        g.acc[j][x] = gl::add(h[(g.h_acc + j) * T], total[j]);
+      }
+    }
+    if (last_to_release(&released[g.ring], warps) && head_c0 < c_end)
+      gen_fill_head(g, head, hfull, head_c0);
+    head_c0 += c_step;
+    hphase ^= 1;
   }
 }
 
@@ -750,47 +897,81 @@ extern "C" int elp_poseidon_gate_quotient(const void* wires, long long stride, l
 }
 
 // One launch for the two challenges; `acc0`, `acc1` are updated in place and
-// overlap no input.  `pi_col` is a device array; the gates' parameters and
-// the alpha offsets are ops/kernels.py `generic_gate_plan`'s.
+// overlap no input.  `sel` holds the three gates' selector rows (null for an
+// absent gate); `head` is (h_sel[3], h_const, h_lr, h_acc) of `head_rows`;
+// `table` the device ints of the public inputs' stage order, the stages'
+// first entries and the extra columns; every row starts 16-byte aligned with
+// an even row stride; `tile` columns a tile (at least 16: a tensor copy's
+// shared memory is 128-byte aligned), `ring` stages, `blocks` persistent
+// blocks of max(32, tile) threads.  The
+// gates' parameters, the alpha offsets and the layout are ops/kernels.py
+// `generic_gate_plan`'s.
 extern "C" int elp_generic_gate_quotient(const void* wires, long long wires_stride,
                                          const void* consts, long long consts_stride,
-                                         const void* sel_arith, const void* sel_bs,
-                                         const void* sel_const, int arith_ops, int bs_bits,
-                                         int bs_slots, int const_slots, const void* lr,
-                                         long long lr_stride, const void* pi, const void* pi_col,
-                                         int num_pi, const void* alpha0, const void* alpha1,
-                                         int pi0, int k0, void* acc0, void* acc1,
-                                         long long n_lde, int threads, void* stream) {
+                                         const void* const* sel, int arith_ops, int bs_bits,
+                                         int bs_slots, int const_slots, int nconst,
+                                         const void* lr, long long lr_stride, const void* pi,
+                                         int num_pi, const void* table, int stages, int extra,
+                                         const int* head, int head_rows, int ring,
+                                         const void* alpha0,
+                                         const void* alpha1, int pi0, int k0, void* acc0,
+                                         void* acc1, long long n_lde, int tile, int blocks,
+                                         void* stream) {
   const int arith = arith_ops, bs = bs_slots * (1 + bs_bits), cst = const_slots;
   const int slots = arith > bs ? (arith > cst ? arith : cst) : (bs > cst ? bs : cst);
   int visit = 4 * arith_ops;
   if (GEN_BS_STRIDE * bs_slots > visit) visit = GEN_BS_STRIDE * bs_slots;
   if (const_slots > visit) visit = const_slots;
-  if (n_lde < 1 || threads < 1 || threads > 256 || arith_ops < 0 || bs_slots < 0 ||
-      const_slots < 0 || bs_bits < 0 || bs_bits > GEN_BS_MAX_BITS || num_pi < 0 ||
-      slots >= GEN_MAX_CONSTRAINTS || (arith_ops && !sel_arith) || (bs_slots && !sel_bs) ||
-      (const_slots && !sel_const) || (const_slots > 1 && !consts_stride))
-    return (int)cudaErrorInvalidValue;
-  const size_t shared = ((size_t)NCH * (num_pi + slots) + num_pi) * sizeof(uint64_t);
-  if (shared > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const auto misaligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; };
+  const bool present[3] = {arith_ops > 0, bs_slots > 0, const_slots > 0};
+  const int wire_stages = (visit + GEN_STAGE_ROWS - 1) / GEN_STAGE_ROWS;
+  bool bad = n_lde < 16 || n_lde > (1ll << 30) || tile < 16 || tile > GEN_TILE || (tile & 15) || n_lde % tile ||
+             blocks < 1 || arith_ops < 0 || bs_slots < 0 || const_slots < 0 || bs_bits < 0 ||
+             bs_bits > GEN_BS_MAX_BITS || num_pi < 0 || num_pi > 0xFFFF ||
+             slots >= GEN_MAX_CONSTRAINTS || nconst < const_slots || nconst < (arith_ops ? 2 : 0) ||
+             (nconst > 1 && (consts_stride & 1)) || (nconst && misaligned(consts)) ||
+             (num_pi > 1 && (lr_stride & 1)) || (num_pi && misaligned(lr)) ||
+             (wires_stride & 1) || misaligned(wires) || misaligned(acc0) || misaligned(acc1) ||
+             extra < 0 || stages != wire_stages + (extra + GEN_STAGE_ROWS - 1) / GEN_STAGE_ROWS ||
+             ring < 2 || ring > GEN_STAGES ||
+             (num_pi + stages && !table) || head[3] < 0 || head[3] + nconst > head_rows ||
+             head[4] < 0 || head[4] + num_pi > head_rows || head[5] < 0 ||
+             head[5] + NCH != head_rows;
+  for (int q = 0; q < 3; ++q)
+    bad = bad || present[q] != (sel[q] != nullptr) || (present[q] && misaligned(sel[q])) ||
+          (present[q] ? head[q] < 0 || head[q] >= head_rows : head[q] != -1);
+  if (bad) return (int)cudaErrorInvalidValue;
+  const size_t shared =
+      ((size_t)ring * GEN_STAGE_ROWS * tile + (size_t)head_rows * tile +
+       (size_t)NCH * (num_pi + slots) + num_pi + ring + 1) * sizeof(uint64_t) +
+      (size_t)(ring + 1 + num_pi + stages + 1 + extra) * sizeof(int);
+  if (shared > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(generic_gate_quotient_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  if (err != cudaSuccess) return (int)err;
   GenericArgs g{};
   g.wires = words(wires);
   g.wires_stride = wires_stride;
   g.consts = words(consts);
   g.consts_stride = consts_stride;
-  g.sel_arith = words(sel_arith);
-  g.sel_bs = words(sel_bs);
-  g.sel_const = words(sel_const);
+  for (int q = 0; q < 3; ++q) {
+    g.sel[q] = words(sel[q]);
+    g.h_sel[q] = head[q];
+  }
   g.arith_ops = arith_ops;
   g.bs_bits = bs_bits;
   g.bs_slots = bs_slots;
   g.const_slots = const_slots;
   g.visit = visit;
+  g.nconst = nconst;
   g.lr = words(lr);
   g.lr_stride = lr_stride;
   g.pi = words(pi);
-  g.pi_col = static_cast<const long long*>(pi_col);
   g.num_pi = num_pi;
+  g.table = static_cast<const int*>(table);
+  g.stages = stages;
+  g.extra = extra;
+  g.ring = ring;
   g.alpha[0] = words(alpha0);
   g.alpha[1] = words(alpha1);
   g.pi0 = pi0;
@@ -799,7 +980,20 @@ extern "C" int elp_generic_gate_quotient(const void* wires, long long wires_stri
   g.acc[0] = static_cast<uint64_t*>(acc0);
   g.acc[1] = static_cast<uint64_t*>(acc1);
   g.n_lde = n_lde;
-  generic_gate_quotient_kernel<<<blocks_for(n_lde, threads), threads, shared,
+  g.tiles = n_lde / tile;
+  g.tile = tile;
+  g.head_rows = head_rows;
+  g.h_const = head[3];
+  g.h_lr = head[4];
+  g.h_acc = head[5];
+  if (visit >= GEN_STAGE_ROWS &&
+      (err = (cudaError_t)rows_map(&g.wires_map, wires, visit, n_lde, wires_stride, GEN_STAGE_ROWS,
+                                   tile)))
+    return (int)err;
+  if (num_pi >= GEN_STAGE_ROWS &&
+      (err = (cudaError_t)rows_map(&g.lr_map, lr, num_pi, n_lde, lr_stride, GEN_STAGE_ROWS, tile)))
+    return (int)err;
+  generic_gate_quotient_kernel<<<(unsigned)blocks, tile < 32 ? 32 : tile, shared,
                                  static_cast<cudaStream_t>(stream)>>>(g);
   return (int)cudaGetLastError();
 }

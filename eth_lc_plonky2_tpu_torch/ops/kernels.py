@@ -33,7 +33,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("ntt.cu", "poseidon.cu", "field.cu", "gates.cu")
-HEADERS = ("goldilocks.cuh", "poseidon.cuh")
+HEADERS = ("goldilocks.cuh", "poseidon.cuh", "bulk.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -63,10 +63,22 @@ OPEN_NTILES = 2
 OPEN_KS = 256
 OPEN_CHUNK = 4096
 OPEN_CLASSES = 15
-# csrc/field.cu's permutation terms: PERM_CHALLENGES, PERM_MAX_ROUTED, PERM_MAX_CHUNKS
+# csrc/field.cu's permutation terms: PERM_CHALLENGES, PERM_MAX_ROUTED,
+# PERM_MAX_CHUNKS; persistent blocks (PERM_MIN_BLOCKS an SM) walk tiles of
+# PERM_TILE columns, the rows arriving by bulk copies into a ring of
+# PERM_STAGES stages of PERM_STAGE_ROWS slots (PERM_PAIRS wire and sigma rows
+# and a chain row a challenge)
+# the fewest columns of a tile of the bulk copies' rings: a copy of a 2-D
+# tensor map lands on a 128-byte boundary of shared memory
+MIN_TILE = 16
 PERM_CHALLENGES = 2
 PERM_MAX_ROUTED = 256
 PERM_MAX_CHUNKS = 64
+PERM_TILE = 256
+PERM_PAIRS = 8
+PERM_STAGE_ROWS = 2 * PERM_PAIRS + PERM_CHALLENGES
+PERM_STAGES = 3
+PERM_MIN_BLOCKS = 2
 # csrc/field.cu's Z and partials: perm_z_kernel's block of PERM_Z_THREADS
 # columns, halved while its dynamic shared memory (two words a chunk,
 # challenge and thread) would pass PERM_Z_SHARED_TARGET, two blocks an SM;
@@ -82,12 +94,22 @@ SHA_TILE = 256
 SHA_STAGE_STRIDE = 33
 SHA_MAX_SHARED_BYTES = 227 * 1024
 # csrc/gates.cu's generic gates: fewer than GEN_MAX_CONSTRAINTS constraints a
-# gate, at most GEN_BS_MAX_BITS bits a BaseSum2Gate slot of GEN_BS_STRIDE wires
+# gate, at most GEN_BS_MAX_BITS bits a BaseSum2Gate slot of GEN_BS_STRIDE wires;
+# persistent blocks (GEN_MIN_BLOCKS of GEN_TILE threads an SM) walk tiles of
+# GEN_TILE columns, a tile's head in one slot and its wire rows GEN_STAGE_ROWS
+# a stage in a ring of GEN_STAGES, fewer (down to 2), then narrower tiles (down
+# to GEN_MIN_TILE) where the head would not fit; at most GEN_MAX_SHARED_BYTES of
+# shared memory a block
 GEN_MAX_CONSTRAINTS = 256
 GEN_BS_MAX_BITS = 32
 GEN_BS_STRIDE = 33
 GENERIC_GATES = ("arith", "basesum2", "const")
-GEN_MAX_SHARED_BYTES = 48 * 1024
+GEN_TILE = 256
+GEN_MIN_TILE = 32
+GEN_STAGE_ROWS = 8
+GEN_STAGES = 4
+GEN_MIN_BLOCKS = 2
+GEN_MAX_SHARED_BYTES = 227 * 1024 // GEN_MIN_BLOCKS - 1024
 
 launches = {"ntt": 0, "poseidon": 0, "field": 0, "gates": 0}
 build_info: dict = {}
@@ -160,7 +182,7 @@ def _libraries() -> dict:
                                      ctypes.POINTER(ll), ctypes.POINTER(i32), i32, ll, i32, ll, ll,
                                      vp, ll, vp, vp, vp],
                   "elp_perm_quotient": [vp, ll, vp, ll, vp, ll, vp, vp, vp, vp, vp, vp, vp, ll,
-                                        ll, i32, i32, i32, vp, i32, vp],
+                                        ll, i32, i32, i32, vp, i32, i32, vp],
                   "elp_perm_z": [vp, ll, vp, ll, vp, vp, vp, vp, ll, i32, i32, i32, vp, vp, i32, ll,
                                  ll, ll, i32, vp],
                   "elp_fri_g": [ctypes.POINTER(vp), ctypes.POINTER(ll), ctypes.POINTER(i32),
@@ -173,9 +195,10 @@ def _libraries() -> dict:
                   "elp_poseidon_gate_set_constants": [vp, ll, vp],
                   "elp_poseidon_gate_quotient": [vp, ll, ll, ctypes.POINTER(i32), vp, vp, vp, vp,
                                                  vp, i32, vp],
-                  "elp_generic_gate_quotient": [vp, ll, vp, ll, vp, vp, vp, i32, i32, i32, i32, vp,
-                                                ll, vp, vp, i32, vp, vp, i32, i32, vp, vp, ll, i32,
-                                                vp]},
+                  "elp_generic_gate_quotient": [vp, ll, vp, ll, ctypes.POINTER(vp), i32, i32, i32,
+                                                i32, i32, vp, ll, vp, i32, vp, i32, i32,
+                                                ctypes.POINTER(i32), i32, i32, vp, vp, i32, i32, vp,
+                                                vp, ll, i32, i32, vp]},
     }
     for stem, functions in signatures.items():
         for name, argtypes in functions.items():
@@ -544,26 +567,59 @@ def _field_open_launch(coeffs, z_re, table, point_rows, entries, plan, n) -> lis
             for (rows, kb), at in zip(shapes, plan["out"])]
 
 
+def perm_stage_layout(chunks: int, chunk: int) -> list:
+    """The stages of one tile of ``perm_quotient_kernel``'s ring, in the order
+    the producer fills them: each a list of (slot, source, row), the tile's
+    segment of row ``row`` of ``source`` ("x", "l0", "zs", "wires" or "sigma")
+    copied into slot ``slot``.  The head holds x, l0 and each challenge's Z;
+    chunk k takes ceil(chunk / PERM_PAIRS) stages of wire rows (slot r) and
+    sigma rows (slot PERM_PAIRS + r), its last stage, but for the last
+    chunk's, also each challenge j's chain row k + 1 (Z row j m + 1 + k) in
+    slot 2 PERM_PAIRS + j."""
+    m = chunks
+    layout = [[(0, "x", 0), (1, "l0", 0)]
+              + [(2 + j, "zs", j * m) for j in range(PERM_CHALLENGES)]]
+    per_chunk = -(-chunk // PERM_PAIRS)
+    for k in range(m):
+        for q in range(per_chunk):
+            i0 = q * PERM_PAIRS
+            cols = range(k * chunk + i0, k * chunk + min(chunk, i0 + PERM_PAIRS))
+            stage = ([(r, "wires", c) for r, c in enumerate(cols)]
+                     + [(PERM_PAIRS + r, "sigma", c) for r, c in enumerate(cols)])
+            if q == per_chunk - 1 and k + 1 < m:
+                stage += [(2 * PERM_PAIRS + j, "zs", j * m + 1 + k) for j in range(PERM_CHALLENGES)]
+            layout.append(stage)
+    return layout
+
+
 def perm_quotient_plan(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas: list,
-                       chunk: int, rate_bits: int, window: bool = False) -> dict:
+                       chunk: int, rate_bits: int, window: bool = False, sms: int = 1) -> dict:
     """How ``perm_quotient_kernel`` reads its arguments: checks what it assumes
     and returns the columns, the routed wires, the chunks, the row strides (in
     words) of the wires, the sigma rows and the Z rows, the column offset of
-    the next trace row and how many alpha powers a challenge it reads.
+    the next trace row, how many alpha powers a challenge it reads, and the
+    ring: ``tile`` columns a tile (min(PERM_TILE, n_lde)), ``tiles``, the
+    persistent ``blocks`` (PERM_MIN_BLOCKS on each of the card's ``sms``
+    multiprocessors, at most one a tile), the stages of a tile
+    (``perm_stage_layout``) and the dynamic shared memory.
 
     ``wires`` and ``sigma`` are (routed, n_lde) views with unit column stride
     (rows of the wires' and the preprocessed LDE), ``zs`` the (2 m, n_lde) Z
     rows (Z and its m - 1 partials a challenge), ``x`` and ``l0`` dense
     (n_lde,) rows, ``k_shifts`` (routed,), ``betas`` and ``gammas`` (2,),
-    ``alphas`` one dense row of at least m + 1 powers a challenge.
+    ``alphas`` one dense row of at least m + 1 powers a challenge.  The rows
+    arrive by bulk copies of a tile's segment, so each must start 16-byte
+    aligned (an aligned first word, an even row stride).  A plan that does not
+    hold raises.
 
     ``window``: the columns are a shard's points, views at the first computed
     column of windows whose halo holds Z at the next row (the mask is all
     ones and nothing wraps); otherwise the next row of the last columns
     wraps to the first (mask n_lde - 1)."""
     routed, n_lde = wires.shape if wires.dim() == 2 else (0, 0)
-    if n_lde < 1 or n_lde & (n_lde - 1):
-        raise ValueError(f"perm quotient: wires of shape {tuple(wires.shape)}")
+    if not MIN_TILE <= n_lde <= 1 << 30 or n_lde & (n_lde - 1):
+        raise ValueError(f"perm quotient: wires of shape {tuple(wires.shape)} (a power of two of "
+                         f"{MIN_TILE} to 2^30 columns)")
     if chunk < 1 or routed % chunk or routed > PERM_MAX_ROUTED or routed // chunk > PERM_MAX_CHUNKS:
         raise ValueError(f"perm quotient: {routed} routed wires in chunks of {chunk} (at most "
                          f"{PERM_MAX_ROUTED} wires, {PERM_MAX_CHUNKS} chunks)")
@@ -588,9 +644,22 @@ def perm_quotient_plan(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas:
             raise ValueError(f"perm quotient: {name}'s rows overlap (row stride {t.stride(0)})")
         if t.device != wires.device:
             raise ValueError(f"perm quotient: {name} on {t.device}, the wires on {wires.device}")
-    return {"n_lde": n_lde, "routed": routed, "chunks": m, "wires_stride": wires.stride(0),
-            "sigma_stride": sigma.stride(0), "zs_stride": zs.stride(0), "next": 1 << rate_bits,
-            "alpha_terms": m + 1, "mask": -1 if window else n_lde - 1}
+    strides = {name: t.stride(0) if t.shape[0] > 1 else n_lde
+               for name, t in (("wires", wires), ("sigma", sigma), ("zs", zs))}
+    for name, t in (("wires", wires), ("sigma", sigma), ("zs", zs), ("x", x), ("l0", l0)):
+        if strides.get(name, 0) % 2 or not _aligned(t):
+            raise ValueError(f"perm quotient: {name}'s rows are not 16-byte aligned (row stride "
+                             f"{strides.get(name, '-')}, first word at byte {t.data_ptr() % 16} "
+                             f"of 16)")
+    tile = min(PERM_TILE, n_lde)
+    tiles = n_lde // tile
+    layout = perm_stage_layout(m, chunk)
+    return {"n_lde": n_lde, "routed": routed, "chunks": m, "wires_stride": strides["wires"],
+            "sigma_stride": strides["sigma"], "zs_stride": strides["zs"], "next": 1 << rate_bits,
+            "alpha_terms": m + 1, "mask": -1 if window else n_lde - 1, "tile": tile,
+            "tiles": tiles, "blocks": min(tiles, PERM_MIN_BLOCKS * max(1, sms)), "layout": layout,
+            "shared_bytes": (PERM_STAGES * PERM_STAGE_ROWS * tile + 2 * routed + PERM_STAGES) * 8
+            + 4 * PERM_STAGES}
 
 
 def perm_quotient(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas: list, chunk: int,
@@ -605,17 +674,22 @@ def perm_quotient(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas: list
     for j, a in enumerate(alphas):
         _check(a, f"alpha row {j}")
     plan = perm_quotient_plan(wires, sigma, zs, x, l0, k_shifts, betas, gammas, alphas, chunk,
-                              rate_bits, window)
+                              rate_bits, window, _sms(wires))
     out = torch.empty((PERM_CHALLENGES, plan["n_lde"]), dtype=torch.int64, device=wires.device)
     err = _libraries()["field"].elp_perm_quotient(
         wires.data_ptr(), plan["wires_stride"], sigma.data_ptr(), plan["sigma_stride"],
         zs.data_ptr(), plan["zs_stride"], x.data_ptr(), l0.data_ptr(), k_shifts.data_ptr(),
         betas.data_ptr(), gammas.data_ptr(), alphas[0].data_ptr(), alphas[1].data_ptr(),
-        plan["n_lde"], plan["mask"], rate_bits, plan["routed"], chunk, out.data_ptr(), FIELD_THREADS,
-        _stream(wires))
+        plan["n_lde"], plan["mask"], rate_bits, plan["routed"], chunk, out.data_ptr(), plan["tile"],
+        plan["blocks"], _stream(wires))
     launches["field"] += 1
     _raise_on(err, "perm quotient")
     return out
+
+
+def _sms(t: torch.Tensor) -> int:
+    """The multiprocessors of the card that holds ``t``."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def perm_z_plan(routed: int, n: int, chunk: int, challenges: int) -> dict:
@@ -983,25 +1057,46 @@ def fri_fold(re, im, w_inv, scale: int, half: int, beta) -> tuple:
 
 
 def generic_gate_plan(gates: list, wires_lde, pre_lde, num_sel: int, num_constants: int, lr,
-                      pi_f, pi_cols, apows: list, accs: list, pi0: int, k0: int) -> dict:
+                      pi_f, pi_cols, apows: list, accs: list, pi0: int, k0: int,
+                      sms: int = 1) -> dict:
     """How ``generic_gate_quotient_kernel`` is launched: checks what it
-    assumes and returns its parameters.
+    assumes and returns its parameters and its layout.
 
     ``gates`` are the circuit's (index, gate) pairs of the generic gates with
     constraints (``GENERIC_GATES``, each at most once); ``wires_lde`` the
     (num_wires, n_lde) LDE; ``pre_lde`` the preprocessed LDE (selector gi at
     row gi, constant column i at row num_sel + i); ``lr`` the (num_pi, n_lde)
     Lagrange rows, ``pi_f`` the public inputs and ``pi_cols`` their wire
-    columns; ``apows`` one row of alpha powers a challenge, read at pi0 + i
-    (public input i) and k0 + k (constraint k of a gate); ``accs`` one
-    (n_lde,) accumulator a challenge, updated in place."""
+    columns (a 1-D int64 tensor, read on the host: on the card it costs a
+    synchronize); ``apows`` one row of alpha powers a challenge, read at pi0 +
+    i (public input i) and k0 + k (constraint k of a gate); ``accs`` one
+    (n_lde,) accumulator a challenge, updated in place.
+
+    The layout: a tile of ``tile`` columns takes a head of ``head_rows``
+    rows (``h_sel``: each gate's selector, -1 for an absent gate; from
+    ``h_const`` the ``nconst`` constant rows the gates read, from ``h_lr``
+    the Lagrange rows, from ``h_acc`` the accumulators) and ``stages`` wire
+    stages of GEN_STAGE_ROWS rows through a ring of ``ring`` of them:
+    ``stage_cols[s]`` the columns stage s holds, the ``visit`` columns in
+    order, then the ``extra`` columns of public inputs at or past ``visit``
+    (each once, ascending).  The tile is GEN_TILE (at most n_lde) columns and
+    the ring GEN_STAGES deep; where the shared memory would pass
+    GEN_MAX_SHARED_BYTES the ring gets shallower, down to 2, then the tile
+    narrower, down to GEN_MIN_TILE; a block is ``threads`` = max(32, tile)
+    threads, ``blocks`` of them.
+    ``pi_place[i]`` is (stage, slot) of public input i's wire; ``table`` the
+    ints the kernel reads: the public inputs in stage order (i | slot << 16),
+    each stage's first entry in it (stages + 1), the extra columns.  Every
+    row must start 16-byte aligned (an aligned first word, an even row
+    stride).  A plan that does not hold raises."""
     what = "generic gates"
     _rows_view(wires_lde, wires_lde.shape[1] if wires_lde.dim() == 2 else 0, wires_lde.device,
                "wires_lde", what)
     num_wires, n_lde = wires_lde.shape
     dev = wires_lde.device
-    if n_lde < 1:
-        raise ValueError(f"{what}: wires of shape {tuple(wires_lde.shape)}")
+    if not MIN_TILE <= n_lde <= 1 << 30 or n_lde & (n_lde - 1):
+        raise ValueError(f"{what}: wires of shape {tuple(wires_lde.shape)} (a power of two of "
+                         f"{MIN_TILE} to 2^30 columns)")
     _rows_view(pre_lde, n_lde, dev, "pre_lde", what)
     params = {"arith": None, "basesum2": None, "const": None}
     for gi, g in gates:
@@ -1040,7 +1135,11 @@ def generic_gate_plan(gates: list, wires_lde, pre_lde, num_sel: int, num_constan
     if num_pi:
         _rows_view(lr, n_lde, dev, "lr", what)
     _dense_row(pi_f, num_pi, dev, "pi_f", what)
-    _dense_row(pi_cols, num_pi, dev, "pi_cols", what)
+    if pi_cols.dtype != torch.int64 or pi_cols.device.type not in ("cpu", dev.type):
+        raise ValueError(f"{what}: pi_cols as {pi_cols.dtype} on {pi_cols.device}")
+    cols = [int(c) for c in pi_cols.tolist()]
+    if any(not 0 <= c < num_wires for c in cols) or num_pi > 0xFFFF:
+        raise ValueError(f"{what}: public-input columns {cols} of {num_wires} wires")
     if len(apows) != GATES_CHALLENGES or len(accs) != GATES_CHALLENGES:
         raise ValueError(f"{what}: {len(apows)} alpha rows and {len(accs)} accumulators, the "
                          f"kernel takes {GATES_CHALLENGES} challenges")
@@ -1050,41 +1149,97 @@ def generic_gate_plan(gates: list, wires_lde, pre_lde, num_sel: int, num_constan
             raise ValueError(f"{what}: alpha row {j} of {a.shape[0]} powers, the kernel reads "
                              f"{pi0}..{pi0 + num_pi} and {k0}..{k0 + slots}")
         _dense_row(acc, n_lde, dev, f"acc {j}", what)
-    shared = (GATES_CHALLENGES * (num_pi + slots) + num_pi) * 8
-    if shared > GEN_MAX_SHARED_BYTES:
-        raise ValueError(f"{what}: {num_pi} public inputs and {slots} slots need {shared} bytes "
-                         f"of shared memory")
+    rows = [("wires_lde", wires_lde), ("pre_lde", pre_lde), *([("lr", lr)] if num_pi else []),
+            *((f"acc {j}", a) for j, a in enumerate(accs))]
+    for name, t in rows:
+        stride = t.stride(0) if t.dim() == 2 and t.shape[0] > 1 else n_lde
+        if stride % 2 or not _aligned(t):
+            raise ValueError(f"{what}: {name}'s rows are not 16-byte aligned (row stride {stride}, "
+                             f"first word at byte {t.data_ptr() % 16} of 16)")
+    # the head, and the wire stages with the public inputs' places
+    visit = max(4 * arith_ops, GEN_BS_STRIDE * bs_slots, const_slots)
+    nconst = max(2 if arith_ops else 0, const_slots)
+    h_sel, at = [], 0
+    for name in GENERIC_GATES:
+        h_sel.append(at if params[name] else -1)
+        at += 1 if params[name] else 0
+    h_const, h_lr = at, at + nconst
+    h_acc = h_lr + num_pi
+    head_rows = h_acc + GATES_CHALLENGES
+    extra = sorted({c for c in cols if c >= visit})
+    stage_cols = ([list(range(w0, min(visit, w0 + GEN_STAGE_ROWS)))
+                   for w0 in range(0, visit, GEN_STAGE_ROWS)]
+                  + [extra[e0 : e0 + GEN_STAGE_ROWS] for e0 in range(0, len(extra), GEN_STAGE_ROWS)])
+    wire_stages = -(-visit // GEN_STAGE_ROWS)
+    pi_place = [divmod(c, GEN_STAGE_ROWS) if c < visit else
+                (wire_stages + extra.index(c) // GEN_STAGE_ROWS, extra.index(c) % GEN_STAGE_ROWS)
+                for c in cols]
+    order = sorted(range(num_pi), key=lambda i: (pi_place[i], i))
+    first = [sum(1 for i in order if pi_place[i][0] < s) for s in range(len(stage_cols) + 1)]
+    table = [i | pi_place[i][1] << 16 for i in order] + first + extra
+
+    def shared(t, ring):
+        return ((ring * GEN_STAGE_ROWS * t + head_rows * t
+                 + GATES_CHALLENGES * (num_pi + slots) + num_pi + ring + 1) * 8
+                + 4 * (ring + 1 + len(table)))
+
+    tile, ring = min(GEN_TILE, n_lde), GEN_STAGES
+    while shared(tile, ring) > GEN_MAX_SHARED_BYTES and (ring > 2 or tile > GEN_MIN_TILE):
+        if ring > 2:
+            ring -= 1
+        else:
+            tile, ring = tile // 2, GEN_STAGES
+    if shared(tile, ring) > GEN_MAX_SHARED_BYTES:
+        raise ValueError(f"{what}: {num_pi} public inputs and {slots} slots need "
+                         f"{shared(tile, ring)} bytes of shared memory at {tile} columns a tile")
+    tiles, threads = n_lde // tile, max(32, tile)
+    # blocks an SM: as many as GEN_MIN_BLOCKS of GEN_TILE threads, as the
+    # shared memory allows (an SM's 228 KB, 1 KB of it reserved a block)
+    per_sm = max(1, min(GEN_MIN_BLOCKS * GEN_TILE // threads,
+                        228 * 1024 // (shared(tile, ring) + 1024)))
     return {"n_lde": n_lde, "wires_stride": wires_lde.stride(0), "consts_stride": pre_lde.stride(0),
             "sel": {name: p[0] for name, p in params.items() if p}, "arith_ops": arith_ops,
             "bs_bits": bs_bits, "bs_slots": bs_slots, "const_slots": const_slots,
-            "visit": max(4 * arith_ops, GEN_BS_STRIDE * bs_slots, const_slots), "slots": slots,
-            "num_pi": num_pi, "lr_stride": lr.stride(0) if num_pi > 1 else n_lde,
-            "shared_bytes": shared}
+            "visit": visit, "slots": slots, "num_pi": num_pi,
+            "lr_stride": lr.stride(0) if num_pi > 1 else n_lde, "nconst": nconst,
+            "h_sel": h_sel, "h_const": h_const, "h_lr": h_lr, "h_acc": h_acc,
+            "head_rows": head_rows, "stage_cols": stage_cols, "stages": len(stage_cols),
+            "extra": extra, "pi_place": pi_place, "table": table, "tile": tile, "tiles": tiles,
+            "ring": ring, "threads": threads, "blocks": min(tiles, per_sm * max(1, sms)),
+            "shared_bytes": shared(tile, ring)}
+
+
+@functools.lru_cache(maxsize=64)
+def _int_table(values: tuple, device: str) -> torch.Tensor:
+    """The ints of a plan's table on the card, uploaded once a layout."""
+    return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 def generic_gate_quotient(gates: list, wires_lde, pre_lde, num_sel: int, num_constants: int, lr,
                           pi_f, pi_cols, apows: list, accs: list, pi0: int, k0: int) -> None:
     """Launch ``generic_gate_quotient_kernel``: accs[j] += sum_i
     apows[j][pi0 + i] lr_i (w_{c_i} - pi_i) + sum over the generic gates of
-    sel * sum_k apows[j][k0 + k] C_k, in place (see ``generic_gate_plan``)."""
+    sel * sum_k apows[j][k0 + k] C_k, in place (see ``generic_gate_plan``;
+    ``pi_cols`` is read on the host, so the prover keeps it there)."""
     for t, name in ((wires_lde, "wires_lde"), (pre_lde, "pre_lde"), (lr, "lr"), (pi_f, "pi_f"),
-                    (pi_cols, "pi_cols"), *((a, f"alpha row {j}") for j, a in enumerate(apows)),
+                    *((a, f"alpha row {j}") for j, a in enumerate(apows)),
                     *((a, f"acc {j}") for j, a in enumerate(accs))):
         _check(t, name)
     plan = generic_gate_plan(gates, wires_lde, pre_lde, num_sel, num_constants, lr, pi_f, pi_cols,
-                             apows, accs, pi0, k0)
+                             apows, accs, pi0, k0, _sms(wires_lde))
     if not gates and not plan["num_pi"]:
         return  # nothing to add
-
-    def sel(name):
-        return pre_lde[plan["sel"][name]].data_ptr() if name in plan["sel"] else None
-
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    sel = (vp * 3)(*[pre_lde[plan["sel"][name]].data_ptr() if name in plan["sel"] else None
+                     for name in GENERIC_GATES])
+    head = (i32 * 6)(*plan["h_sel"], plan["h_const"], plan["h_lr"], plan["h_acc"])
+    table = _int_table(tuple(plan["table"]), str(wires_lde.device))
     err = _libraries()["gates"].elp_generic_gate_quotient(
         wires_lde.data_ptr(), plan["wires_stride"], pre_lde[num_sel].data_ptr(),
-        plan["consts_stride"], sel("arith"), sel("basesum2"), sel("const"), plan["arith_ops"],
-        plan["bs_bits"], plan["bs_slots"], plan["const_slots"], lr.data_ptr(), plan["lr_stride"],
-        pi_f.data_ptr(), pi_cols.data_ptr(), plan["num_pi"], apows[0].data_ptr(),
-        apows[1].data_ptr(), pi0, k0, accs[0].data_ptr(), accs[1].data_ptr(), plan["n_lde"],
-        GATES_THREADS, _stream(wires_lde))
+        plan["consts_stride"], sel, plan["arith_ops"], plan["bs_bits"], plan["bs_slots"],
+        plan["const_slots"], plan["nconst"], lr.data_ptr(), plan["lr_stride"], pi_f.data_ptr(),
+        plan["num_pi"], table.data_ptr(), plan["stages"], len(plan["extra"]), head,
+        plan["head_rows"], plan["ring"], apows[0].data_ptr(), apows[1].data_ptr(), pi0, k0, accs[0].data_ptr(),
+        accs[1].data_ptr(), plan["n_lde"], plan["tile"], plan["blocks"], _stream(wires_lde))
     launches["gates"] += 1
     _raise_on(err, "generic gates")

@@ -465,10 +465,11 @@ def make_quotient_values(pd: ProverData, window: tuple | None = None):
     lr_rows = [gl.mul(gl.mul(zh, inv_all[2 + k]), scalar_f((wr * n_inv) % P, dev))
                for k, wr in enumerate(pi_roots)]
     # the public inputs' Lagrange rows as one (num_pi, n_lde) table, and their
-    # wire columns, for the generic gates' kernel
+    # wire columns, for the generic gates' kernel (on the host, where its plan
+    # places them)
     lr_rows = torch.stack(lr_rows) if lr_rows else gl.zeros((0, n_lde), dev)
     pi_cols_host = [t.col for t in data.public_input_targets]
-    pi_cols = torch.tensor(pi_cols_host, dtype=torch.int64, device=dev)
+    pi_cols = torch.tensor(pi_cols_host, dtype=torch.int64)
     del denoms, inv_all
     ks_dev = gl.from_u64(np.asarray(data.k_shifts[:nr], dtype=np.uint64), dev)
     A = DeviceBaseAlgebra((n_lde,), dev)

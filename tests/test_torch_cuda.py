@@ -258,36 +258,65 @@ def test_field_open_table_kernel_matches_plain(dev, n):
     assert torch.equal(got, prove.open_table_plain(z_re, z_im, n))
 
 
-@pytest.mark.parametrize("log_n_lde", [7, 12, 15])
-def test_perm_quotient_kernel_matches_plain(dev, log_n_lde):
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("log_n_lde", [7, 12, 15, 21])
+def test_perm_quotient_kernel_matches_plain(dev, log_n_lde, window):
     """perm_quotient_kernel against the plain permutation terms on the card:
     80 routed rows of a 184-row LDE, 80 sigma rows of a 92-row preprocessed
     LDE (real row strides), random and edge words; at 2^7 the next row of
-    every column in the last 2^3 wraps to the start."""
+    every column in the last 2^3 wraps to the start; 2^21 is the main path's.
+    The window form: rank 0's half of the domain, on views at the halo's
+    offset of windows whose halo holds the next row, against the plain
+    version on the whole window cut to the middle."""
     import chip_smoke
 
     inputs = chip_smoke.perm_inputs(np.random.default_rng(log_n_lde), log_n_lde)
     before = kernels.launches["field"]
-    got = chip_smoke.perm_terms(inputs)
+    if not window:
+        got = chip_smoke.perm_terms(inputs)
+        assert kernels.launches["field"] == before + 1
+        assert torch.equal(got, chip_smoke.perm_terms(inputs, plain=True))
+        return
+    width = (1 << log_n_lde) // 2
+    h = min(chip_smoke.WINDOW_HALO, width)
+    w_all, sigma, zs, x, l0 = (chip_smoke.windows_of(t, 0, width, h) for t in inputs[:5])
+    mid = slice(h, h + width)
+    got = kernels.perm_quotient(w_all[:, mid], sigma[:, mid], zs[:, mid], x[mid], l0[mid],
+                                *inputs[5:], window=True)
     assert kernels.launches["field"] == before + 1
-    assert torch.equal(got, chip_smoke.perm_terms(inputs, plain=True))
+    want = chip_smoke.on_plain(lambda: prove.perm_quotient_terms_plain(w_all, sigma, zs, x, l0,
+                                                                      *inputs[5:]))
+    assert torch.equal(got, torch.stack(want)[:, mid])
 
 
-@pytest.mark.parametrize("log_n_lde", [7, 12, 21])
-def test_generic_gate_kernel_matches_plain(dev, log_n_lde):
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("log_n_lde,past_visit,num_pi", [(7, 0, 12), (7, 3, 12), (12, 3, 16),
+                                                        (12, 3, 64), (21, 0, 12), (21, 0, 16)])
+def test_generic_gate_kernel_matches_plain(dev, log_n_lde, past_visit, num_pi, window):
     """generic_gate_quotient_kernel against the plain generic loop with the
-    public inputs on the card: phase 7's gates and 12 public inputs, rows of a
-    (184, n_lde) wires LDE and a (92, n_lde) preprocessed LDE, random and edge
-    words; the accumulators are updated in place."""
+    public inputs on the card: phase 7's gates and 12, 16 (the flagship's: a
+    ring of 3 stages) or 64 (tiles of 128 columns) public inputs (some at
+    columns past the 80 the gates visit, two of those in one column), rows of
+    a (184, n_lde) wires LDE and a (92, n_lde) preprocessed LDE, random and
+    edge words; the accumulators are updated in place.  The window form:
+    views at the halo's offset of rank 0's windows."""
     import chip_smoke
 
-    inp = chip_smoke.generic_inputs(np.random.default_rng(log_n_lde), 1 << log_n_lde)
+    inp = chip_smoke.generic_inputs(np.random.default_rng(log_n_lde), 1 << log_n_lde, past_visit,
+                                    num_pi)
     want = chip_smoke.generic_terms(inp, "plain")
-    before = dict(kernels.launches)
     accs = [a.clone() for a in inp["accs"]]
-    kernels.generic_gate_quotient(inp["generic"], inp["wires"], inp["pre"], inp["num_sel"],
-                                  inp["num_con"], inp["lr"], inp["pi"], inp["pi_cols"],
-                                  inp["apows"], accs, inp["pi0"], inp["k0"])
+    wires, pre, lr = inp["wires"], inp["pre"], inp["lr"]
+    if window:
+        width = (1 << log_n_lde) // 2
+        h = min(chip_smoke.WINDOW_HALO, width)
+        mid = slice(h, h + width)
+        wires, pre, lr = (chip_smoke.windows_of(t, 0, width, h)[:, mid] for t in (wires, pre, lr))
+        want, accs = want[:, :width], [a[:width].clone() for a in accs]
+    before = dict(kernels.launches)
+    kernels.generic_gate_quotient(inp["generic"], wires, pre, inp["num_sel"], inp["num_con"], lr,
+                                  inp["pi"], inp["pi_cols"], inp["apows"], accs, inp["pi0"],
+                                  inp["k0"])
     assert kernels.launches["gates"] == before["gates"] + 1
     assert kernels.launches["field"] == before["field"]
     assert torch.equal(torch.stack(accs), want)

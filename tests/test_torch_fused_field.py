@@ -19,6 +19,7 @@ import torch
 
 from eth_lc_plonky2_tpu.circuit import builder as jbuilder
 from eth_lc_plonky2_tpu.ops import goldilocks as jgl
+from eth_lc_plonky2_tpu.ops import ntt as jntt
 from eth_lc_plonky2_tpu.prover import config as jconfig
 from eth_lc_plonky2_tpu.prover import prove as jpr
 from eth_lc_plonky2_tpu_torch.circuit import builder
@@ -366,9 +367,13 @@ def _perm_args(n_lde=64, num_wires=24, num_pre=30, sigma_at=6, seed=0):
 def test_perm_quotient_plan_gives_strides_roll_and_alpha_terms():
     args = _perm_args(n_lde=64, num_wires=24, num_pre=30, sigma_at=6)
     plan = kernels.perm_quotient_plan(*args)
-    assert plan == {"n_lde": 64, "routed": NR, "chunks": NR // CS, "wires_stride": 64,
-                    "sigma_stride": 64, "zs_stride": 64, "next": 1 << RATE, "alpha_terms": 5,
-                    "mask": 63}
+    assert {k: v for k, v in plan.items() if k != "layout"} == {
+        "n_lde": 64, "routed": NR, "chunks": NR // CS, "wires_stride": 64, "sigma_stride": 64,
+        "zs_stride": 64, "next": 1 << RATE, "alpha_terms": 5, "mask": 63, "tile": 64, "tiles": 1,
+        "blocks": 1, "shared_bytes": (kernels.PERM_STAGES * kernels.PERM_STAGE_ROWS * 64
+                                      + 2 * NR + kernels.PERM_STAGES) * 8
+                       + 4 * kernels.PERM_STAGES}
+    assert plan["layout"] == kernels.perm_stage_layout(NR // CS, CS)
     # the window form (a shard's points): the next row is read unwrapped
     assert kernels.perm_quotient_plan(*args, window=True)["mask"] == -1
     # sigma is read in place: its first word is word 6 * 64 of the preprocessed LDE
@@ -406,7 +411,8 @@ def test_perm_terms_plain_reads_alpha_powers_0_to_m():
 
 PLAN_FAULTS = ["chunks do not divide", "too many routed", "one challenge", "three challenges",
                "short alpha row", "strided columns", "overlapping rows", "zs rows",
-               "n_lde not a power of two", "int32 x"]
+               "n_lde not a power of two", "int32 x", "wires at an odd word offset",
+               "odd sigma row stride", "l0 at an odd word offset", "one column"]
 
 
 @pytest.mark.parametrize("fault", PLAN_FAULTS)
@@ -435,8 +441,160 @@ def test_perm_quotient_plan_refuses(fault):
         args = _perm_args(n_lde=48)
     elif fault == "int32 x":
         args[3] = args[3].to(torch.int32)
+    elif fault == "wires at an odd word offset":  # a bulk copy needs 16-byte aligned rows
+        args[0] = gl.from_u64(_rand((NR, 65), 1))[:, 1:]
+    elif fault == "odd sigma row stride":
+        args[1] = gl.from_u64(_rand((NR, 65), 1))[:, :64]
+    elif fault == "l0 at an odd word offset":
+        args[4] = gl.from_u64(_rand((65,), 1))[1:]
+    elif fault == "one column":
+        args = _perm_args(n_lde=1)
     with pytest.raises(ValueError):
         kernels.perm_quotient_plan(*args)
+    if fault in ("wires at an odd word offset", "odd sigma row stride"):
+        # the same rows, aligned, are taken
+        args[0], args[1] = (gl.from_u64(_rand((NR, 66), 1))[:, 2:], gl.from_u64(_rand((NR, 66), 1))[:, :64])
+        kernels.perm_quotient_plan(*args)
+
+
+def _jax_perm_terms(w_all, sigma_all, zs, x, l0, ks, betas, gammas, apows, cs: int, rate: int):
+    """The JAX package's permutation terms (eth_lc_plonky2_tpu/prover/prove.py:457-481)
+    on its own field ops, as one (2, n_lde) host array: the same chain, chunk
+    products and alpha weights, on numpy words."""
+    J = lambda a: jgl.from_u64(np.ascontiguousarray(a, dtype=np.uint64))  # noqa: E731
+    nr, n_lde = w_all.shape
+    m = nr // cs
+    out = []
+    for j in range(2):
+        acc = jgl.zeros((n_lde,))
+
+        def absorb(idx, t):
+            return jgl.add(acc, jgl.mul(J(np.full(n_lde, apows[j][idx])), t))
+
+        z = J(zs[j * m])
+        chain = [z] + [J(zs[j * m + 1 + k]) for k in range(m - 1)] + [jntt.roll_lde(z, 1, rate)]
+        acc = absorb(0, jgl.mul(J(l0), jgl.sub(z, jgl.ones((n_lde,)))))
+        beta, gamma = J(np.full((cs, n_lde), betas[j])), J(np.full((cs, n_lde), gammas[j]))
+        for k in range(m):
+            sl = slice(k * cs, (k + 1) * cs)
+            id_k = jgl.mul(J(np.broadcast_to(ks[sl, None], (cs, n_lde))),
+                           J(np.broadcast_to(x[None, :], (cs, n_lde))))
+            n_k = jgl.add(jgl.add(J(w_all[sl]), jgl.mul(beta, id_k)), gamma)
+            d_k = jgl.add(jgl.add(J(w_all[sl]), jgl.mul(beta, J(sigma_all[sl]))), gamma)
+            acc = absorb(1 + k, jgl.sub(jgl.mul(chain[k + 1], jntt.prod_field(d_k, axis=0)),
+                                        jgl.mul(chain[k], jntt.prod_field(n_k, axis=0))))
+        out.append(jgl.to_u64(acc))
+    return np.stack(out)
+
+
+def _perm_ring_walk(plan, src: dict, h: int, apows, ks, betas, gammas, chunk: int):
+    """perm_quotient_kernel on host integers, as the plan lays it out: every
+    block's producer fills the ring stage by stage (``plan["layout"]``, the
+    tile's segment of each row, of the (rows, columns) host arrays ``src``
+    whose computed columns start at ``h``: the window form's halo, 0 for the
+    one-device form); every consumer thread (a column) takes its words from
+    the stages in the order the kernel walks them, only Z at the next row
+    from the array.  Returns the (2, n_lde) words and reads[(source, row)],
+    how often each column of that row was taken from a stage."""
+    n_lde, tile, m = plan["n_lde"], plan["tile"], plan["chunks"]
+    per_chunk = -(-chunk // kernels.PERM_PAIRS)
+    reads = {}
+    out = np.zeros((2, n_lde), dtype=np.uint64)
+    beta_k = [[int(b) * int(k) % P for k in ks] for b in betas]
+    for b in range(plan["blocks"]):
+        ring = []  # the producer: one dict slot -> segment a stage, in order
+        for tl in range(b, plan["tiles"], plan["blocks"]):
+            c0 = h + tl * tile
+            for stage in plan["layout"]:
+                ring.append({slot: src[name][row, c0 : c0 + tile] for slot, name, row in stage})
+                for _, name, row in stage:
+                    cnt = reads.setdefault((name, row), np.zeros(n_lde, dtype=np.int64))
+                    cnt[tl * tile : (tl + 1) * tile] += 1
+        it = 0
+        for tl in range(b, plan["tiles"], plan["blocks"]):
+            head = ring[it]
+            for xt in range(tile):
+                x = tl * tile + xt
+                xn = x + plan["next"] if plan["mask"] == -1 else (x + plan["next"]) & plan["mask"]
+                xv, l0 = int(head[0][xt]), int(head[1][xt])
+                for j in range(2):
+                    a = [int(v) for v in apows[j]]
+                    prev = int(head[2 + j][xt])
+                    acc = a[0] * (l0 * prev - l0)  # one column sum: alpha_0 l0 (Z - 1), then
+                    for k in range(m):  # alpha_{k+1} (chain[k+1] den_k - chain[k] num_k)
+                        num = den = 1
+                        for q in range(per_chunk):
+                            stage = ring[it + 1 + k * per_chunk + q]
+                            for r in range(min(kernels.PERM_PAIRS, chunk - q * kernels.PERM_PAIRS)):
+                                w, sg = int(stage[r][xt]), int(stage[kernels.PERM_PAIRS + r][xt])
+                                col = k * chunk + q * kernels.PERM_PAIRS + r
+                                num = num * (w + beta_k[j][col] * xv + int(gammas[j])) % P
+                                den = den * (w + int(betas[j]) * sg + int(gammas[j])) % P
+                        nxt = (int(stage[2 * kernels.PERM_PAIRS + j][xt]) if k + 1 < m
+                               else int(src["zs"][j * m, h + xn]))
+                        acc += a[1 + k] * (nxt * den - prev * num)
+                        prev = nxt
+                    out[j, x] = acc % P
+            it += len(plan["layout"])
+        assert it == len(ring)
+    return out, reads
+
+
+# (routed, chunk, n_lde, sms, window): the flagship's 80 routed wires in
+# chunks of 8 at 2^7 (one tile, the next row of the last 2^3 columns
+# wrapping); 16 in chunks of 4 on 2^10 (tiles of 256, the next row across a
+# tile's edge, three blocks for four tiles); chunks of 16 (two stages a
+# chunk); the window form on a shard's 2^8 of 2^9 points (halo 16)
+PERM_WALKS = [(80, 8, 1 << 7, 132, False), (16, 4, 1 << 10, 3, False), (32, 16, 1 << 8, 1, False),
+              (16, 4, 1 << 8, 2, True)]
+
+
+@pytest.mark.parametrize("routed,chunk,n_lde,sms,window", PERM_WALKS)
+def test_perm_ring_walk_equals_the_plain_version_and_the_jax_packages(routed, chunk, n_lde, sms,
+                                                                       window):
+    """The kernel's ring, walked on the host from the plan's stage layout:
+    every wire, sigma and Z row, x and l0 is taken from a stage exactly once
+    a column (Z at the next row from the array), and the words equal the
+    plain version's and the JAX package's, exactly."""
+    m = routed // chunk
+    h = 16 if window else 0
+    width = n_lde + 2 * h  # the window's columns: halos on both sides
+    rng = np.random.default_rng(routed + n_lde)
+    src = {"wires": rng.integers(0, P, size=(routed, width), dtype=np.uint64),
+           "sigma": rng.integers(0, P, size=(routed, width), dtype=np.uint64),
+           "zs": rng.integers(0, P, size=(2 * m, width), dtype=np.uint64),
+           "x": rng.integers(0, P, size=(1, width), dtype=np.uint64),
+           "l0": rng.integers(0, P, size=(1, width), dtype=np.uint64)}
+    for a in src.values():
+        a[:, : len(EDGE)] = EDGE
+        a[:, -len(EDGE):] = EDGE[::-1]
+    ks = rng.integers(0, P, size=routed, dtype=np.uint64)
+    bg = rng.integers(0, P, size=(2, 2), dtype=np.uint64)
+    bg[1, 1] = P - 1
+    apows = rng.integers(0, P, size=(2, m + 1), dtype=np.uint64)
+    t = {k: gl.from_u64(v) for k, v in src.items()}
+    mid = slice(h, h + n_lde)
+    plan = kernels.perm_quotient_plan(
+        t["wires"][:, mid], t["sigma"][:, mid], t["zs"][:, mid], t["x"][0, mid], t["l0"][0, mid],
+        gl.from_u64(ks), gl.from_u64(bg[0]), gl.from_u64(bg[1]), [gl.from_u64(a) for a in apows],
+        chunk, RATE, window, sms)
+    assert plan["tile"] == min(kernels.PERM_TILE, n_lde) and plan["tiles"] * plan["tile"] == n_lde
+    assert plan["blocks"] == min(plan["tiles"], kernels.PERM_MIN_BLOCKS * sms)
+    assert all(len(s) <= kernels.PERM_STAGE_ROWS and len({q for q, _, _ in s}) == len(s)
+               for s in plan["layout"])
+    got, reads = _perm_ring_walk(plan, src, h, apows, ks, bg[0], bg[1], chunk)
+    want_rows = ([("wires", i) for i in range(routed)] + [("sigma", i) for i in range(routed)]
+                 + [("zs", i) for i in range(2 * m)] + [("x", 0), ("l0", 0)])
+    assert sorted(reads) == sorted(want_rows) and all((c == 1).all() for c in reads.values())
+    # the plain version and the JAX package on the whole window, cut to the middle
+    # (the one-device form: the window is the domain, and the next row wraps)
+    args = (t["wires"], t["sigma"], t["zs"], t["x"][0], t["l0"][0], gl.from_u64(ks),
+            gl.from_u64(bg[0]), gl.from_u64(bg[1]), [gl.from_u64(a) for a in apows], chunk, RATE)
+    plain = np.stack([gl.to_u64(a) for a in pr.perm_quotient_terms_plain(*args)])[:, mid]
+    assert np.array_equal(got, plain)
+    jax = _jax_perm_terms(src["wires"], src["sigma"], src["zs"], src["x"][0], src["l0"][0], ks,
+                          bg[0], bg[1], apows, chunk, RATE)
+    assert np.array_equal(got, jax[:, mid])
 
 
 def test_fused_wrappers_raise_on_cpu_tensors():

@@ -195,32 +195,44 @@ def test_generic_quotient_plain_skips_the_gates_with_their_own_kernels():
 
 def _emulate_generic_kernel(plan, inp, x: int, reads: list | None = None) -> list:
     """generic_gate_quotient_kernel for column x, as csrc/gates.cu computes
-    it, on host integers: the shared alpha layout, the public inputs, the one
-    pass over the wire columns with each word given to every gate that reads
-    it, the selectors, and acc_j + total_j.  ``reads`` collects the wire
-    columns the pass loads, in order."""
-    num_pi, slots, num_sel = plan["num_pi"], plan["slots"], inp["num_sel"]
+    it, on host integers, from the plan's layout: the shared alpha layout; the
+    tile's head (each row checked against the argument it copies); the wire
+    stages in order (``stage_cols``: the visited columns, then the extra
+    ones), each stage's words given to every gate that reads them and then to
+    the public inputs the table places in it (wire from the stage's slot,
+    Lagrange row from the head); the selectors, and acc_j + total_j.
+    ``reads`` collects the wire columns the stages hold, in order."""
+    num_pi, slots, num_sel, stages = plan["num_pi"], plan["slots"], inp["num_sel"], plan["stages"]
     per = num_pi + slots
     alpha = [[int(inp["apows"][j][inp["pi0"] + t]) if t < num_pi
               else int(inp["apows"][j][inp["k0"] + t - num_pi]) for t in range(per)]
              for j in range(2)]
     ak = [row[num_pi:] for row in alpha]
-    w_at = lambda w: int(inp["wires"][w, x])  # noqa: E731
-    total = [0, 0]
+    # the head: one word a row at column x
+    head = {}
+    for q, name in enumerate(kernels.GENERIC_GATES):
+        if plan["h_sel"][q] >= 0:
+            head[plan["h_sel"][q]] = int(inp["pre"][plan["sel"][name], x])
+    for i in range(plan["nconst"]):
+        head[plan["h_const"] + i] = int(inp["pre"][num_sel + i, x])
     for i in range(num_pi):
-        t = int(inp["lr"][i, x]) * (w_at(int(inp["pi_cols"][i])) - int(inp["pi"][i])) % P
-        for j in range(2):
-            total[j] = (total[j] + alpha[j][i] * t) % P
-    consts = lambda i: int(inp["pre"][num_sel + i, x])  # noqa: E731
-    c0, c1 = consts(0), consts(1)
-    arith, bs, cst = [0, 0], [0, 0], [0, 0]
+        head[plan["h_lr"] + i] = int(inp["lr"][i, x])
+    for j in range(2):
+        head[plan["h_acc"] + j] = int(inp["accs"][j][x])
+    assert sorted(head) == list(range(plan["head_rows"]))
+    table = plan["table"]
+    order, first = table[:num_pi], table[num_pi : num_pi + stages + 1]
+    assert table[num_pi + stages + 1 :] == plan["extra"] and first[-1] == num_pi
+    wire_stages = -(-plan["visit"] // kernels.GEN_STAGE_ROWS)
+    c0 = head[plan["h_const"]] if plan["nconst"] > 0 else 0
+    c1 = head[plan["h_const"] + 1] if plan["nconst"] > 1 else 0
+    arith, bs, cst, total = [0, 0], [0, 0], [0, 0], [0, 0]
     a = ab = c = value = bits = 0
     slot = r = 0
     nb = plan["bs_bits"]
-    for w in range(plan["visit"]):
-        v = w_at(w)
-        if reads is not None:
-            reads.append(w)
+
+    def visit(w, v):
+        nonlocal a, ab, c, value, bits, slot, r
         if w < 4 * plan["arith_ops"]:
             role = w & 3
             if role == 0:
@@ -234,29 +246,43 @@ def _emulate_generic_kernel(plan, inp, x: int, reads: list | None = None) -> lis
                 for j in range(2):
                     arith[j] += ak[j][w >> 2] * con
         if w < kernels.GEN_BS_STRIDE * plan["bs_slots"]:
-            first = slot * (1 + nb)
+            first_k = slot * (1 + nb)
             if r == 0:
                 value, bits = v, 0
             elif r <= nb:
                 bits += v << (r - 1)
                 for j in range(2):
-                    bs[j] += ak[j][first + r] * (v * v - v)
+                    bs[j] += ak[j][first_k + r] * (v * v - v)
             if r == nb:
                 for j in range(2):
-                    bs[j] += ak[j][first] * (bits - value)
+                    bs[j] += ak[j][first_k] * (bits - value)
             r += 1
             if r == kernels.GEN_BS_STRIDE:
                 r, slot = 0, slot + 1
         if w < plan["const_slots"]:
-            cw = c0 if w == 0 else c1 if w == 1 else consts(w)
+            cw = c0 if w == 0 else c1 if w == 1 else head[plan["h_const"] + w]
             for j in range(2):
                 cst[j] += ak[j][w] * (v - cw)
+
+    for s, cols in enumerate(plan["stage_cols"]):
+        assert len(cols) <= kernels.GEN_STAGE_ROWS
+        stage = [int(inp["wires"][col, x]) for col in cols]  # slot q holds column cols[q]
+        if reads is not None:
+            reads.extend(cols)
+        if s < wire_stages:
+            for q, w in enumerate(cols):
+                visit(w, stage[q])
+        for p in range(first[s], first[s + 1]):
+            i, q = order[p] & 0xFFFF, order[p] >> 16
+            t = head[plan["h_lr"] + i] * (stage[q] - int(inp["pi"][i])) % P
+            for j in range(2):
+                total[j] += alpha[j][i] * t
     out = []
     for j in range(2):
-        for name, s in (("arith", arith[j]), ("basesum2", bs[j]), ("const", cst[j])):
-            if name in plan["sel"]:
-                total[j] += int(inp["pre"][plan["sel"][name], x]) * s
-        out.append((int(inp["accs"][j][x]) + total[j]) % P)
+        for name, q, s in (("arith", 0, arith[j]), ("basesum2", 1, bs[j]), ("const", 2, cst[j])):
+            if plan["h_sel"][q] >= 0:
+                total[j] += head[plan["h_sel"][q]] * s
+        out.append((head[plan["h_acc"] + j] + total[j]) % P)
     return out
 
 
@@ -272,31 +298,78 @@ def _plan_for(gate_set: str, inp):
 
 @pytest.mark.parametrize("gate_set", sorted(GATE_SETS))
 def test_generic_kernel_walk_equals_the_plain_version(gate_set):
-    """The kernel's per-column algorithm under the plan's parameters (which
-    wire goes to which constraint slot, in eval()'s order) gives the plain
-    version's words, on edge columns and seeded ones."""
+    """The kernel's per-column algorithm under the plan's layout (which wire
+    goes to which constraint slot, in eval()'s order; which stage and slot
+    holds each public input's wire, below the visit and past it, two public
+    inputs in one column) gives the plain version's and the JAX package's
+    words, on edge columns and seeded ones, reading no wire row twice."""
     inp = _generic_inputs(gate_set, 1 << 7, 17)
     plan = _plan_for(gate_set, inp)
+    cols = [int(c) for c in inp["pi_cols"]]
+    assert min(cols) < plan["visit"] <= max(cols)  # both kinds of public input
+    for i, c in enumerate(cols):
+        s, q = plan["pi_place"][i]
+        assert plan["stage_cols"][s][q] == c
     got = _port_plain(gate_set, inp)
+    jax = [jgl.to_u64(a) for a in _jax_generic_loop(gate_set, inp)]
     for x in (0, 1, 2, 3, 4, 77, 127):
         want = [int(gl.to_u64(got[j])[x]) for j in range(2)]
+        assert want == [int(jax[j][x]) for j in range(2)]
         reads = []
         assert _emulate_generic_kernel(plan, inp, x, reads) == want, x
-        # each wire column any generic gate reads is loaded once, in order
+        # each wire column any generic gate reads is loaded once, in order,
+        # then each public input's column past them, once
         port_gates = [g for _, g in pr.split_gates(SimpleNamespace(gates=GATE_SETS[gate_set][0]))[0]]
         read_by_gates = set()
         for g in port_gates:
             A = algebra.DeviceBaseAlgebra((1,), "cpu")
             g.eval(A, lambda col, offset=0, seen=read_by_gates: seen.add(col) or gl.zeros((1,), "cpu"),
                    lambda i: gl.zeros((1,), "cpu"))
-        assert reads == list(range(plan["visit"])) and read_by_gates <= set(reads)
+        assert reads == list(range(plan["visit"])) + sorted({c for c in cols if c >= plan["visit"]})
+        assert read_by_gates <= set(reads) and len(set(reads)) == len(reads)
+
+
+@pytest.mark.parametrize("n_lde,sms", [(1 << 7, 132), (1 << 10, 3), (1 << 9, 1)])
+def test_generic_ring_reads_every_row_once(n_lde, sms):
+    """Every block's producer fills the head and the wire stages of its tiles
+    (b, b + blocks, ...) in the consumers' order: each head row and each
+    wire row of the layout is copied exactly once a column, and the head's
+    rows are the arguments' (selectors, constant rows, Lagrange rows,
+    accumulators); public inputs with no generic gate take stages of their own."""
+    for gate_set, no_gates in (("phase 7", False), ("narrow", False), ("phase 6", True)):
+        inp = _generic_inputs(gate_set, n_lde, 5)
+        t = gl.from_u64
+        gates_list = [] if no_gates else pr.split_gates(SimpleNamespace(gates=GATE_SETS[gate_set][0]))[0]
+        plan = kernels.generic_gate_plan(
+            gates_list, t(inp["wires"]), t(inp["pre"]), inp["num_sel"], NUM_CONSTANTS,
+            t(inp["lr"]), t(inp["pi"]), torch.from_numpy(inp["pi_cols"].astype(np.int64)),
+            [t(a) for a in inp["apows"]], [t(a) for a in inp["accs"]], inp["pi0"], inp["k0"], sms)
+        assert plan["tile"] == min(kernels.GEN_TILE, n_lde) and plan["tiles"] * plan["tile"] == n_lde
+        assert plan["blocks"] == min(plan["tiles"], kernels.GEN_MIN_BLOCKS * sms)
+        assert plan["shared_bytes"] <= kernels.GEN_MAX_SHARED_BYTES
+        if no_gates:
+            assert plan["visit"] == 0 and plan["nconst"] == 0 and plan["h_sel"] == [-1, -1, -1]
+            assert sorted(c for s in plan["stage_cols"] for c in s) == sorted(set(inp["pi_cols"]))
+        head = np.zeros((plan["head_rows"], n_lde), dtype=np.int64)
+        wires = np.zeros((inp["wires"].shape[0], n_lde), dtype=np.int64)
+        for b in range(plan["blocks"]):
+            for tl in range(b, plan["tiles"], plan["blocks"]):
+                cs = slice(tl * plan["tile"], (tl + 1) * plan["tile"])
+                head[:, cs] += 1
+                for cols in plan["stage_cols"]:
+                    for c in cols:
+                        wires[c, cs] += 1
+        assert (head == 1).all()
+        read = sorted(c for s in plan["stage_cols"] for c in s)
+        assert (wires[read] == 1).all() and not wires[sorted(set(range(len(wires))) - set(read))].any()
 
 
 def test_generic_plan_at_the_main_paths_shapes():
     """Phase 6's and 7's generic gates: 80 wire columns visited (arith's 20
     ops), 66 constraint slots (basesum2's two slots of 33), 12 public inputs;
-    the selectors are the gates' rows; shared memory for 2 x 78 powers and 12
-    words."""
+    the selectors are the gates' rows; a head of 3 selectors, 6 constant rows,
+    12 Lagrange rows and 2 accumulators; shared memory for the ring, the head,
+    2 x 78 powers, 12 words, the barriers and the table."""
     for gate_set in ("phase 6", "phase 7"):
         inp = _generic_inputs(gate_set, 1 << 7, 3)
         plan = _plan_for(gate_set, inp)
@@ -305,12 +378,35 @@ def test_generic_plan_at_the_main_paths_shapes():
             "arith_ops": 20, "bs_bits": 32, "bs_slots": 2, "const_slots": 6, "visit": 80,
             "slots": 66, "num_pi": 12, "wires_stride": 128, "consts_stride": 128}
         assert plan["sel"] == {"arith": 0, "basesum2": 1, "const": 2}
-        assert plan["shared_bytes"] == (2 * (12 + 66) + 12) * 8
+        assert (plan["h_sel"], plan["h_const"], plan["nconst"], plan["h_lr"], plan["h_acc"],
+                plan["head_rows"]) == ([0, 1, 2], 3, 6, 9, 21, 23)
+        tile, ring = plan["tile"], plan["ring"]
+        assert plan["shared_bytes"] == (
+            (ring * kernels.GEN_STAGE_ROWS * tile + 23 * tile
+             + 2 * (12 + 66) + 12 + ring + 1) * 8
+            + 4 * (ring + 1 + len(plan["table"])))
+    # the main path's width: tiles of GEN_TILE within the shared memory, the
+    # ring shallower before a tile gets narrower (the flagship's 16 public
+    # inputs: 256 columns, 3 stages; 64: 128 columns in blocks of 128 threads)
+    for num_pi, want in ((12, (kernels.GEN_TILE, kernels.GEN_STAGES)), (16, (kernels.GEN_TILE, 3)),
+                         (64, (kernels.GEN_TILE // 2, kernels.GEN_STAGES))):
+        inp = _generic_inputs("phase 7", 1 << 9, 3)
+        rng = np.random.default_rng(num_pi)
+        inp["lr"] = rng.integers(0, P, size=(num_pi, 1 << 9), dtype=np.uint64)
+        inp["pi"] = rng.integers(0, P, size=num_pi, dtype=np.uint64)
+        inp["pi_cols"] = rng.integers(0, NUM_WIRES, size=num_pi)
+        inp["apows"] = rng.integers(0, P, size=(2, 1 + M + num_pi + 130), dtype=np.uint64)
+        inp["k0"] = 1 + M + num_pi
+        plan = _plan_for("phase 7", inp)
+        assert (plan["tile"], plan["ring"]) == want, num_pi
+        assert plan["threads"] == plan["tile"] and plan["shared_bytes"] <= kernels.GEN_MAX_SHARED_BYTES
 
 
 GENERIC_FAULTS = ["two arith gates", "unknown gate", "too many bits", "too many constraints",
                   "short alpha row", "one challenge", "strided accumulator", "lr rows",
-                  "selector out of range", "too few constants"]
+                  "selector out of range", "too few constants", "wires at an odd word offset",
+                  "odd lr row stride", "accumulator at an odd word offset",
+                  "public input past the wires", "int32 columns"]
 
 
 @pytest.mark.parametrize("fault", GENERIC_FAULTS)
@@ -344,6 +440,17 @@ def test_generic_plan_refuses(fault):
         args["num_sel"] = 2
     elif fault == "too few constants":
         args["num_constants"] = 1
+    elif fault == "wires at an odd word offset":  # a bulk copy needs 16-byte aligned rows
+        args["wires_lde"] = t(_rand((NUM_WIRES, (1 << 7) + 1), 1))[:, 1:]
+    elif fault == "odd lr row stride":
+        args["lr"] = t(_rand((NUM_PI, (1 << 7) + 1), 1))[:, : 1 << 7]
+    elif fault == "accumulator at an odd word offset":
+        args["accs"] = [t(_rand(((1 << 7) + 1,), 2))[1:], args["accs"][1]]
+    elif fault == "public input past the wires":
+        args["pi_cols"] = args["pi_cols"].clone()
+        args["pi_cols"][3] = NUM_WIRES
+    elif fault == "int32 columns":
+        args["pi_cols"] = args["pi_cols"].to(torch.int32)
     with pytest.raises(ValueError):
         kernels.generic_gate_plan(**args)
 
@@ -666,7 +773,17 @@ def test_kernel_sources_hold_the_modules_constants():
             "OPEN_MAX_BATCHES", "OPEN_MAX_POINTS", "OPEN_ROWS", "OPEN_MTILES", "OPEN_NTILES",
             "OPEN_KS", "OPEN_CHUNK", "OPEN_CLASSES")}
     assert len(fri.TAGS) == kernels.G_TAGS
+    assert {name: field[name] for name in (
+        "PERM_CHALLENGES", "PERM_MAX_ROUTED", "PERM_MAX_CHUNKS", "PERM_TILE", "PERM_PAIRS",
+        "PERM_STAGES", "PERM_MIN_BLOCKS")} == {
+        name: getattr(kernels, name) for name in (
+            "PERM_CHALLENGES", "PERM_MAX_ROUTED", "PERM_MAX_CHUNKS", "PERM_TILE", "PERM_PAIRS",
+            "PERM_STAGES", "PERM_MIN_BLOCKS")}
     gates_cu = constants("gates.cu")
     assert (gates_cu["GEN_MAX_CONSTRAINTS"], gates_cu["GEN_BS_MAX_BITS"],
             gates_cu["GEN_BS_STRIDE"]) == (kernels.GEN_MAX_CONSTRAINTS, kernels.GEN_BS_MAX_BITS,
                                           kernels.GEN_BS_STRIDE)
+    assert {name: gates_cu[name] for name in (
+        "GEN_TILE", "GEN_STAGE_ROWS", "GEN_STAGES", "GEN_MIN_BLOCKS")} == {
+        name: getattr(kernels, name) for name in (
+            "GEN_TILE", "GEN_STAGE_ROWS", "GEN_STAGES", "GEN_MIN_BLOCKS")}

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Time edited copies of csrc/field.cu against the checkout's own, in turns, on one GPU.
+"""Time edited copies of a CUDA source against the checkout's own, in turns, on one GPU.
 
-    python3 tools/field_variants.py VARIANTS.py [--rounds 2]
+    python3 tools/field_variants.py VARIANTS.py [--source field.cu|gates.cu] [--rounds 2]
 
 ``VARIANTS.py`` defines ``VARIANTS = {name: [(old, new), ...]}``: each
-variant is ``csrc/field.cu`` with every ``old`` string (which must occur
-exactly once) replaced by ``new``; ``"base"``, the file as it is, is always
-timed first.  An optional ``PY = {name: {attribute: value}}`` sets constants
-of ``ops/kernels.py`` while that variant runs (a plan that must agree with an
+variant is ``csrc/<source>`` (``field.cu`` unless ``--source`` says
+otherwise) with every ``old`` string (which must occur exactly once) replaced
+by ``new``; ``"base"``, the file as it is, is always timed first.  An
+optional ``PY = {name: {attribute: value}}`` sets constants of
+``ops/kernels.py`` while that variant runs (a plan that must agree with an
 edited constant).  All copies are built side by side with the package's own
 ``nvcc`` flags, each into a library of its own that ``kernels._libraries``
-is pointed at in turn.  Each variant's openings (phase 7's four batches at
-2^18, ``chip_smoke.open_all``) and G (2^21, 12 specs, ``chip_smoke.g_terms``)
-are checked word for word against the base's (an edit that changes the
-arithmetic shows as False) and timed with CUDA events, ``--rounds`` rounds of
-all variants; one JSON line a variant.  About 40 s a call for a few variants.
+is pointed at in turn.  For ``field.cu`` each variant's openings (phase 7's
+four batches at 2^18, ``chip_smoke.open_all``), G (2^21, 12 specs,
+``chip_smoke.g_terms``) and permutation terms ((80, 2^21),
+``chip_smoke.perm_terms``) are timed; for ``gates.cu`` the generic gates'
+share ((184, 2^21) with 12 public inputs, ``chip_smoke.generic_terms``).
+Each is checked word for word against the base's (an edit that changes the
+arithmetic shows as False) and timed with CUDA events, ``--rounds`` rounds
+of all variants; one JSON line a variant, with ptxas's registers, stack and
+spills of the timed kernels.  About 40 s a call for a few variants.
 """
 
 from __future__ import annotations
@@ -31,10 +36,18 @@ import tempfile
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
+# the kernels each source's variants are timed by (ptxas lines kept), and the
+# C entry points their libraries must bind
+TIMED = {"field": ("fri_g_kernel", "field_open", "perm_quotient_kernel"),
+         "gates": ("generic_gate_quotient_kernel",)}
+ENTRIES = {"field": ("elp_fri_g", "elp_field_open", "elp_field_open_table", "elp_perm_quotient"),
+           "gates": ("elp_generic_gate_quotient",)}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", help="a Python file defining VARIANTS (and optionally PY)")
+    ap.add_argument("--source", default="field.cu", choices=("field.cu", "gates.cu"))
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     import numpy as np
@@ -48,7 +61,8 @@ def main() -> int:
     spec = runpy.run_path(args.variants)
     variants = {"base": [], **spec["VARIANTS"]}
     consts = spec.get("PY", {})
-    source = (kernels.CSRC / "field.cu").read_text()
+    stem = args.source.split(".")[0]
+    source = (kernels.CSRC / args.source).read_text()
     out_dir = tempfile.mkdtemp(prefix="field_variants_")
     builds = {}
     for name, edits in variants.items():
@@ -57,10 +71,10 @@ def main() -> int:
             if text.count(old) != 1:
                 raise ValueError(f"{name}: {old[:60]!r} occurs {text.count(old)} times")
             text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"field_{name}.cu")
+        cu = os.path.join(out_dir, f"{stem}_{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        so = os.path.join(out_dir, f"libfield_{name}.so")
+        so = os.path.join(out_dir, f"lib{stem}_{name}.so")
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(kernels.CSRC),
                "-o", so, cu]
         builds[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -72,19 +86,27 @@ def main() -> int:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
         ptxas[name] = {k: v for k, v in cs.ptxas_info(err).items()
-                       if "fri_g_kernel" in k or "field_open" in k}
+                       if any(s in k for s in TIMED[stem])}
         lib = ctypes.CDLL(so)
-        for fn in ("elp_fri_g", "elp_field_open", "elp_field_open_table"):
-            getattr(lib, fn).argtypes = getattr(real["field"], fn).argtypes
+        for fn in ENTRIES[stem]:
+            getattr(lib, fn).argtypes = getattr(real[stem], fn).argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     rng = np.random.default_rng(0)
-    inp = cs.opening_inputs(rng, cs.LOG_N)
-    g = cs.g_inputs(rng, cs.LOG_N + cs.RATE_BITS, 12)
+    n_lde = cs.LOG_N + cs.RATE_BITS
+    if stem == "field":
+        inp = cs.opening_inputs(rng, cs.LOG_N)
+        g = cs.g_inputs(rng, n_lde, 12)
+        perm = cs.perm_inputs(rng, n_lde)
+        timed = {"open": lambda: [torch.stack(pair) for pair in cs.open_all(inp)],
+                 "g": lambda: cs.g_terms(g), "perm": lambda: cs.perm_terms(perm)}
+    else:
+        gen = cs.generic_inputs(rng, 1 << n_lde)
+        timed = {"generic": lambda: cs.generic_terms(gen)}
     original = kernels._libraries
 
     def run(name, fn):
-        kernels._libraries = lambda: {**real, "field": libs[name]}
+        kernels._libraries = lambda: {**real, stem: libs[name]}
         saved = {k: getattr(kernels, k) for k in consts.get(name, {})}
         try:
             for k, v in consts.get(name, {}).items():
@@ -95,19 +117,19 @@ def main() -> int:
                 setattr(kernels, k, v)
             kernels._libraries = original
 
-    def opened():
-        return [torch.stack(pair) for pair in cs.open_all(inp)]
+    def same(a, b):
+        return (all(torch.equal(x, y) for x, y in zip(a, b)) if isinstance(a, list)
+                else torch.equal(a, b))
 
-    want_open = run("base", opened)
-    want_g = run("base", lambda: cs.g_terms(g))
-    res = {name: {"open_ms": [], "g_ms": []} for name in libs}
+    want = {what: run("base", fn) for what, fn in timed.items()}
+    res = {name: {f"{what}_ms": [] for what in timed} for name in libs}
     for name in libs:
-        res[name]["open_equal"] = all(torch.equal(a, b) for a, b in zip(run(name, opened), want_open))
-        res[name]["g_equal"] = torch.equal(run(name, lambda: cs.g_terms(g)), want_g)
+        for what, fn in timed.items():
+            res[name][f"{what}_equal"] = same(run(name, fn), want[what])
     for _ in range(args.rounds):
         for name in libs:
-            res[name]["open_ms"].append(run(name, lambda: cs.cuda_ms(lambda: cs.open_all(inp), 9)))
-            res[name]["g_ms"].append(run(name, lambda: cs.cuda_ms(lambda: cs.g_terms(g), 9)))
+            for what, fn in timed.items():
+                res[name][f"{what}_ms"].append(run(name, lambda: cs.cuda_ms(fn, 9)))
     card = cs.card_line()
     for name, r in res.items():
         print(json.dumps({"variant": name, "card": card, **r, "ptxas": ptxas[name]}), flush=True)
