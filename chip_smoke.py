@@ -80,8 +80,11 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      among them) and the fold at every size 2^1 to 2^21, edge words included
      (and edge points at 2^12, a wrapping roll at 2^7, the small sizes), and
      the permutation rows of both challenges at (80, 2^18) with zero den
-     chunks (then at 2^12 with one and two challenges, and at 2^4), each
-     timed beside its bound, its plain version and the eager chain it replaced;
+     chunks (then at 2^12 with one and two challenges, at 2^4, and at 256
+     routed wires in chunks of 4, blocks of 32), each timed beside its bound,
+     its plain version and the eager chain it replaced; last, the four quotient kernels'
+     window form on rank 0's half of a 2^21 domain (halo 128) timed beside
+     their one-device form (their words are phase 10's to check);
   8. the flagship itself through the CLI's entry point: cli.run at
      --synthetic 512 --bls dummy --seed N, nothing cut (committee 512, 184
      wires, 16 PoW bits, 28 queries).  It proves the dummy BLS circuit on the
@@ -140,6 +143,10 @@ each kernel with its launches on the main path, its error against the plain
 version, and its time beside the plain version's and beside the least time
 the card could take (bound_ms: the larger of bytes over 3.35 TB/s and 32-bit
 integer multiply-adds, counted in the cheapest form known, over 16.75 T/s).
+A kernel's time is its device time (``device_ms``: the durations of its
+kernels in a torch.profiler trace of 10 calls of its wrapper after a timed
+warm-up inside the trace, no fallback); the plain version's and the eager chain's are CUDA events
+around one call.
 The launches are phase 9's cli.run (the eight inner proofs, both
 preprocesses and the first outer proof), by_kernel's phase 9's traced steady
 outer prove; the gates entry adds up its three kernels (one launch each a
@@ -293,6 +300,73 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# calls of a wrapper in one traced window of device_ms, and the seconds of
+# calls before them in the trace (doubled at each retake)
+DEVICE_REPS = 10
+DEVICE_WARMUP_S = 0.25
+
+
+def device_ms(torch, fn, names: tuple, source: str, reps: int = DEVICE_REPS) -> tuple:
+    """The device time of one fn() call: a warm-up call (its launches of the
+    kernel source ``source`` counted), then a torch.profiler trace (CPU and
+    CUDA activity) that first runs fn() for a while, then ``reps`` calls; the
+    device durations of the last ``reps`` calls' kernels named ``names`` (in
+    the trace's order) summed and divided by ``reps``.  On the card a trace
+    started late in a long process records no kernel for a while (some of
+    the first calls' records, or all of a short trace's, go missing), so the
+    trace runs fn() for DEVICE_WARMUP_S seconds before the counted calls, and
+    it counts only if it holds at least the last ``reps`` calls' records,
+    each of a positive duration (the count is checked, not the durations:
+    the spread of the kept calls' times is logged); it is taken again with
+    twice the warm-up, at most six times, and then the run fails: there is
+    no fallback to the events' time.  Also, as a cross-check, CUDA events
+    around ``reps`` calls back to back, divided by ``reps``: it agrees with
+    the trace only where the kernels outlast the wrapper's host time.
+    Returns (device ms, events ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    before = kernels.launches[source]
+    fn()
+    torch.cuda.synchronize()
+    per_call = kernels.launches[source] - before
+    want = reps * per_call
+    warm_s = DEVICE_WARMUP_S
+    for attempt in range(6):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < warm_s:
+                fn()
+                torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = sorted((ev for ev in prof.events() if ev.device_type.name != "CPU"
+                       and (own := re.search(r"\w+_kernel\b", ev.name)) and own.group(0) in names),
+                      key=lambda ev: ev.time_range.start)
+        kept = [ev.time_range.elapsed_us() for ev in seen[-want:]] if want else []
+        if want and len(seen) >= want and min(kept) > 0:
+            break
+        log(f"device_ms: trace {attempt + 1} of {names} after {warm_s} s of warm-up holds "
+            f"{len(seen)} records, the last {reps} calls launched {want}; taken again")
+        warm_s *= 2
+    else:
+        fail(f"six traces in a row lost device records of {names}")
+    total = sum(kept) / 1e3
+    calls = [sum(kept[c * per_call:(c + 1) * per_call]) / 1e3 for c in range(reps)]
+    log(f"device_ms: {'+'.join(names)}: {total / reps:.4f} ms a call, the {reps} calls "
+        f"{min(calls):.4f} to {max(calls):.4f} ms")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return total / reps, start.elapsed_time(end) / reps
 
 
 def phase0(torch) -> str:
@@ -476,7 +550,8 @@ def commit_all(inputs) -> tuple:
 
 def measure(torch, chk: Checker, rng, card: str, inputs) -> dict:
     """The timings of phase 4: each commitment (host clock, median of 3), each
-    kernel beside its plain version at one main-path shape (CUDA events), and
+    kernel beside its plain version at one main-path shape (the kernel's
+    device time, ``device_ms``; the plain version's by CUDA events), and
     the device time of one proof's commitments by kernel name (torch.profiler).
 
     It calls only what the package has had since its first version, so
@@ -515,22 +590,26 @@ def measure(torch, chk: Checker, rng, card: str, inputs) -> dict:
     chunk = prove._COMMIT_CHUNK
     coeffs = gl.from_u64(rng.integers(0, gl.P, size=(chunk, n), dtype=np.uint64), dev)
     lde_out = torch.empty((chunk, n_lde), dtype=torch.int64, device=dev)
-    out["ntt_ms"] = cuda_ms(lambda: ntt.coset_lde(coeffs, RATE_BITS, out=lde_out), 5)
+    out["ntt_ms"], out["ntt_events_ms"] = device_ms(
+        torch, lambda: ntt.coset_lde(coeffs, RATE_BITS, out=lde_out), ("ntt_pass_kernel",), "ntt")
     out["ntt_plain_ms"] = cuda_ms(lambda: ntt.coset_lde_plain(coeffs, RATE_BITS, 7), 3)
     chk.same("ntt", lde_out, ntt.coset_lde_plain(coeffs, RATE_BITS, 7), "timed coset_lde chunk")
     scratch = torch.empty_like(coeffs)
     out["intt_ms"] = cuda_ms(lambda: ntt.intt(coeffs, out=scratch), 5)
     log(f"[4] ntt: coset_lde ({chunk}, 2^{LOG_N}) -> 2^{LOG_N + RATE_BITS}: kernel "
-        f"{out['ntt_ms']:.3f} ms, plain {out['ntt_plain_ms']:.3f} ms; intt ({chunk}, 2^{LOG_N}): "
-        f"kernel {out['intt_ms']:.3f} ms [{card}]")
+        f"{out['ntt_ms']:.4f} ms of device time ({out['ntt_events_ms']:.4f} ms a call by events, "
+        f"{DEVICE_REPS} back to back), plain {out['ntt_plain_ms']:.3f} ms; intt ({chunk}, "
+        f"2^{LOG_N}): kernel {out['intt_ms']:.3f} ms [{card}]")
     del lde_out, scratch
     level = gl.from_u64(rng.integers(0, gl.P, size=(n << 1, 4), dtype=np.uint64), dev)
-    out["level_ms"] = cuda_ms(lambda: pos.compress_level(level), 5)
+    out["level_ms"], out["level_events_ms"] = device_ms(
+        torch, lambda: pos.compress_level(level), ("merkle_level_kernel",), "poseidon")
     out["level_plain_ms"] = cuda_ms(lambda: pos._hash_plain(level.reshape(-1, 8)), 3)
     chk.same("poseidon", pos.compress_level(level), pos._hash_plain(level.reshape(-1, 8)),
              "timed level compression")
-    log(f"[4] poseidon: Merkle level ({2 * n}, 4) -> ({n}, 4): kernel {out['level_ms']:.3f} ms, "
-        f"plain {out['level_plain_ms']:.3f} ms [{card}]")
+    log(f"[4] poseidon: Merkle level ({2 * n}, 4) -> ({n}, 4): kernel {out['level_ms']:.4f} ms "
+        f"of device time ({out['level_events_ms']:.4f} ms a call by events), plain "
+        f"{out['level_plain_ms']:.3f} ms [{card}]")
     wires_lde = torch.empty((NUM_WIRES, n_lde), dtype=torch.int64, device=dev)
     out["leaves_ms"] = cuda_ms(lambda: pos.hash_no_pad(wires_lde.T), 3)
     log(f"[4] poseidon: wires leaves ({NUM_WIRES}, 2^{LOG_N + RATE_BITS}): kernel "
@@ -1252,7 +1331,8 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     # permutation chunk (8, 2^21) times another
     a = gl.from_u64(rng.integers(0, gl.P, size=(8, n_lde), dtype=np.uint64), DEVICE)
     b = gl.from_u64(rng.integers(0, gl.P, size=(8, n_lde), dtype=np.uint64), DEVICE)
-    field_ms = cuda_ms(lambda: gl.mul(a, b), 9)
+    field_ms, field_events_ms = device_ms(torch, lambda: gl.mul(a, b), ("field_binary_kernel",),
+                                          "field")
     field_plain_ms = cuda_ms(lambda: gl.mul_plain(a, b), 3)
     chk.same("field", gl.mul(a, b), gl.mul_plain(a, b), "timed field mul")
     # and ten launches back to back (no host time between them)
@@ -1260,18 +1340,21 @@ def phase6(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     add_ms = cuda_ms(lambda: gl.add(a, b), 9)
     row_ms = cuda_ms(lambda: gl.mul(a, b[0]), 9)
     inv_in = a[:5]  # the table's shape since the inverse kernel came: (5, 2^21)
-    inv_ms = cuda_ms(lambda: gl.inv(inv_in), 9)
+    inv_ms, inv_events_ms = device_ms(torch, lambda: gl.inv(inv_in), ("field_inv_kernel",),
+                                      "field")
     inv_plain_ms = cuda_ms(lambda: gl.inv_plain(inv_in), 1)
     chk.same("field", gl.inv(inv_in), gl.inv_plain(inv_in), "timed field inv")
     # a 64 x 64 product is 4 multiply-adds of 32 x 32 bits, its reduction one more
     field_bound = bound_of(3 * a.numel() * 8, a.numel() * 5)
     inv_bound = bound_of(2 * inv_in.numel() * 8, inv_in.numel() * INV_PRODUCTS_PER_WORD * 5)
-    log(f"[6] field: mul (8, 2^21) x (8, 2^21): kernel {field_ms:.3f} ms, plain "
+    log(f"[6] field: mul (8, 2^21) x (8, 2^21): kernel {field_ms:.4f} ms of device time "
+        f"({field_events_ms:.4f} ms a call by events), plain "
         f"{field_plain_ms:.3f} ms, bound {field_bound[0]:.4f} ms by {field_bound[1]} "
         f"({field_bound[0] / field_ms:.1%} of the kernel's time); ten launches back to back: "
         f"{back10_ms:.4f} ms a launch ({field_bound[0] / back10_ms:.1%} of its bound); add "
         f"{add_ms:.3f} ms; mul by a row (2^21,) {row_ms:.3f} ms [{card}]")
-    log(f"[6] field inv (5, 2^21): field_inv_kernel {inv_ms:.4f} ms, plain {inv_plain_ms:.3f} ms, "
+    log(f"[6] field inv (5, 2^21): field_inv_kernel {inv_ms:.4f} ms of device time "
+        f"({inv_events_ms:.4f} ms a call by events), plain {inv_plain_ms:.3f} ms, "
         f"bound {inv_bound[0]:.4f} ms by {inv_bound[1]} (16 bytes and {INV_PRODUCTS_PER_WORD} "
         f"products a word: {kernels.FIELD_INV_RUN} words a Fermat power; "
         f"{inv_bound[0] / inv_ms:.1%} of the kernel's time) [{card}]")
@@ -1539,7 +1622,8 @@ def measure_gate_kernels(torch, chk: Checker, rng, card: str) -> dict:
                      f"gate {gate.name} at n_lde 2^21 against field.cu, challenge {j}")
         del want
         scratch = [a.clone() for a in inputs[4]]  # the timed launches add into these
-        ms = cuda_ms(lambda: gate_kernel(gate, inputs, RATE_BITS, scratch), 5)
+        ms, events_ms = device_ms(torch, lambda: gate_kernel(gate, inputs, RATE_BITS, scratch),
+                                  (name,), "gates")
         del scratch
         field_ms = cuda_ms(lambda: gate_generic(gate, inputs, RATE_BITS, plain=False), 1)
         plain = []  # the one timed run of the plain version is also the one compared
@@ -1552,7 +1636,8 @@ def measure_gate_kernels(torch, chk: Checker, rng, card: str) -> dict:
         by_ops = mads * n_lde / PEAK_INT32_MADS_PER_S * 1e3
         bound = (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations")
         regs = kernel_registers(name)
-        log(f"[7] gate {gate.name} at (184, 2^21), 2 challenges: kernel {ms:.3f} ms, its words == "
+        log(f"[7] gate {gate.name} at (184, 2^21), 2 challenges: kernel {ms:.4f} ms of device "
+            f"time ({events_ms:.4f} ms a call by events), its words == "
             f"the generic eval loop's on the plain ops and on field.cu; the generic "
             f"eval loop on field.cu {field_ms:.3f} ms in {generic_launches} launches, on the plain "
             f"ops {plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} (bytes {by_bytes:.4f} ms "
@@ -1560,7 +1645,7 @@ def measure_gate_kernels(torch, chk: Checker, rng, card: str) -> dict:
             f"column; {bound[0] / ms:.1%} of the kernel's time); {regs['registers']} registers, "
             f"{regs['spill_bytes']} bytes spilled, {regs['shared_bytes']} bytes of static shared "
             f"memory [{card}]")
-        out[gate.name] = {"ms": ms, "plain_ms": plain_ms, "field_ms": field_ms,
+        out[gate.name] = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms, "field_ms": field_ms,
                           "bound_ms": bound[0], "bound_by": bound[1],
                           "registers": regs["registers"]}
         del inputs
@@ -1782,15 +1867,17 @@ def g_inputs(rng, log_n_lde: int, num_specs: int) -> dict:
 
 def g_terms(inp, mode: str = "kernel"):
     """G as (2, n_lde): ``mode`` "kernel" (kernels.fri_g), "plain" or "eager"
-    (fri.g_plain on the plain ops or on field.cu)."""
+    (fri.g_plain on the plain ops or on field.cu); "launch" is kernels.fri_g's
+    own return, unstacked (for its timing)."""
     import torch
 
     from eth_lc_plonky2_tpu_torch.ops import kernels
     from eth_lc_plonky2_tpu_torch.prover import fri
 
     args = (inp["ldes"], inp["apow"], inp["y"], inp["z"], inp["x"])
-    if mode == "kernel":
-        return torch.stack(kernels.fri_g(*args, tuple(fri.TAGS.index(t) for t in inp["tags"])))
+    if mode in ("kernel", "launch"):
+        out = kernels.fri_g(*args, tuple(fri.TAGS.index(t) for t in inp["tags"]))
+        return out if mode == "launch" else torch.stack(out)
 
     def run():
         return torch.stack(fri.g_plain(*args, G_ROWS, inp["tags"]))
@@ -1819,15 +1906,17 @@ def fold_inputs(rng, log_size: int) -> dict:
 
 def fold_terms(inp, mode: str = "kernel"):
     """One fold as (2, h): ``mode`` "kernel" (kernels.fri_fold), "plain" or
-    "eager" (fri.fold_plain on the plain ops or on field.cu)."""
+    "eager" (fri.fold_plain on the plain ops or on field.cu); "launch" is
+    kernels.fri_fold's own return, unstacked (for its timing)."""
     import torch
 
     from eth_lc_plonky2_tpu_torch.ops import kernels
     from eth_lc_plonky2_tpu_torch.prover import fri
 
     args = (inp["re"], inp["im"], inp["w_inv"], inp["scale"])
-    if mode == "kernel":
-        return torch.stack(kernels.fri_fold(*args, fri.INV2, inp["beta"]))
+    if mode in ("kernel", "launch"):
+        out = kernels.fri_fold(*args, fri.INV2, inp["beta"])
+        return out if mode == "launch" else torch.stack(out)
 
     def run():
         return torch.stack(fri.fold_plain(*args, inp["beta"]))
@@ -1877,8 +1966,9 @@ def check_fused_field_kernels(torch, chk: Checker, rng, card: str) -> dict:
     (80, 2^21) with 2 challenges and chunk 8, edge words included; then the
     openings at 2^12 with edge points, and the power table alone against its
     plain version.  Each call must launch only its plan's launches (no
-    field_binary_kernel); each is timed with CUDA events beside its bound,
-    its plain version and the eager chain of field.cu ops it replaces."""
+    field_binary_kernel); each is timed (device time, ``device_ms``) beside
+    its bound, its plain version and the eager chain of field.cu ops it
+    replaces (CUDA events)."""
     from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, kernels
     from eth_lc_plonky2_tpu_torch.prover import prove
 
@@ -1896,9 +1986,10 @@ def check_fused_field_kernels(torch, chk: Checker, rng, card: str) -> dict:
         chk.same("field", g[0], w[0], f"openings {tag}, real parts")
         chk.same("field", g[1], w[1], f"openings {tag}, imaginary parts")
     del plain, got
-    ms = cuda_ms(lambda: open_all(inp), 9)
+    ms, events_ms = device_ms(torch, lambda: open_all(inp), TRACED_AS["field_open_kernel"], "field")
     n = inp["coeffs"][0].shape[1]
-    table_ms = cuda_ms(lambda: kernels.field_open_table(inp["z_re"], inp["z_im"], n), 9)
+    table_ms, _ = device_ms(torch, lambda: kernels.field_open_table(inp["z_re"], inp["z_im"], n),
+                            ("field_open_table_kernel",), "field")
     chk.same("field", kernels.field_open_table(inp["z_re"], inp["z_im"], n),
              on_plain(lambda: prove.open_table_plain(inp["z_re"], inp["z_im"], n)),
              f"the power table at 2^{LOG_N}")
@@ -1908,12 +1999,13 @@ def check_fused_field_kernels(torch, chk: Checker, rng, card: str) -> dict:
                                                         inp["rows"]), 1)
     chain_launches = kernels.launches["field"] - before
     bound_ms, bound_by, nbytes, ops, mads = open_bound(inp)
-    out["field_open_kernel"] = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+    out["field_open_kernel"] = dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, chain_ms=chain_ms,
                                     chain_launches=chain_launches, table_ms=table_ms,
                                     launches=plan["launches"], bound_ms=bound_ms, bound_by=bound_by)
     log(f"[7] openings, the four batches of phase 7 (92, 184, 20, 16 rows of 2^{LOG_N}; 12 points, "
         f"{inp['z_re'].numel()} in the table) in one call: field_open_table_kernel, "
-        f"field_open_kernel and its sum {ms:.3f} ms in {plan['launches']} launches (the table alone "
+        f"field_open_kernel and its sum {ms:.4f} ms of device time in {plan['launches']} launches "
+        f"({events_ms:.4f} ms a call by events; the table alone "
         f"{table_ms:.3f} ms), its words == the plain version's ({plain_ms:.3f} ms); the eager chain on "
         f"field.cu it replaces {chain_ms:.3f} ms in {chain_launches} launches; bound {bound_ms:.4f} "
         f"ms by {bound_by} ({nbytes} bytes, {ops} int8 tensor operations, {mads} 32 x 32 "
@@ -1937,7 +2029,7 @@ def check_fused_field_kernels(torch, chk: Checker, rng, card: str) -> dict:
     plain_ms = cuda_ms(lambda: plain.append(perm_terms(inputs, plain=True)), 1)
     chk.same("field", got, plain[-1], f"permutation terms at (80, 2^{LOG_N + RATE_BITS})")
     del plain
-    ms = cuda_ms(lambda: perm_terms(inputs), 9)
+    ms, events_ms = device_ms(torch, lambda: perm_terms(inputs), ("perm_quotient_kernel",), "field")
     before = kernels.launches["field"]
     chain_ms = cuda_ms(lambda: prove.perm_quotient_terms_plain(*inputs), 1)
     chain_launches = kernels.launches["field"] - before
@@ -1945,13 +2037,15 @@ def check_fused_field_kernels(torch, chk: Checker, rng, card: str) -> dict:
     rows_read = 2 * NUM_ROUTED + NUM_Z + 2  # wires, sigmas, Z rows, x, l0
     bound = bound_of((rows_read + 2) * n_lde * 8, PERM_MADS_PER_COLUMN * n_lde)
     regs = kernel_registers("perm_quotient_kernel")
-    out["perm_quotient_kernel"] = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+    out["perm_quotient_kernel"] = dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                                       chain_ms=chain_ms,
                                        chain_launches=chain_launches,
                                        **dict(zip(("bound_ms", "bound_by"), bound)),
                                        registers=regs["registers"], stack_bytes=regs["stack_bytes"])
     r = out["perm_quotient_kernel"]
     log(f"[7] permutation terms at (80, 2^{LOG_N + RATE_BITS}), 2 challenges, chunk 8: "
-        f"perm_quotient_kernel {ms:.3f} ms in 1 launch, its words == the plain version's "
+        f"perm_quotient_kernel {ms:.4f} ms of device time in 1 launch ({events_ms:.4f} ms a call "
+        f"by events), its words == the plain version's "
         f"({plain_ms:.3f} ms); the eager chain on field.cu it replaces {chain_ms:.3f} ms in "
         f"{chain_launches} launches; bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({rows_read} "
         f"rows read, 2 written; {PERM_MADS_PER_COLUMN} multiply-adds a column; "
@@ -1990,9 +2084,10 @@ FOLD_MADS_PER_WORD = 5 + 2 * 5 + 2 * 5 + (4 * 4 + 2 * 5)
 
 
 def timed_against_plain(torch, chk: Checker, source: str, run, what: str) -> tuple:
-    """run("kernel") against run("plain") (timed once), the kernel timed over
-    9 runs and the eager chain on field.cu run("eager") once with its field
-    launches: (ms, plain_ms, chain_ms, chain_launches)."""
+    """run("kernel") against run("plain") (timed once), and the eager chain on
+    field.cu run("eager") timed once with its field launches (CUDA events):
+    (plain_ms, chain_ms, chain_launches).  The kernel's own time is
+    ``device_ms`` of its bare wrapper call."""
     from eth_lc_plonky2_tpu_torch.ops import kernels
 
     got = run("kernel")
@@ -2000,10 +2095,9 @@ def timed_against_plain(torch, chk: Checker, source: str, run, what: str) -> tup
     plain_ms = cuda_ms(lambda: plain.append(run("plain")), 1)
     chk.same(source, got, plain[-1], what)
     del got, plain
-    ms = cuda_ms(lambda: run("kernel"), 9)
     before = kernels.launches["field"]
     chain_ms = cuda_ms(lambda: run("eager"), 1)
-    return ms, plain_ms, chain_ms, kernels.launches["field"] - before
+    return plain_ms, chain_ms, kernels.launches["field"] - before
 
 
 def check_fused_quotient_fri_kernels(torch, chk: Checker, rng, card: str) -> dict:
@@ -2036,23 +2130,25 @@ def check_fused_quotient_fri_kernels(torch, chk: Checker, rng, card: str) -> dic
                  f"visit")
     inp = generic_inputs(rng, n_lde)
     launches_of(lambda: generic_terms(inp), {"gates": 1}, "generic gates at 2^21")
-    ms, plain_ms, chain_ms, chain_launches = timed_against_plain(
+    plain_ms, chain_ms, chain_launches = timed_against_plain(
         torch, chk, "gates", lambda mode: generic_terms(inp, mode),
         f"generic gates at (184, 2^{LOG_N + RATE_BITS})")
     scratch = [a.clone() for a in inp["accs"]]
-    launch_ms = cuda_ms(lambda: kernels.generic_gate_quotient(
+    launch_ms, events_ms = device_ms(torch, lambda: kernels.generic_gate_quotient(
         inp["generic"], inp["wires"], inp["pre"], inp["num_sel"], inp["num_con"], inp["lr"],
-        inp["pi"], inp["pi_cols"], inp["apows"], scratch, inp["pi0"], inp["k0"]), 9)
+        inp["pi"], inp["pi_cols"], inp["apows"], scratch, inp["pi0"], inp["k0"]),
+        ("generic_gate_quotient_kernel",), "gates")
     del inp, scratch
     bound = bound_of(GENERIC_ROWS * n_lde * 8, GENERIC_MADS_PER_COLUMN * n_lde)
     regs = kernel_registers("generic_gate_quotient_kernel")
     out["generic_gate_quotient_kernel"] = dict(
-        ms=launch_ms, with_copies_ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+        ms=launch_ms, events_ms=events_ms, plain_ms=plain_ms, chain_ms=chain_ms,
         chain_launches=chain_launches, bound_ms=bound[0], bound_by=bound[1],
         registers=regs["registers"], stack_bytes=regs["stack_bytes"])
     log(f"[7] generic gates and 12 public inputs at (184, 2^{LOG_N + RATE_BITS}), 2 challenges: "
-        f"generic_gate_quotient_kernel {launch_ms:.3f} ms in 1 launch ({ms:.3f} ms with the "
-        f"accumulators' copies), its words == the plain version's ({plain_ms:.3f} ms); the eager "
+        f"generic_gate_quotient_kernel {launch_ms:.4f} ms of device time in 1 launch "
+        f"({events_ms:.4f} ms a call by events), its words == the plain version's "
+        f"({plain_ms:.3f} ms); the eager "
         f"chain on field.cu it replaces {chain_ms:.3f} ms in {chain_launches} launches; bound "
         f"{bound[0]:.4f} ms by {bound[1]} ({GENERIC_ROWS} rows, {GENERIC_MADS_PER_COLUMN} "
         f"multiply-adds a column; {bound[0] / launch_ms:.1%} of the kernel's time); "
@@ -2067,18 +2163,20 @@ def check_fused_quotient_fri_kernels(torch, chk: Checker, rng, card: str) -> dic
     for num_specs in sorted(G_SPEC_TAGS):
         inp = g_inputs(rng, LOG_N + RATE_BITS, num_specs)
         launches_of(lambda: g_terms(inp), {"field": 1}, "fri G at 2^21")
-        ms, plain_ms, chain_ms, chain_launches = timed_against_plain(
+        plain_ms, chain_ms, chain_launches = timed_against_plain(
             torch, chk, "field", lambda mode: g_terms(inp, mode),
             f"fri G at 2^{LOG_N + RATE_BITS}, {num_specs} specs")
+        ms, events_ms = device_ms(torch, lambda: g_terms(inp, "launch"), ("fri_g_kernel",), "field")
         del inp
         bound = bound_of((rows + 1 + 2) * n_lde * 8,
                          (rows * 2 * 4 + num_specs * G_MADS_PER_SPEC + G_MADS_FERMAT) * n_lde)
-        entry = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms, chain_launches=chain_launches,
-                     bound_ms=bound[0], bound_by=bound[1])
+        entry = dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                     chain_launches=chain_launches, bound_ms=bound[0], bound_by=bound[1])
         if num_specs == 12:
             out["fri_g_kernel"] = entry
         log(f"[7] fri G at 2^{LOG_N + RATE_BITS} over {rows} rows (92, 184, 20, 16), {num_specs} "
-            f"specs: fri_g_kernel {ms:.3f} ms in 1 launch, its words == the plain version's "
+            f"specs: fri_g_kernel {ms:.4f} ms of device time in 1 launch ({events_ms:.4f} ms a "
+            f"call by events), its words == the plain version's "
             f"({plain_ms:.3f} ms); the eager chain on field.cu it replaces {chain_ms:.3f} ms in "
             f"{chain_launches} launches; bound {bound[0]:.4f} ms by {bound[1]} "
             f"({bound[0] / ms:.1%} of the kernel's time) [{card}]")
@@ -2087,15 +2185,17 @@ def check_fused_quotient_fri_kernels(torch, chk: Checker, rng, card: str) -> dic
         inp = fold_inputs(rng, log_size)
         got = launches_of(lambda: fold_terms(inp), {"field": 1}, "fri fold")
         chk.same("field", got, fold_terms(inp, "plain"), f"fri fold of 2^{log_size}")
-    ms, plain_ms, chain_ms, chain_launches = timed_against_plain(
+    plain_ms, chain_ms, chain_launches = timed_against_plain(
         torch, chk, "field", lambda mode: fold_terms(inp, mode), "fri fold of 2^21")
+    ms, events_ms = device_ms(torch, lambda: fold_terms(inp, "launch"), ("fri_fold_kernel",), "field")
     h = n_lde // 2
     bound = bound_of(7 * h * 8, FOLD_MADS_PER_WORD * h)
-    out["fri_fold_kernel"] = dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+    out["fri_fold_kernel"] = dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, chain_ms=chain_ms,
                                   chain_launches=chain_launches, bound_ms=bound[0],
                                   bound_by=bound[1])
     log(f"[7] fri fold 2^{LOG_N + RATE_BITS} -> 2^{LOG_N + RATE_BITS - 1}: fri_fold_kernel "
-        f"{ms:.4f} ms in 1 launch, its words == the "
+        f"{ms:.4f} ms of device time in 1 launch ({events_ms:.4f} ms a call by events, its two "
+        f"outputs as the wrapper returns them), its words == the "
         f"plain version's ({plain_ms:.3f} ms) at every size 2^1 to 2^{LOG_N + RATE_BITS}; the eager "
         f"chain on field.cu it replaces {chain_ms:.3f} ms in {chain_launches} launches; bound "
         f"{bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms:.1%} of the kernel's time) [{card}]")
@@ -2103,31 +2203,32 @@ def check_fused_quotient_fri_kernels(torch, chk: Checker, rng, card: str) -> dic
     return out
 
 
-def perm_z_inputs(rng, log_n: int, zeros: tuple = ()) -> tuple:
+def perm_z_inputs(rng, log_n: int, zeros: tuple = (), routed: int = NUM_ROUTED,
+                  chunk: int = PERM_CHUNK) -> tuple:
     """The permutation rows' arguments at 2^log_n rows on the card, as prove
-    passes them: the 80 routed rows of a (184, n) wires matrix (read through
-    its row stride), 80 sigma rows, the subgroup's points, the k shifts, two
-    betas and gammas, chunk 8; seeded words with the edge words in the first
-    columns.  Each (challenge j, chunk k, column x) of ``zeros`` sets the
-    wire x % 8 of chunk k at column x to -(beta_j sigma + gamma_j): chunk k's
-    den is 0 there, so challenge j's Z is 0 from column x + 1 on."""
+    passes them: the ``routed`` (80) routed rows of a (routed + 104, n) wires
+    matrix (read through its row stride), as many sigma rows, the subgroup's
+    points, the k shifts, two betas and gammas, ``chunk`` (8); seeded words
+    with the edge words in the first columns.  Each (challenge j, chunk k,
+    column x) of ``zeros`` sets the wire x % chunk of chunk k at column x to
+    -(beta_j sigma + gamma_j): chunk k's den is 0 there, so challenge j's Z is
+    0 from column x + 1 on."""
     from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, host_field as hf
 
     n = 1 << log_n
     edge = field_edge_words()
-    wires = rng.integers(0, gl.P, size=(NUM_WIRES, n), dtype=np.uint64)
-    sigma = rng.integers(0, gl.P, size=(NUM_ROUTED, n), dtype=np.uint64)
+    wires = rng.integers(0, gl.P, size=(routed + NUM_WIRES - NUM_ROUTED, n), dtype=np.uint64)
+    sigma = rng.integers(0, gl.P, size=(routed, n), dtype=np.uint64)
     wires[:, : min(n, len(edge))] = edge[: min(n, len(edge))]
     sigma[::3, : min(n, len(edge))] = edge[::-1][: min(n, len(edge))]
     betas = rng.integers(0, gl.P, size=2, dtype=np.uint64)
     gammas = rng.integers(0, gl.P, size=2, dtype=np.uint64)
     for j, k, x in zeros:
-        i = k * PERM_CHUNK + x % PERM_CHUNK
+        i = k * chunk + x % chunk
         wires[i, x] = (gl.P - (int(betas[j]) * int(sigma[i, x]) + int(gammas[j])) % gl.P) % gl.P
     dev = lambda a: gl.from_u64(a, DEVICE)  # noqa: E731
-    return (dev(wires)[:NUM_ROUTED], dev(sigma), dev(hf.powers(gl.primitive_root_of_unity(log_n), n)),
-            dev(hf.powers(gl.MULTIPLICATIVE_GENERATOR, NUM_ROUTED)), dev(betas), dev(gammas),
-            PERM_CHUNK)
+    return (dev(wires)[:routed], dev(sigma), dev(hf.powers(gl.primitive_root_of_unity(log_n), n)),
+            dev(hf.powers(gl.MULTIPLICATIVE_GENERATOR, routed)), dev(betas), dev(gammas), chunk)
 
 
 def perm_rows(inputs, mode: str = "kernel"):
@@ -2153,6 +2254,9 @@ def perm_rows(inputs, mode: str = "kernel"):
 # running product over the chunks, m - 1 for the partials Z rat_pref[k] and
 # one for the prefix product along the subgroup.
 PERM_Z_CHUNKS = NUM_ROUTED // PERM_CHUNK
+# the kernel names of the permutation rows: perm_z_kernel, its scan and its
+# fix-up (device_ms sums their durations)
+PERM_ROWS_KERNELS = ("perm_z_kernel", "perm_z_scan_kernel", "perm_z_fixup_kernel")
 PERM_Z_PRODUCTS_PER_COLUMN = 2 * (NUM_ROUTED * 4 + PERM_Z_CHUNKS * 4 + 2 * (PERM_Z_CHUNKS - 1) + 1) + 72
 
 
@@ -2162,8 +2266,9 @@ def check_perm_z_kernel(torch, chk: Checker, rng, card: str) -> dict:
     (80, 2^18) with zero den chunks near the end (challenge 0's chunk 3 at
     column n - 300, challenge 1's chunk 9 at n - 2), timed beside the bound,
     the plain version and the eager chain; then at 2^12 with zeros in the first
-    block, one challenge, and at 2^4 (less than a block).  Each call launches
-    the plan's 3 field kernels and nothing else."""
+    block, one challenge, at 2^4 (less than a block), and 256 routed wires in
+    chunks of 4 at 2^14 (m = 64: 512 blocks of 32 columns).  Each call
+    launches the plan's 3 field kernels and nothing else."""
     from eth_lc_plonky2_tpu_torch.ops import kernels
 
     def launches_of(fn, what: str):
@@ -2182,31 +2287,38 @@ def check_perm_z_kernel(torch, chk: Checker, rng, card: str) -> dict:
     zs = got.cpu().numpy().view(np.uint64)
     if zs[0, 0] != 1 or zs[0, -1] != 0 or zs[PERM_Z_CHUNKS, -1] != 0 or zs[PERM_Z_CHUNKS, n - 2] == 0:
         fail("permutation rows: the zero den chunks did not end the grand products where placed")
-    del got, zs
-    ms, plain_ms, chain_ms, chain_launches = timed_against_plain(
+    del zs
+    plain_ms, chain_ms, chain_launches = timed_against_plain(
         torch, chk, "field", lambda mode: perm_rows(inputs, mode),
         f"permutation rows at (80, 2^{LOG_N}), 2 challenges")
-    del inputs
+    ms, events_ms = device_ms(torch, lambda: perm_rows(inputs), PERM_ROWS_KERNELS, "field")
+    del inputs, got
     bound = bound_of((2 * NUM_ROUTED + 1 + NUM_Z) * n * 8, PERM_Z_PRODUCTS_PER_COLUMN * 5 * n)
     plan = kernels.perm_z_plan(NUM_ROUTED, n, PERM_CHUNK, 2)
     log(f"[7] permutation rows at (80, 2^{LOG_N}), 2 challenges, chunk 8, zero den chunks: "
-        f"perm_z_kernel + scan + fix-up {ms:.4f} ms in 3 launches ({plan['blocks']} blocks of "
-        f"{plan['threads']}, {plan['shared_bytes']} bytes of shared memory), its words == the plain "
-        f"version's ({plain_ms:.3f} ms) and the eager chain's; the eager chain on field.cu it replaces "
+        f"perm_z_kernel + scan + fix-up {ms:.4f} ms of device time in {plan['launches']} launches "
+        f"({events_ms:.4f} ms a call by events; {plan['blocks']} blocks of {plan['threads']}, "
+        f"{plan['shared_bytes']} bytes of shared memory), its words == the plain version's "
+        f"({plain_ms:.3f} ms) and the eager chain's; the eager chain on field.cu it replaces "
         f"{chain_ms:.3f} ms in {chain_launches} launches; bound {bound[0]:.4f} ms by {bound[1]} "
         f"({2 * NUM_ROUTED + 1} rows read, {NUM_Z} written; {PERM_Z_PRODUCTS_PER_COLUMN} products a "
         f"column; {bound[0] / ms:.1%} of the kernels' time) [{card}]")
     small = perm_z_inputs(rng, 12, ((0, 0, 5), (1, 4, 300)))
-    chk.same("field", launches_of(lambda: perm_rows(small), "permutation rows at 2^12"),
-             perm_rows(small, "plain"), "permutation rows at (80, 2^12), zeros in the first block")
     one = small[:4] + (small[4][1:], small[5][1:], PERM_CHUNK)
-    chk.same("field", launches_of(lambda: perm_rows(one), "one challenge's rows at 2^12"),
-             perm_rows(one, "plain"), "permutation rows at (80, 2^12), one challenge")
     tiny = perm_z_inputs(rng, 4, ((0, 2, 3),))
-    chk.same("field", launches_of(lambda: perm_rows(tiny), "permutation rows at 2^4"),
-             perm_rows(tiny, "plain"), "permutation rows at (80, 2^4), less than a block")
+    narrow = perm_z_inputs(rng, 14, ((0, 40, 9000), (1, 63, 16000)), routed=256, chunk=4)
+    got = [launches_of(lambda: perm_rows(small), "permutation rows at 2^12"),
+           launches_of(lambda: perm_rows(one), "one challenge's rows at 2^12"),
+           launches_of(lambda: perm_rows(tiny), "permutation rows at 2^4"),
+           launches_of(lambda: perm_rows(narrow), "permutation rows at (256, 2^14), chunk 4")]
+    chk.same("field", got[0], perm_rows(small, "plain"),
+             "permutation rows at (80, 2^12), zeros in the first block")
+    chk.same("field", got[1], perm_rows(one, "plain"), "permutation rows at (80, 2^12), one challenge")
+    chk.same("field", got[2], perm_rows(tiny, "plain"), "permutation rows at (80, 2^4), less than a block")
+    chk.same("field", got[3], perm_rows(narrow, "plain"),
+             "permutation rows at (256, 2^14), chunk 4: blocks of 32 columns")
     torch.cuda.synchronize()
-    return {"perm_z_kernel": dict(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+    return {"perm_z_kernel": dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, chain_ms=chain_ms,
                                   chain_launches=chain_launches, bound_ms=bound[0],
                                   bound_by=bound[1])}
 
@@ -2215,9 +2327,10 @@ def measure_perm_polys(torch, rng, card: str) -> dict:
     """The permutation rows of both challenges at (80 of 184, 2^18), through
     ``prove.compute_permutation_polys`` a challenge and ``torch.cat``, as the
     prove of every checkout since the rows were ported called them (an entry
-    both sides of a comparison have), timed with CUDA events; with the field
-    launches of one call.  Where the package has ``prove.permutation_polys``,
-    its one call for both challenges is timed too (``both_ms``)."""
+    both sides of a comparison have): the device time of the rows' kernels
+    (``PERM_ROWS_KERNELS``), with the field launches of one call.  Where the package has
+    ``prove.permutation_polys``, its one call for both challenges is timed too
+    (``both_ms``)."""
     import types
 
     from eth_lc_plonky2_tpu_torch.ops import kernels
@@ -2235,16 +2348,20 @@ def measure_perm_polys(torch, rng, card: str) -> dict:
     before = kernels.launches["field"]
     want = per_challenge()
     launched = kernels.launches["field"] - before
-    ms = cuda_ms(per_challenge, 9)
-    res = {"perm_polys_ms": ms, "perm_polys_field_launches": launched, "both_ms": None}
+    ms, events_ms = device_ms(torch, per_challenge, PERM_ROWS_KERNELS, "field")
+    res = {"perm_polys_ms": ms, "perm_polys_events_ms": events_ms,
+           "perm_polys_field_launches": launched, "both_ms": None}
     if hasattr(prove, "permutation_polys"):
         both = prove.permutation_polys(pd, wires, b, g)
         if not torch.equal(both, want):
             fail("permutation_polys of both challenges differs from one call a challenge")
-        res["both_ms"] = cuda_ms(lambda: prove.permutation_polys(pd, wires, b, g), 9)
+        res["both_ms"], res["both_events_ms"] = device_ms(
+            torch, lambda: prove.permutation_polys(pd, wires, b, g), PERM_ROWS_KERNELS, "field")
+        res["both_field_launches"] = kernels.perm_z_plan(NUM_ROUTED, 1 << LOG_N, chunk, 2)["launches"]
     log(f"[m] permutation rows (80, 2^{LOG_N}), 2 challenges: compute_permutation_polys a challenge "
-        f"and a cat {ms:.4f} ms in {launched} field launches; both challenges in one call "
-        f"{res['both_ms'] if res['both_ms'] is None else round(res['both_ms'], 4)} ms [{card}]")
+        f"and a cat: the rows' kernels {ms:.4f} ms of device time in {launched} field launches "
+        f"({events_ms:.4f} ms a call by events); both challenges in one call: {res['both_ms']} ms "
+        f"of device time ({res.get('both_events_ms')} ms by events) [{card}]")
     return res
 
 
@@ -2397,8 +2514,9 @@ def phase7(torch, chk: Checker, rng, card: str, seed: int) -> dict:
     fused_res = check_fused_field_kernels(torch, chk, rng, card)
     fused_res.update(check_fused_quotient_fri_kernels(torch, chk, rng, card))
     fused_res.update(check_perm_z_kernel(torch, chk, rng, card))
+    windows = measure_window_kernels(torch, rng, card)
     return {"launches": launched, "prove_ms": res["prove_ms"], "phase_ms": res["phase_ms"],
-            "gates": gates_res, "fused": fused_res, "traced": res["by_name"]}
+            "gates": gates_res, "fused": fused_res, "windows": windows, "traced": res["by_name"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2820,7 +2938,7 @@ RANK_TIMEOUT_S = 900
 
 def big_ntt_passes(torch, coeffs, card: str) -> dict:
     """The three passes of the (16, 2^21) -> 2^24 coset LDE, each kind timed
-    alone (A one launch, B one a row, C one) beside its bound."""
+    alone (A one launch, B one a row, C one; device time) beside its bound."""
     from eth_lc_plonky2_tpu_torch.ops import kernels, ntt
 
     rows, n_in = coeffs.shape
@@ -2833,7 +2951,8 @@ def big_ntt_passes(torch, coeffs, card: str) -> dict:
         fail(f"[10] the 2^24 plan has {len(passes)} launches, not {rows + 2}")
     res = {}
     for kind, group in kinds.items():
-        ms = cuda_ms(lambda g=group: [kernels.ntt_pass(s, d, **a) for s, d, a in g], 5)
+        ms, _ = device_ms(torch, lambda g=group: [kernels.ntt_pass(s, d, **a) for s, d, a in g],
+                          ("ntt_pass_kernel",), "ntt")
         log_m = group[0][2]["log_m"]
         stages = log_m - group[0][2].get("log_pad", 0)
         read = rows * (n_in if kind == "A" else n)
@@ -3022,8 +3141,9 @@ def check_window_kernels(torch, chk: Checker, rng, rank: int, size: int, tag: st
 def measure_window_kernels(torch, rng, card: str, size: int = SHARDED_RANKS) -> dict:
     """The four quotient kernels' window form at the flagship's shapes on rank
     0's window of a 2^21 domain split ``size`` ways, each timed beside its
-    one-device form on the whole domain in the same call and beside its bound
-    for the window's columns (the same rows a column as phase 7's)."""
+    one-device form on the whole domain in the same call (device time, both)
+    and beside its bound for the window's columns (the same rows a column as
+    phase 7's)."""
     from eth_lc_plonky2_tpu_torch.circuit.gates_poseidon import PoseidonGate
     from eth_lc_plonky2_tpu_torch.circuit.gates_sha256 import Sha256RoundGate
     from eth_lc_plonky2_tpu_torch.ops import kernels
@@ -3046,30 +3166,35 @@ def measure_window_kernels(torch, rng, card: str, size: int = SHARDED_RANKS) -> 
         wires, consts, sel, apow_rows, accs = inputs
         ww, cw, sw = (windows_of(t, 0, width, h) for t in (wires, consts, sel))
         mine = [a[:width].clone() for a in accs]
-        window_ms = cuda_ms(lambda: gate.absorb_quotient_device(
-            ww[:, mid], lambda i: cw[i, mid], sw[mid], apow_rows, mine, RATE_BITS, window=True), 5)
+        window_ms, _ = device_ms(torch, lambda: gate.absorb_quotient_device(
+            ww[:, mid], lambda i: cw[i, mid], sw[mid], apow_rows, mine, RATE_BITS, window=True),
+            (name,), "gates")
         scratch = [a.clone() for a in accs]
-        whole_ms = cuda_ms(lambda: gate_kernel(gate, inputs, RATE_BITS, scratch), 5)
+        whole_ms, _ = device_ms(torch, lambda: gate_kernel(gate, inputs, RATE_BITS, scratch),
+                                (name,), "gates")
         record(name, window_ms, whole_ms, rows, mads)
         del inputs, wires, ww, cw, sw, mine, scratch
     inp = perm_inputs(rng, LOG_N + RATE_BITS)
     w_all, sigma, zs, x, l0 = (windows_of(t, 0, width, h) for t in inp[:5])
-    window_ms = cuda_ms(lambda: kernels.perm_quotient(
-        w_all[:, mid], sigma[:, mid], zs[:, mid], x[mid], l0[mid], *inp[5:], window=True), 5)
-    whole_ms = cuda_ms(lambda: perm_terms(inp), 5)
+    window_ms, _ = device_ms(torch, lambda: kernels.perm_quotient(
+        w_all[:, mid], sigma[:, mid], zs[:, mid], x[mid], l0[mid], *inp[5:], window=True),
+        ("perm_quotient_kernel",), "field")
+    whole_ms, _ = device_ms(torch, lambda: perm_terms(inp), ("perm_quotient_kernel",), "field")
     record("perm_quotient_kernel", window_ms, whole_ms, 2 * NUM_ROUTED + NUM_Z + 2 + 2,
            PERM_MADS_PER_COLUMN)
     del inp, w_all, sigma, zs, x, l0
     gen = generic_inputs(rng, n_lde)
     ww, pw, lw = (windows_of(gen[k], 0, width, h) for k in ("wires", "pre", "lr"))
     mine = [a[:width].clone() for a in gen["accs"]]
-    window_ms = cuda_ms(lambda: kernels.generic_gate_quotient(
+    window_ms, _ = device_ms(torch, lambda: kernels.generic_gate_quotient(
         gen["generic"], ww[:, mid], pw[:, mid], gen["num_sel"], gen["num_con"], lw[:, mid],
-        gen["pi"], gen["pi_cols"], gen["apows"], mine, gen["pi0"], gen["k0"]), 5)
-    whole_ms = cuda_ms(lambda: generic_terms(gen), 5)
+        gen["pi"], gen["pi_cols"], gen["apows"], mine, gen["pi0"], gen["k0"]),
+        ("generic_gate_quotient_kernel",), "gates")
+    whole_ms, _ = device_ms(torch, lambda: generic_terms(gen), ("generic_gate_quotient_kernel",),
+                            "gates")
     record("generic_gate_quotient_kernel", window_ms, whole_ms, GENERIC_ROWS,
            GENERIC_MADS_PER_COLUMN)
-    log(f"[10] the window form on rank 0's {width} points of 2^{LOG_N + RATE_BITS} (halo {h}): "
+    log(f"[7] the window form on rank 0's {width} points of 2^{LOG_N + RATE_BITS} (halo {h}): "
         + ", ".join(f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.4f} ms by {v['bound_by']}; the "
                     f"whole domain's one-device form {v['whole_ms']:.3f} ms)" for k, v in out.items())
         + f" [{card}]")
@@ -3078,14 +3203,15 @@ def measure_window_kernels(torch, rng, card: str, size: int = SHARDED_RANKS) -> 
 
 def measure_quotient_kernels(torch, rng, card: str) -> dict:
     """The permutation terms' and the generic share's kernels at (80, 2^21)
-    and (184, 2^21), one device, timed alone (tools/torch_kernel_times.py
+    and (184, 2^21), one device, their device time (tools/torch_kernel_times.py
     holds them against an older checkout in turns, so it makes only calls
     that the port has had since it gained the generic gates' kernel)."""
     inp = perm_inputs(rng, LOG_N + RATE_BITS)
-    perm_ms = cuda_ms(lambda: perm_terms(inp), 9)
+    perm_ms, _ = device_ms(torch, lambda: perm_terms(inp), ("perm_quotient_kernel",), "field")
     del inp
     gen = generic_inputs(rng, 1 << (LOG_N + RATE_BITS))
-    generic_ms = cuda_ms(lambda: generic_terms(gen), 9)
+    generic_ms, _ = device_ms(torch, lambda: generic_terms(gen), ("generic_gate_quotient_kernel",),
+                              "gates")
     log(f"the quotient's kernels at 2^{LOG_N + RATE_BITS}: perm_quotient_kernel {perm_ms:.3f} ms, "
         f"generic_gate_quotient_kernel {generic_ms:.3f} ms [{card}]")
     return {"perm_quotient_kernel": perm_ms, "generic_gate_quotient_kernel": generic_ms}
@@ -3093,7 +3219,7 @@ def measure_quotient_kernels(torch, rng, card: str) -> dict:
 
 def measure_open_and_g(torch, rng, card: str) -> dict:
     """The openings of phase 7's four batches at 2^18 and G at 2^21 with 12
-    specs, one device, timed alone (tools/torch_kernel_times.py holds them
+    specs, one device, their device time (tools/torch_kernel_times.py holds them
     against an older checkout in turns: a checkout without
     ``prove.open_batches`` opens batch by batch through ``prove._open_core``,
     which every version of the package has)."""
@@ -3109,10 +3235,10 @@ def measure_open_and_g(torch, rng, card: str) -> dict:
         def run():
             return [prove._open_core(c, inp["z_re"][i], inp["z_im"][i])
                     for c, i in zip(inp["coeffs"], idx)]
-    open_ms = cuda_ms(run, 9)
+    open_ms, _ = device_ms(torch, run, TRACED_AS["field_open_kernel"], "field")
     del inp
     g = g_inputs(rng, LOG_N + RATE_BITS, 12)
-    g_ms = cuda_ms(lambda: g_terms(g), 9)
+    g_ms, _ = device_ms(torch, lambda: g_terms(g), ("fri_g_kernel",), "field")
     log(f"the openings at 2^{LOG_N} (four batches, 12 points) {open_ms:.3f} ms, fri_g_kernel at "
         f"2^{LOG_N + RATE_BITS} (12 specs) {g_ms:.3f} ms [{card}]")
     return {"field_open_kernel": open_ms, "fri_g_kernel": g_ms}
@@ -3201,7 +3327,6 @@ def phase10(torch, chk: Checker, rng, card: str, seed: int, flagship: dict) -> d
     from eth_lc_plonky2_tpu_torch.parallel import distributed as dist
 
     big = check_big_ntt(torch, chk, rng, card)
-    windows = measure_window_kernels(torch, rng, card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         # (c)'s ranks start first: (b) runs here while they set up, before
@@ -3254,8 +3379,8 @@ def phase10(torch, chk: Checker, rng, card: str, seed: int, flagship: dict) -> d
         "setup_s": [ranks[r]["flagship"]["setup_s"] for r in sorted(ranks)],
         "peak_gb": [ranks[r]["flagship"]["peak_gb"] for r in sorted(ranks)],
         "phases_s": [ranks[r]["flagship"]["phases"] for r in sorted(ranks)],
-        "ranks_s": ranks_s, "big_ntt": big, "window_kernels": windows}}))
-    return {"big_ntt": big, "windows": windows, "walls": walls}
+        "ranks_s": ranks_s, "big_ntt": big}}))
+    return {"big_ntt": big, "walls": walls}
 
 
 def measure_flagship(torch, card: str, seed: int = 0) -> dict:
@@ -3295,7 +3420,7 @@ def measure_flagship(torch, card: str, seed: int = 0) -> dict:
 # the trace's kernel names that one entry of the kernels line stands for
 TRACED_AS = {"field_open_kernel": ("field_open_table_kernel", "field_open_kernel",
                                    "field_open_sum_kernel"),
-             "perm_z_kernel": ("perm_z_kernel", "perm_z_scan_kernel", "perm_z_fixup_kernel")}
+             "perm_z_kernel": PERM_ROWS_KERNELS}
 
 
 def summed(parts: dict) -> dict:
@@ -3379,7 +3504,9 @@ def main() -> int:
                      "eth_lc_plonky2_tpu/prover/prove.py:551, :457-481 and :264-363, "
                      "eth_lc_plonky2_tpu/prover/fri.py:72 and :170 (XLA-fused, no Pallas kernel)",
          "launches": launches["field"], "max_abs_err": chk.err["field"],
-         **summed(field_parts), "library_ms": None, "by_kernel": field_parts},
+         **summed(field_parts), "library_ms": None, "by_kernel": field_parts,
+         # FRI's 13 folds of one steady outer prove, device time from phase 9's trace
+         "fri_folds_traced_ms": aggregate["traced"].get("fri_fold_kernel", {}).get("ms")},
         # one source, three kernels, one launch each a proof: the times are the
         # three kernels' at (184, 2^21) added up, and "by_kernel" has each alone
         {"name": "gates", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/gates.cu",

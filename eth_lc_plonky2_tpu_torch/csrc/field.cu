@@ -153,9 +153,16 @@
 //    the row ratios across its block (warp shuffles, then the warps' products
 //    in shared memory), writing each block's product; pass 2 scans the block
 //    products of each challenge in one block; pass 3 multiplies each column's
-//    Z by its block's offset and the parked rows by Z.  What bounds it:
-//    memory, 161 rows read and 20 written a column at (80, 2^18) with two
-//    challenges (0.11 ms at 3.35 TB/s), against about 830 products a column.
+//    Z by its block's offset and the parked rows by Z.  What bounds it: not
+//    its bytes, 161 rows read and 20 written a column at (80, 2^18) with two
+//    challenges (0.11 ms at 3.35 TB/s), but pass 1's integer instructions,
+//    some 830 products a column at about 20 integer instructions a lazy
+//    product (about 0.26 ms at 2^18); passes 2 and 3 take about a tenth of
+//    the time.  One launch with a decoupled look-back across tiles, every
+//    word written once (tools/variants/perm_z_one_pass.cu), ran slower on an
+//    H100: the tiles of a wave finish together, so their look-backs run
+//    while the SMs wait, and its pass writes every word after the block's
+//    barrier where pass 1 stores between its products (PERF.md section 6).
 //
 // All results are canonical and the field is exact, so every word equals
 // the plain versions' (prover/prove.py `_open_core_plain`,

@@ -372,24 +372,28 @@ def test_field_kernel_views_match_plain(dev, op, n):
     assert kernels.launches["field"] == before + len(pairs)
 
 
-@pytest.mark.parametrize("challenges", [1, 2])
-@pytest.mark.parametrize("log_n", [4, 8, 12, 18])
-def test_perm_z_kernel_matches_plain(dev, log_n, challenges):
+@pytest.mark.parametrize("log_n,challenges,routed,chunk", [
+    (log_n, challenges, 80, 8) for log_n in (4, 8, 12, 18) for challenges in (1, 2)] + [
+    (12, 2, 256, 4), (14, 2, 256, 4), (12, 1, 256, 4), (12, 2, 128, 8)])
+def test_perm_z_kernel_matches_plain(dev, log_n, challenges, routed, chunk):
     """perm_z_kernel, its scan and its fix-up against the plain permutation
     rows: 80 routed rows of a 184-row wires matrix, chunk 8, edge words, a
     zero den chunk of each challenge (the grand product ends there); 2^4 is
-    less than a block, 2^8 one block, 2^18 the flagship's 1,024 blocks."""
+    less than a block, 2^8 one block, 2^18 the flagship's 1,024 blocks.  Also
+    256 routed wires in chunks of 4 (m = 64: blocks of 32 columns; 2^14 is
+    512 blocks) and 128 in chunks of 8 (blocks of 128)."""
     import chip_smoke
 
     n = 1 << log_n
-    zeros = ((0, 1, n // 3),) + (((1, 9, n - 2),) if challenges == 2 else ())
-    inputs = chip_smoke.perm_z_inputs(np.random.default_rng(log_n), log_n, zeros)
+    m = routed // chunk
+    zeros = ((0, 1, n // 3),) + (((1, m - 1, n - 2),) if challenges == 2 else ())
+    inputs = chip_smoke.perm_z_inputs(np.random.default_rng(log_n), log_n, zeros, routed, chunk)
     if challenges == 1:
         inputs = inputs[:4] + (inputs[4][:1], inputs[5][:1], inputs[6])
     before = kernels.launches["field"]
     got = chip_smoke.perm_rows(inputs)
     assert kernels.launches["field"] == before + 3
-    assert got.shape == (10 * challenges, n)
+    assert got.shape == (m * challenges, n)
     assert torch.equal(got, chip_smoke.perm_rows(inputs, "plain"))
     assert int(got[0, -1]) == 0 and int(got[0, 0]) == 1
 

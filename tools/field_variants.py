@@ -13,13 +13,15 @@ edited constant).  All copies are built side by side with the package's own
 ``nvcc`` flags, each into a library of its own that ``kernels._libraries``
 is pointed at in turn.  For ``field.cu`` each variant's openings (phase 7's
 four batches at 2^18, ``chip_smoke.open_all``), G (2^21, 12 specs,
-``chip_smoke.g_terms``) and permutation terms ((80, 2^21),
-``chip_smoke.perm_terms``) are timed; for ``gates.cu`` the generic gates'
-share ((184, 2^21) with 12 public inputs, ``chip_smoke.generic_terms``).
-Each is checked word for word against the base's (an edit that changes the
-arithmetic shows as False) and timed with CUDA events, ``--rounds`` rounds
-of all variants; one JSON line a variant, with ptxas's registers, stack and
-spills of the timed kernels.  About 40 s a call for a few variants.
+``chip_smoke.g_terms``), permutation terms ((80, 2^21),
+``chip_smoke.perm_terms``) and permutation rows ((80, 2^18), two challenges,
+``chip_smoke.perm_rows``) are timed (``--what`` picks some); for
+``gates.cu`` the generic gates' share ((184, 2^21) with 12 public inputs,
+``chip_smoke.generic_terms``).  Each is checked word for word against the
+base's (an edit that changes the arithmetic shows as False) and timed by its
+kernels' device time (``chip_smoke.device_ms``), ``--rounds`` rounds of all
+variants; one JSON line a variant, with ptxas's registers, stack and spills
+of the timed kernels.  About 40 s a call for a few variants.
 """
 
 from __future__ import annotations
@@ -38,9 +40,10 @@ sys.path.insert(0, HERE)
 
 # the kernels each source's variants are timed by (ptxas lines kept), and the
 # C entry points their libraries must bind
-TIMED = {"field": ("fri_g_kernel", "field_open", "perm_quotient_kernel"),
+TIMED = {"field": ("fri_g_kernel", "field_open", "perm_quotient_kernel", "perm_z_kernel"),
          "gates": ("generic_gate_quotient_kernel",)}
-ENTRIES = {"field": ("elp_fri_g", "elp_field_open", "elp_field_open_table", "elp_perm_quotient"),
+ENTRIES = {"field": ("elp_fri_g", "elp_field_open", "elp_field_open_table", "elp_perm_quotient",
+                     "elp_perm_z"),
            "gates": ("elp_generic_gate_quotient",)}
 
 
@@ -49,6 +52,8 @@ def main() -> int:
     ap.add_argument("variants", help="a Python file defining VARIANTS (and optionally PY)")
     ap.add_argument("--source", default="field.cu", choices=("field.cu", "gates.cu"))
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--what", default="open,g,perm,rows,generic",
+                    help="comma-separated measurements to time (field.cu: open, g, perm, rows)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -94,15 +99,23 @@ def main() -> int:
         libs[name] = lib
     rng = np.random.default_rng(0)
     n_lde = cs.LOG_N + cs.RATE_BITS
+    what = args.what.split(",")
     if stem == "field":
-        inp = cs.opening_inputs(rng, cs.LOG_N)
-        g = cs.g_inputs(rng, n_lde, 12)
-        perm = cs.perm_inputs(rng, n_lde)
-        timed = {"open": lambda: [torch.stack(pair) for pair in cs.open_all(inp)],
-                 "g": lambda: cs.g_terms(g), "perm": lambda: cs.perm_terms(perm)}
+        inp = cs.opening_inputs(rng, cs.LOG_N) if "open" in what else None
+        g = cs.g_inputs(rng, n_lde, 12) if "g" in what else None
+        perm = cs.perm_inputs(rng, n_lde) if "perm" in what else None
+        n = 1 << cs.LOG_N
+        rows = (cs.perm_z_inputs(rng, cs.LOG_N, ((0, 3, n - 300), (1, 9, n - 2)))
+                if "rows" in what else None)
+        timed = {"open": (lambda: [torch.stack(pair) for pair in cs.open_all(inp)],
+                          cs.TRACED_AS["field_open_kernel"]),
+                 "g": (lambda: cs.g_terms(g), ("fri_g_kernel",)),
+                 "perm": (lambda: cs.perm_terms(perm), ("perm_quotient_kernel",)),
+                 "rows": (lambda: cs.perm_rows(rows), cs.PERM_ROWS_KERNELS)}
     else:
         gen = cs.generic_inputs(rng, 1 << n_lde)
-        timed = {"generic": lambda: cs.generic_terms(gen)}
+        timed = {"generic": (lambda: cs.generic_terms(gen), ("generic_gate_quotient_kernel",))}
+    timed = {k: v for k, v in timed.items() if k in what}
     original = kernels._libraries
 
     def run(name, fn):
@@ -121,15 +134,17 @@ def main() -> int:
         return (all(torch.equal(x, y) for x, y in zip(a, b)) if isinstance(a, list)
                 else torch.equal(a, b))
 
-    want = {what: run("base", fn) for what, fn in timed.items()}
-    res = {name: {f"{what}_ms": [] for what in timed} for name in libs}
+    want = {w: run("base", fn) for w, (fn, _) in timed.items()}
+    res = {name: {f"{w}_ms": [] for w in timed} for name in libs}
     for name in libs:
-        for what, fn in timed.items():
-            res[name][f"{what}_equal"] = same(run(name, fn), want[what])
+        for w, (fn, _) in timed.items():
+            res[name][f"{w}_equal"] = same(run(name, fn), want[w])
+    source = "gates" if stem == "gates" else "field"
     for _ in range(args.rounds):
         for name in libs:
-            for what, fn in timed.items():
-                res[name][f"{what}_ms"].append(run(name, lambda: cs.cuda_ms(fn, 9)))
+            for w, (fn, names) in timed.items():
+                res[name][f"{w}_ms"].append(
+                    run(name, lambda: cs.device_ms(torch, fn, names, source)[0]))
     card = cs.card_line()
     for name, r in res.items():
         print(json.dumps({"variant": name, "card": card, **r, "ptxas": ptxas[name]}), flush=True)

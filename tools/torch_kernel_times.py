@@ -24,6 +24,12 @@ adds the flagship's entry (``measure_flagship``: ``cli.run --synthetic 512
 --bls dummy`` with ``skip_prove``, then preprocess and timed proves, whose
 median is ``full512_prove_wall_s``) to each turn of a checkout that has
 ``eth_lc_plonky2_tpu_torch/cli.py``; about two minutes a turn.
+
+    python3 tools/torch_kernel_times.py --parent DIR --only perm_polys,open_and_g
+
+runs only the named entries (``commit``, ``gates``, ``perm_polys``,
+``quotient_kernels``, ``open_and_g``) in each turn.  Every kernel time is
+device time (``chip_smoke.device_ms``).
 """
 
 from __future__ import annotations
@@ -38,7 +44,10 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def turn(tag: str, root: str, flagship: bool) -> None:
+ENTRIES = ("commit", "gates", "perm_polys", "quotient_kernels", "open_and_g")
+
+
+def turn(tag: str, root: str, flagship: bool, only: tuple) -> None:
     sys.path.insert(0, root)  # the package under test; chip_smoke.py is always this checkout's
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -54,11 +63,17 @@ def turn(tag: str, root: str, flagship: bool) -> None:
     rng = np.random.default_rng(0)
     card = smoke.card_line()
     chk = smoke.Checker()
-    res = smoke.measure(torch, chk, rng, card, smoke.flagship_inputs(rng))
-    res["gates"] = smoke.measure_gate_kernels(torch, chk, rng, card)
-    res["perm_polys"] = smoke.measure_perm_polys(torch, rng, card)
-    res["quotient_kernels"] = smoke.measure_quotient_kernels(torch, rng, card)
-    res["open_and_g"] = smoke.measure_open_and_g(torch, rng, card)
+    res = {}
+    if "commit" in only:
+        res = smoke.measure(torch, chk, rng, card, smoke.flagship_inputs(rng))
+    if "gates" in only:
+        res["gates"] = smoke.measure_gate_kernels(torch, chk, rng, card)
+    if "perm_polys" in only:
+        res["perm_polys"] = smoke.measure_perm_polys(torch, rng, card)
+    if "quotient_kernels" in only:
+        res["quotient_kernels"] = smoke.measure_quotient_kernels(torch, rng, card)
+    if "open_and_g" in only:
+        res["open_and_g"] = smoke.measure_open_and_g(torch, rng, card)
     if flagship and importlib.util.find_spec("eth_lc_plonky2_tpu_torch.cli") is not None:
         res["flagship"] = smoke.measure_flagship(torch, card)
     print(json.dumps({"tag": tag, "build_s": build["seconds"], **res}), flush=True)
@@ -69,17 +84,23 @@ def main() -> int:
     ap.add_argument("--parent", help="the second checkout")
     ap.add_argument("--flagship", action="store_true",
                     help="also time the flagship through cli.run (where the checkout has it)")
+    ap.add_argument("--only", default=",".join(ENTRIES),
+                    help=f"comma-separated entries to run (of {', '.join(ENTRIES)})")
     ap.add_argument("--turn", nargs=2, metavar=("TAG", "ROOT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = tuple(args.only.split(","))
+    if set(only) - set(ENTRIES):
+        ap.error(f"--only takes {', '.join(ENTRIES)}")
     if args.turn:
-        turn(*args.turn, args.flagship)
+        turn(*args.turn, args.flagship, only)
         return 0
     if not args.parent:
         ap.error("--parent is required")
     parent = os.path.abspath(args.parent)
     for tag, root in (("parent", parent), ("change", HERE), ("change", HERE), ("parent", parent)):
         cmd = [sys.executable, os.path.abspath(__file__), "--turn", tag, root]
-        res = subprocess.run(cmd + ["--flagship"] * args.flagship, cwd=root, timeout=1500)
+        res = subprocess.run(cmd + ["--flagship"] * args.flagship + ["--only", args.only],
+                             cwd=root, timeout=1500)
         if res.returncode != 0:
             return res.returncode
     return 0
