@@ -5,7 +5,7 @@
 
 Phases (any mismatch or exception exits non-zero without the ok line):
   0. device facts: card name and power limit, torch, nvcc, GPU count;
-  1. build the four kernel sources of eth_lc_plonky2_tpu_torch/csrc with
+  1. build the five kernel sources of eth_lc_plonky2_tpu_torch/csrc with
      nvcc (sm_90a), side by side;
   2. each kernel against its plain PyTorch version on the card, bit for bit:
      the NTT (forward, inverse, coset; the LDE reads its coefficients without
@@ -19,7 +19,15 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      offset and of odd length among them), on edge and seeded words, and
      inv(x) * x == 1; the batched inverse at lengths around its runs of 16
      words and tiles of 4,096 (1 to 12,345, at an odd offset, one shorter)
-     with zeros at every place of a run;
+     with zeros at every place of a run; the device SHA-256 (csrc/sha256.cu,
+     no prove uses it): compress and two_to_one at N in {1, 31, 32, 33, 255,
+     257, 2^20} on seeded and edge words (0, 0xFFFFFFFF, 0x80000000), one
+     launch a call, and the flagship's sync committee root (512 seeded keys:
+     1,024 half-key chunks hashed level by level, 10 launches, then the
+     aggregate key's root and the container hash) against
+     eth/ssz.sync_committee_root's hashlib root; both kernels timed at 2^20
+     messages (the order of a level of an SSZ list tree over the beacon
+     chain's validator registry) beside their bound and plain versions;
   3. commit_values on assets/dryrun/pre.npz must reproduce its stored
      coefficients, LDE and every Merkle level;
   4. one proof's three commitments at the flagship width (CircuitConfig
@@ -142,7 +150,10 @@ The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on the main path, its error against the plain
 version, and its time beside the plain version's and beside the least time
 the card could take (bound_ms: the larger of bytes over 3.35 TB/s and 32-bit
-integer multiply-adds, counted in the cheapest form known, over 16.75 T/s).
+integer multiply-adds, counted in the cheapest form known, over 16.75 T/s;
+for sha256 its shifts and logic, ``sha256_pipe_ops``).  The sha256 entry's
+launches are 0 (no prove hashes with SHA-256 on the card) and its
+phase2_launches those of phase 2's checks.
 A kernel's time is its device time (``device_ms``: the durations of its
 kernels in a torch.profiler trace of 10 calls of its wrapper after a timed
 warm-up inside the trace, no fallback); the plain version's and the eager chain's are CUDA events
@@ -262,10 +273,20 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def words_np(t) -> np.ndarray:
+    """A field tensor's u64 values, or a word tensor's (torch.uint32 or
+    torch.int32) u32 values, on the host."""
+    import torch
+
+    if t.element_size() == 4:
+        return t.detach().view(torch.int32).cpu().numpy().view(np.uint32)
+    return t.detach().cpu().numpy().view(np.uint64)
+
+
 def u64_err(a, b) -> float:
-    """Largest |a - b| over the u64 values of two field tensors (0 when equal)."""
-    x = a.detach().cpu().numpy().view(np.uint64)
-    y = b.detach().cpu().numpy().view(np.uint64)
+    """Largest |a - b| over the u64 values of two field tensors, or the u32
+    values of two word tensors (0 when equal)."""
+    x, y = words_np(a), words_np(b)
     if x.shape != y.shape:
         fail(f"shape mismatch {x.shape} vs {y.shape}")
     if x.size == 0:
@@ -277,7 +298,7 @@ class Checker:
     """Collects each kernel's largest error against its plain version."""
 
     def __init__(self):
-        self.err = {"ntt": 0.0, "poseidon": 0.0, "field": 0.0, "gates": 0.0}
+        self.err = {"ntt": 0.0, "poseidon": 0.0, "field": 0.0, "gates": 0.0, "sha256": 0.0}
 
     def same(self, kernel: str, got, want, what: str) -> None:
         e = u64_err(got, want)
@@ -410,7 +431,7 @@ def phase1() -> None:
         fail(f"kernels spill registers (bytes): {spilled}")
 
 
-def phase2(torch, chk: Checker, rng) -> None:
+def phase2(torch, chk: Checker, rng, card: str) -> dict:
     from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, ntt, poseidon as pos
 
     dev = DEVICE
@@ -461,6 +482,7 @@ def phase2(torch, chk: Checker, rng) -> None:
     log(f"[2] trees of {TREE_LEAVES} leaves at cap heights {TREE_CAPS} == plain, level by level")
     check_proof_shapes(torch, chk, rng)
     check_field_kernel(torch, chk, rng)
+    return check_sha256_kernels(torch, chk, rng, card)
 
 
 def check_proof_shapes(torch, chk: Checker, rng) -> None:
@@ -557,7 +579,7 @@ def measure(torch, chk: Checker, rng, card: str, inputs) -> dict:
     It calls only what the package has had since its first version, so
     tools/torch_kernel_times.py can run it on an older checkout too.
     """
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from eth_lc_plonky2_tpu_torch.ops import goldilocks as gl, ntt, poseidon as pos
     from eth_lc_plonky2_tpu_torch.prover import prove
@@ -617,25 +639,51 @@ def measure(torch, chk: Checker, rng, card: str, inputs) -> dict:
     del wires_lde, level
 
     # Device time per proof by kernel name, and the idle share of the window.
-    for _ in range(2):  # the first profiled run pays for the tracer's start-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            commit_all(inputs)
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for ev in prof.key_averages():
-        if ev.device_type.name != "CPU" and ev.self_device_time_total > 0:
-            own = re.search(r"\w+_kernel\b", ev.key)  # this repo's kernels, without their namespace
-            by_name[own.group(0) if own else ev.key[:48]] = {
-                "ms": ev.self_device_time_total / 1e3, "launches": ev.count}
+    # Each trace first traces and discards one proof's commitments (it pays for
+    # the tracer's start-up), then keeps the next.  A trace can still lose
+    # device records (ROADMAP C3: one NTT pass of 58 went missing on the card):
+    # a trace whose launches by kernel source are not the wrappers' counts is
+    # taken again, at most six times, and then the run fails.
+    from eth_lc_plonky2_tpu_torch.ops import kernels
+
+    for attempt in range(6):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                torch.cuda.synchronize()
+                before = dict(kernels.launches)
+                t0 = time.perf_counter()
+                commit_all(inputs)
+                torch.cuda.synchronize()
+                window_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        launched = {src: n - before[src] for src, n in kernels.launches.items() if n > before[src]}
+        by_name = {}
+        for ev in prof.key_averages():
+            if (ev.device_type.name != "CPU" and ev.self_device_time_total > 0
+                    and not ev.key.startswith("ProfilerStep")):  # the step's own span is no work
+                own = re.search(r"\w+_kernel\b", ev.key)  # this repo's kernels, without their namespace
+                entry = by_name.setdefault(own.group(0) if own else ev.key[:48],
+                                           {"ms": 0.0, "launches": 0})
+                entry["ms"] += ev.self_device_time_total / 1e3
+                entry["launches"] += ev.count
+        seen = dict.fromkeys(launched, 0)
+        for name, v in by_name.items():
+            if BY_SOURCE.get(name) in seen:
+                seen[BY_SOURCE[name]] += v["launches"]
+        if seen == launched:
+            break
+        log(f"[4] trace {attempt + 1} shows launches {seen}, the wrappers counted {launched}; "
+            f"taken again")
+    else:
+        fail(f"six traces in a row lost records: {seen} against {launched}")
     busy_ms = sum(v["ms"] for v in by_name.values())
     for name, v in sorted(by_name.items(), key=lambda kv: -kv[1]["ms"]):
         log(f"[4] profile, one proof's commitments: {name}: {v['ms']:.3f} ms in "
             f"{v['launches']} launches [{card}]")
     log(f"[4] profile: busy {busy_ms:.3f} ms of a {window_ms:.3f} ms window, idle share "
-        f"{1 - busy_ms / window_ms:.3f} [{card}]")
+        f"{1 - busy_ms / window_ms:.3f}, one trace's reading, {attempt} incomplete traces "
+        f"discarded before it [{card}]")
     out["profile"] = {"by_kernel": by_name, "busy_ms": busy_ms, "window_ms": window_ms,
                       "idle_share": 1 - busy_ms / window_ms}
     return out
@@ -664,9 +712,7 @@ def phase4(torch, chk: Checker, rng, card: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[4] three commitments (first run) in {first_s:.3f} s, launches {launched}, "
         f"peak memory {peak_gb:.2f} GB")
-    for name in ("ntt", "poseidon"):
-        if launched[name] <= 0:
-            fail(f"the commitments never launched the {name} kernel")
+    check_sources_launched(launched, "the commitments", ("ntt", "poseidon"))
 
     wires, zs, quot = batches
     if not torch.equal(ntt.ntt_plain(wires.coeffs[:4]), wires_vals[:4]):
@@ -849,6 +895,129 @@ def check_field_kernel(torch, chk: Checker, rng) -> None:
 # ---------------------------------------------------------------------------
 # Circuits (phases 5 and 6)
 # ---------------------------------------------------------------------------
+
+
+# csrc/sha256.cu's shapes: around a warp and a block of 256 threads, and 2^20
+# messages, the order of a level of an SSZ list tree over the beacon chain's
+# validator registry (about 2^20 entries); the last is the one timed
+SHA256_NS = (1, 31, 32, 33, 255, 257, 1 << 20)
+SHA256_COMMITTEE = 512  # the flagship's sync committee: 1,024 chunks, a tree of height 10
+# The least integer work, in the cheapest form: a round is Σ1 and Σ0 at 3
+# funnel shifts and one LOP3 each, Ch and Maj at one LOP3 each, and 4 adds; a
+# schedule word σ0 and σ1 at 3 shifts and one LOP3 each, and 2 adds; a
+# compression ends with 8 feed-forward adds; the two-to-one's second block
+# (the padding) has a constant schedule.  Shifts and logic run on the integer
+# pipe alone, 64 lanes a clock an SM (PEAK_INT32_MADS_PER_S), while an add may
+# run on the FMA pipe as an IMAD beside them (the compiler puts a third to 40%
+# of them there), and an SM dispatches 128 lanes a clock in all: the bound counts
+# the shifts and logic, or half of every instruction, whichever is more.
+SHA256_ROUND_LOGIC, SHA256_ROUND_ADDS = 2 * (3 + 1) + 2, 4
+SHA256_SCHEDULE_LOGIC, SHA256_SCHEDULE_ADDS = 2 * (3 + 1), 2
+SHA256_COMPRESS = (64 * SHA256_ROUND_LOGIC + 48 * SHA256_SCHEDULE_LOGIC,
+                   64 * SHA256_ROUND_ADDS + 48 * SHA256_SCHEDULE_ADDS + 8)
+SHA256_TWO_TO_ONE = (2 * 64 * SHA256_ROUND_LOGIC + 48 * SHA256_SCHEDULE_LOGIC,
+                     2 * (64 * SHA256_ROUND_ADDS + 8) + 48 * SHA256_SCHEDULE_ADDS)
+
+
+def sha256_pipe_ops(logic_and_adds: tuple) -> float:
+    """A message's instructions at the integer pipe's rate: its shifts and
+    logic, or half of all its instructions (the dispatch rate), whichever is more."""
+    logic, adds = logic_and_adds
+    return max(logic, (logic + adds) / 2)
+
+
+def sha256_words(rng, shape: tuple, device: str):
+    """Seeded u32 words (torch.uint32 on ``device``) whose first rows are all
+    0, all 0xFFFFFFFF, all 0x80000000, then those three words in turn."""
+    import torch
+
+    x = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+    edge = np.array([0, 0xFFFFFFFF, 0x80000000], dtype=np.uint32)
+    rows = x.reshape(-1, shape[-1])
+    for r in range(min(4, rows.shape[0])):
+        rows[r] = edge[r] if r < 3 else np.resize(edge, shape[-1])
+    return torch.from_numpy(x.view(np.int32)).to(device).view(torch.uint32)
+
+
+def sha256_committee_root(pubkeys: list, aggregate: bytes, device: str) -> bytes:
+    """eth/ssz.sync_committee_root recomputed with ops/sha256.two_to_one on
+    ``device``: the 2 * len(pubkeys) half-key chunks hashed level by level (a
+    call a level), then the aggregate key's root and the container hash."""
+    import torch
+
+    from eth_lc_plonky2_tpu_torch.eth import ssz
+    from eth_lc_plonky2_tpu_torch.ops import sha256 as sha
+
+    def words(chunks):  # 32-byte chunks -> (n, 8) big-endian words, int32 read as u32
+        arr = np.frombuffer(b"".join(chunks), dtype=">u4").astype(np.uint32).reshape(-1, 8)
+        return torch.from_numpy(arr.view(np.int32)).to(device)
+
+    level = words([half for pk in pubkeys for half in ssz.pubkey_leaves(pk)])
+    while level.shape[0] > 1:
+        level = sha.two_to_one(level[0::2].contiguous(), level[1::2].contiguous()).view(torch.int32)
+    agg = words(ssz.pubkey_leaves(aggregate))
+    agg_root = sha.two_to_one(agg[:1], agg[1:]).view(torch.int32)
+    return sha.bytes_from_words(words_np(sha.two_to_one(level, agg_root))[0])
+
+
+def check_sha256_kernels(torch, chk: Checker, rng, card: str) -> dict:
+    """csrc/sha256.cu's two kernels against their plain versions on the card,
+    bit for bit, at SHA256_NS (edge words in the first rows), one launch a
+    call; the flagship's sync committee root (SHA256_COMMITTEE seeded keys) by
+    two_to_one against eth/ssz.sync_committee_root (hashlib); both kernels
+    timed at 2^20 beside their bound and their plain versions.  Returns
+    {"by_kernel": {kernel: {ms, plain_ms, bound_ms, bound_by, events_ms}},
+    "launches": the checks' launches}."""
+    from eth_lc_plonky2_tpu_torch.eth import ssz
+    from eth_lc_plonky2_tpu_torch.ops import kernels, sha256 as sha
+
+    before = kernels.launches["sha256"]
+    for n in SHA256_NS:
+        state, block = sha256_words(rng, (n, 8), DEVICE), sha256_words(rng, (n, 16), DEVICE)
+        left, right = sha256_words(rng, (n, 8), DEVICE), sha256_words(rng, (n, 8), DEVICE)
+        runs = {"sha256_compress_kernel": (lambda: sha.compress(state, block),
+                                           lambda: sha.compress_plain(state, block)),
+                "sha256_two_to_one_kernel": (lambda: sha.two_to_one(left, right),
+                                             lambda: sha.two_to_one_plain(left, right))}
+        for name, (run, plain) in runs.items():
+            count = kernels.launches["sha256"]
+            got = run()
+            if kernels.launches["sha256"] - count != 1:
+                fail(f"{name} at N={n}: {kernels.launches['sha256'] - count} launches, not 1")
+            chk.same("sha256", got, plain(), f"{name} at N={n}")
+        torch.cuda.synchronize()
+    log(f"[2] sha256 compress and two_to_one == plain at N {SHA256_NS} (edge words in the first "
+        f"rows), one launch a call")
+    keys = [rng.bytes(48) for _ in range(SHA256_COMMITTEE)]
+    aggregate = rng.bytes(48)
+    count = kernels.launches["sha256"]
+    root = sha256_committee_root(keys, aggregate, DEVICE)
+    levels = (2 * SHA256_COMMITTEE).bit_length() - 1
+    if kernels.launches["sha256"] - count != levels + 2:
+        fail(f"the committee root took {kernels.launches['sha256'] - count} launches, not "
+             f"{levels} levels + 2")
+    if root != ssz.sync_committee_root(keys, aggregate):
+        fail("the sync committee root by sha256_two_to_one_kernel differs from eth/ssz's")
+    launched = kernels.launches["sha256"] - before
+    log(f"[2] sync committee root of {SHA256_COMMITTEE} seeded keys by two_to_one on the card "
+        f"({levels} levels, the aggregate key's root, the container: {levels + 2} launches) == "
+        f"eth/ssz.sync_committee_root {root.hex()[:16]}...")
+    n = SHA256_NS[-1]
+    parts = {}
+    for name, nbytes, ops in (("sha256_compress_kernel", n * (32 + 64 + 32),
+                               n * sha256_pipe_ops(SHA256_COMPRESS)),
+                              ("sha256_two_to_one_kernel", n * (64 + 32),
+                               n * sha256_pipe_ops(SHA256_TWO_TO_ONE))):
+        run, plain = runs[name]
+        ms, events_ms = device_ms(torch, run, (name,), "sha256")
+        plain_ms = cuda_ms(plain, 1)
+        bound, by = bound_of(nbytes, ops)
+        parts[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "events_ms": events_ms}
+        log(f"[2] {name} at 2^{n.bit_length() - 1}: {ms:.4f} ms of device time ({events_ms:.4f} "
+            f"ms a call by events), bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}%), plain "
+            f"{plain_ms:.3f} ms [{card}]")
+    return {"by_kernel": parts, "launches": launched}
 
 
 def dryrun_circuit():
@@ -1107,7 +1276,8 @@ BY_SOURCE = {"ntt_pass_kernel": "ntt", "sponge_kernel": "poseidon",
              "perm_quotient_kernel": "field", "fri_g_kernel": "field", "fri_fold_kernel": "field",
              "perm_z_kernel": "field", "perm_z_scan_kernel": "field", "perm_z_fixup_kernel": "field",
              "sha_gate_quotient_kernel": "gates", "poseidon_gate_quotient_kernel": "gates",
-             "generic_gate_quotient_kernel": "gates"}
+             "generic_gate_quotient_kernel": "gates",
+             "sha256_compress_kernel": "sha256", "sha256_two_to_one_kernel": "sha256"}
 
 
 def launch_plan(data, pow_witness: int, field: int, gates: int) -> dict:
@@ -1115,7 +1285,7 @@ def launch_plan(data, pow_witness: int, field: int, gates: int) -> dict:
     and 16 quotient polynomials): three commitments, the quotients' inverse
     transform (a four-step at 2^21) and the final polynomial's (one pass);
     three trees, a tree a FRI layer, a grind batch up to the witness; the
-    circuit's eager field ops and its gates' own kernels."""
+    circuit's eager field ops and its gates' own kernels; no SHA-256 kernel."""
     from eth_lc_plonky2_tpu_torch.prover import prove
 
     cfg = data.config
@@ -1127,7 +1297,7 @@ def launch_plan(data, pow_witness: int, field: int, gates: int) -> dict:
     plan_sponge = (3 * tree_launches(n_lde, cfg.cap_height)
                    + sum(tree_launches(n_lde >> (k + 1), 4) for k in range(layers))
                    + pow_witness // grind_batch + 1)
-    return {"ntt": plan_ntt, "poseidon": plan_sponge, "field": field, "gates": gates}
+    return {"ntt": plan_ntt, "poseidon": plan_sponge, "field": field, "gates": gates, "sha256": 0}
 
 
 def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_plan: int,
@@ -1276,6 +1446,19 @@ def fused_launch_plan(pd) -> dict:
             "perm_z_fixup_kernel": 1, "field_binary_kernel": 1, "field_inv_kernel": 0}
 
 
+PROVER_SOURCES = ("ntt", "poseidon", "field", "gates")  # csrc/sha256.cu is no prover's
+
+
+def check_sources_launched(launched: dict, what: str, sources: tuple = PROVER_SOURCES) -> None:
+    """Each of ``sources`` launched at least once, csrc/sha256.cu never: no
+    prove or commitment hashes with SHA-256 on the card."""
+    for name in sources:
+        if launched[name] <= 0:
+            fail(f"{what} never launched the {name} kernel")
+    if launched["sha256"]:
+        fail(f"{what} launched csrc/sha256.cu {launched['sha256']} times: no prove uses it")
+
+
 def first_prove(torch, tag: str, pd, witness, card: str, sources: tuple):
     """The main path: one proof, counts set to 0 just before and read just after."""
     from eth_lc_plonky2_tpu_torch.ops import kernels
@@ -1291,9 +1474,7 @@ def first_prove(torch, tag: str, pd, witness, card: str, sources: tuple):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"{tag} first prove (makes the per-circuit tables) in {first_s:.3f} s, launches {launched}, "
         f"peak memory {peak_gb:.2f} GB [{card}]")
-    for name in sources:
-        if launched[name] <= 0:
-            fail(f"{tag} the main path never launched the {name} kernel")
+    check_sources_launched(launched, f"{tag} the main path", sources)
     return proof, launched
 
 
@@ -2668,9 +2849,7 @@ def phase8(torch, card: str, seed: int, cache_dir: str) -> dict:
         run_s = time.perf_counter() - t0
         log(f"[8] cli.run --synthetic {FLAGSHIP_COMMITTEE} --bls dummy --seed {seed} in "
             f"{run_s:.1f} s, launches {launched}: {json.dumps(report)} [{card}]")
-        for name in ("ntt", "poseidon", "field", "gates"):
-            if launched[name] <= 0:
-                fail(f"[8] the main path never launched the {name} kernel")
+        check_sources_launched(launched, "[8] the main path")
         if (report["rows_used"], report["degree_bits"]) != (FLAGSHIP_ROWS_USED, LOG_N):
             fail(f"[8] the flagship circuit has {report['rows_used']} rows on "
                  f"2^{report['degree_bits']}, the JAX package's {FLAGSHIP_ROWS_USED} on 2^{LOG_N}")
@@ -2821,7 +3000,7 @@ def check_aggregate_slice(torch, keep: dict, kw: dict, card: str) -> None:
     pd, vk2 = prove.preprocess(data)
     if not np.array_equal(vk2.pre_cap, vk.pre_cap):
         fail("[9] the inner circuit's preprocessed cap differs from the CLI's")
-    proof, _ = first_prove(torch, "[9] inner", pd, w, card, ("ntt", "poseidon", "field", "gates"))
+    proof, _ = first_prove(torch, "[9] inner", pd, w, card, PROVER_SOURCES)
     if (where := first_difference(proof_dict(proof), proof_dict(cli_proof))):
         fail(f"[9] slice {AGG_CHECKED_SLICE}'s proof differs from the CLI's at {where}")
     check_proof(data, vk, proof, w, f"[9] slice {AGG_CHECKED_SLICE} of {num_slices}")
@@ -2894,9 +3073,7 @@ def phase9(torch, card: str, seed: int) -> dict:
         log(f"[9] cli.run --synthetic {FLAGSHIP_COMMITTEE} --bls {AGG_MODE} --seed {seed} in "
             f"{run_s:.1f} s, launches {launched}, peak memory {peak_gb:.2f} GB: "
             f"{json.dumps(report)} [{card}]")
-        for name in ("ntt", "poseidon", "field", "gates"):
-            if launched[name] <= 0:
-                fail(f"[9] the main path never launched the {name} kernel")
+        check_sources_launched(launched, "[9] the main path")
         inner = keep["bls_inners"][0][0]
         inner_gates = {name: int(c) for name, c in zip(inner.gate_names, inner.selectors.sum(axis=1))}
         if len(keep["bls_inners"]) != AGG_SLICES or (inner.num_rows_used, inner.log_n) != (
@@ -3361,9 +3538,7 @@ def phase10(torch, chk: Checker, rng, card: str, seed: int, flagship: dict) -> d
             if res[key] != want:
                 where = first_difference(json.loads(res[key]), json.loads(want))
                 fail(f"[10c] rank {r}'s sharded proof ({key}) differs from phase 8's at {where}")
-        for name in ("ntt", "poseidon", "field", "gates"):
-            if res["launches"][name] <= 0:
-                fail(f"[10c] rank {r}'s sharded prove never launched the {name} kernel")
+        check_sources_launched(res["launches"], f"[10c] rank {r}'s sharded prove")
         for kernel, e in out["err"].items():
             chk.err[kernel] = max(chk.err[kernel], e)
     walls = [ranks[r]["flagship"]["wall_s"] for r in sorted(ranks)]
@@ -3451,7 +3626,7 @@ def main() -> int:
         return out
 
     timed(1, phase1)
-    timed(2, phase2, torch, chk, rng)
+    sha = timed(2, phase2, torch, chk, rng, card)
     timed(3, phase3, torch)
     res = timed(4, phase4, torch, chk, rng, card)
     timed(5, phase5, torch)
@@ -3515,6 +3690,13 @@ def main() -> int:
                      "eth_lc_plonky2_tpu/prover/prove.py:484-520 (XLA-fused, no Pallas kernel)",
          "launches": launches["gates"], "max_abs_err": chk.err["gates"],
          **summed(gate_parts), "library_ms": None, "by_kernel": gate_parts},
+        # no prove launches it (launches: phase 9's, 0); its two kernels at
+        # 2^20 messages added up, "by_kernel" each alone
+        {"name": "sha256", "route": "cuda", "source": "eth_lc_plonky2_tpu_torch/csrc/sha256.cu",
+         "replaces": "eth_lc_plonky2_tpu/ops/sha256.py:174, :211 (jitted jnp, no Pallas kernel)",
+         "launches": launches["sha256"], "phase2_launches": sha["launches"],
+         "max_abs_err": chk.err["sha256"], **summed(sha["by_kernel"]), "library_ms": None,
+         "by_kernel": sha["by_kernel"]},
     ]}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)

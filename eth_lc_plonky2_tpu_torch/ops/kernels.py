@@ -32,7 +32,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("ntt.cu", "poseidon.cu", "field.cu", "gates.cu")
+SOURCES = ("ntt.cu", "poseidon.cu", "field.cu", "gates.cu", "sha256.cu")
 HEADERS = ("goldilocks.cuh", "poseidon.cuh", "bulk.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -110,8 +110,9 @@ GEN_STAGE_ROWS = 8
 GEN_STAGES = 4
 GEN_MIN_BLOCKS = 2
 GEN_MAX_SHARED_BYTES = 227 * 1024 // GEN_MIN_BLOCKS - 1024
+SHA256_THREADS = 256  # csrc/sha256.cu: __launch_bounds__(256)
 
-launches = {"ntt": 0, "poseidon": 0, "field": 0, "gates": 0}
+launches = {"ntt": 0, "poseidon": 0, "field": 0, "gates": 0, "sha256": 0}
 build_info: dict = {}
 
 
@@ -199,6 +200,9 @@ def _libraries() -> dict:
                                                 i32, i32, vp, ll, vp, i32, vp, i32, i32,
                                                 ctypes.POINTER(i32), i32, i32, vp, vp, i32, i32, vp,
                                                 vp, ll, i32, i32, vp]},
+        "sha256": {"elp_sha256_set_constants": [vp, ll, vp],
+                   "elp_sha256_compress": [vp, vp, ll, vp, i32, vp],
+                   "elp_sha256_two_to_one": [vp, vp, ll, vp, i32, vp]},
     }
     for stem, functions in signatures.items():
         for name, argtypes in functions.items():
@@ -1243,3 +1247,63 @@ def generic_gate_quotient(gates: list, wires_lde, pre_lde, num_sel: int, num_con
         accs[1].data_ptr(), plan["n_lde"], plan["tile"], plan["blocks"], _stream(wires_lde))
     launches["gates"] += 1
     _raise_on(err, "generic gates")
+
+
+def _sha256_words(t: torch.Tensor, name: str, width: int) -> None:
+    """Raise unless ``t`` holds rows that ``csrc/sha256.cu`` reads: (...,
+    width) u32 words (``torch.uint32``, or ``torch.int32`` read as such),
+    contiguous, 16-byte aligned."""
+    if t.dtype not in (torch.uint32, torch.int32):
+        raise ValueError(f"sha256 {name}: expected torch.uint32 or torch.int32 words, got {t.dtype}")
+    if t.dim() < 1 or t.shape[-1] != width:
+        raise ValueError(f"sha256 {name}: expected a shape (..., {width}), got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"sha256 {name}: the kernel reads contiguous rows, got strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"sha256 {name}: the kernel's 16-byte loads need a 16-byte aligned start")
+
+
+@functools.lru_cache(maxsize=None)
+def _sha256_constants_on(lib, device_index: int) -> None:
+    """Fill ``csrc/sha256.cu``'s __constant__ table on this card, once a
+    library (``tools/field_variants.py`` loads edited copies) and card."""
+    from .sha256 import kernel_constants
+
+    image = kernel_constants()
+    with torch.cuda.device(device_index):
+        err = lib.elp_sha256_set_constants(image, len(image), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "sha256 constants")
+
+
+def _sha256_launch(entry: str, a: torch.Tensor, b: torch.Tensor, names: tuple, widths: tuple):
+    """One launch of ``entry`` over the rows of ``a`` and ``b`` -> (..., 8) torch.uint32."""
+    for t, name, width in zip((a, b), names, widths):
+        _sha256_words(t, name, width)
+    if a.shape[:-1] != b.shape[:-1] or a.device != b.device:
+        raise ValueError(f"sha256: {names[0]} {tuple(a.shape)} on {a.device} and {names[1]} "
+                         f"{tuple(b.shape)} on {b.device} are not rows of one batch")
+    if a.device.type != "cuda":
+        raise ValueError(f"sha256: expected CUDA tensors, got {a.device}")
+    out = torch.empty((*a.shape[:-1], 8), dtype=torch.uint32, device=a.device)
+    n = out.numel() // 8
+    if n == 0:
+        return out
+    lib = _libraries()["sha256"]
+    _sha256_constants_on(lib, _device_index(a))
+    err = getattr(lib, entry)(a.data_ptr(), b.data_ptr(), n, out.data_ptr(), SHA256_THREADS,
+                              _stream(out))
+    launches["sha256"] += 1
+    _raise_on(err, entry)
+    return out
+
+
+def sha256_compress(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """Launch ``sha256_compress_kernel``: the SHA-256 compression of each row,
+    state (..., 8) and block (..., 16) big-endian u32 words -> (..., 8)."""
+    return _sha256_launch("elp_sha256_compress", state, block, ("state", "block"), (8, 16))
+
+
+def sha256_two_to_one(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """Launch ``sha256_two_to_one_kernel``: the SHA-256 of each 64-byte row
+    left || right, (..., 8) and (..., 8) big-endian u32 words -> (..., 8)."""
+    return _sha256_launch("elp_sha256_two_to_one", left, right, ("left", "right"), (8, 8))

@@ -1,21 +1,33 @@
-"""Batched SHA-256 on the host (numpy): compression, two-to-one, round trace.
+"""Batched SHA-256: the host (numpy) functions and the device compression.
 
-The numpy half of ``eth_lc_plonky2_tpu/ops/sha256.py`` (the port keeps its
-own copy).  Two roles:
-  1. plain hashing (host-side SSZ tree roots, Merkle expected values);
+The port of ``eth_lc_plonky2_tpu/ops/sha256.py`` (it keeps its own copy of
+the constants).  Three roles:
+  1. plain hashing on the host (SSZ tree roots, Merkle expected values);
   2. the witness-generation pass for the in-circuit SHA-256 gate: one
-     batched trace over ALL compressions at once (``compress_trace_np``).
+     batched trace over ALL compressions at once (``compress_trace_np``);
+  3. batched hashing on the card: ``compress`` and ``two_to_one``, the JAX
+     package's jitted device functions.  A CUDA tensor runs
+     ``csrc/sha256.cu`` (``kernels.sha256_compress`` /
+     ``kernels.sha256_two_to_one``, one thread a message) or raises; a CPU
+     tensor, or numpy input, runs the plain PyTorch versions
+     ``compress_plain`` / ``two_to_one_plain`` on the CPU.  No prove calls
+     them: the witness takes the numpy half.
 
 All functions operate on big-endian u32 words (the layout the circuit
-gadget uses: a Hash256 is 8 u32 words).  The JAX package's jitted device
-``compress`` / ``two_to_one`` are not ported: nothing on the prover's path
-calls them.
+gadget uses: a Hash256 is 8 u32 words).  On the torch side a word is
+``torch.uint32`` (``torch.int32`` is read as such); the plain versions hold
+each word in int64 and mask it to 32 bits after every add and shift, since
+the CPU's ``torch.uint32`` has no arithmetic.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import functools
 
+import numpy as np
+import torch
+
+from . import kernels
 
 # fmt: off
 K = np.array([
@@ -155,6 +167,114 @@ def compress_trace_np(state: np.ndarray, block: np.ndarray):
         "carry_w": carry_w, "carry_a": carry_a, "carry_e": carry_e,
         "out": out, "carry_o": carry_o,
     }
+
+
+# ---------------------------------------------------------------------------
+# Batched compression on torch tensors: csrc/sha256.cu on the card, the plain
+# versions on the CPU
+# ---------------------------------------------------------------------------
+
+_MASK = 0xFFFFFFFF
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_constants() -> bytes:
+    """The image of ``csrc/sha256.cu``'s __constant__ table (``Sha256Consts``):
+    K, then K[t] + W[t] for the schedule W of the padding block of a 64-byte
+    message, then the IV; 136 little-endian u32 words."""
+    pad_w = message_schedule_np(PAD_BLOCK_64B[None])[0]
+    pad_kw = ((K.astype(np.uint64) + pad_w) & np.uint64(_MASK)).astype(np.uint32)
+    return np.concatenate([K, pad_kw, IV]).astype("<u4").tobytes()
+
+
+def _as_words(x) -> torch.Tensor:
+    """A tensor as it is; anything else as the JAX function takes it
+    (``asarray(x, uint32)``), a torch.uint32 tensor on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.uint32)))
+
+
+def _int64_words(t: torch.Tensor, name: str, width: int) -> torch.Tensor:
+    """(..., width) u32 words (torch.uint32 or torch.int32) as int64 in [0, 2^32)."""
+    if t.dtype not in (torch.uint32, torch.int32):
+        raise ValueError(f"sha256 {name}: expected torch.uint32 or torch.int32 words, got {t.dtype}")
+    if t.dim() < 1 or t.shape[-1] != width:
+        raise ValueError(f"sha256 {name}: expected a shape (..., {width}), got {tuple(t.shape)}")
+    return t.view(torch.int32).to(torch.int64) & _MASK
+
+
+def _same_batch(a: torch.Tensor, b: torch.Tensor, names: tuple) -> None:
+    if a.shape[:-1] != b.shape[:-1] or a.device != b.device:
+        raise ValueError(f"sha256: {names[0]} {tuple(a.shape)} on {a.device} and {names[1]} "
+                         f"{tuple(b.shape)} on {b.device} are not rows of one batch")
+
+
+def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
+    return ((x >> n) | (x << (32 - n))) & _MASK
+
+
+def _compress_int64(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """The compression on int64 words in [0, 2^32): state (..., 8), block
+    (..., 16) -> (..., 8), each word masked after every add and shift."""
+    w = list(block.unbind(-1))
+    for t in range(16, 64):
+        x, y = w[t - 15], w[t - 2]
+        s0 = _rotr(x, 7) ^ _rotr(x, 18) ^ (x >> 3)
+        s1 = _rotr(y, 17) ^ _rotr(y, 19) ^ (y >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & _MASK)
+    a, b, c, d, e, f, g, h = state.unbind(-1)
+    for t in range(64):
+        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+        ch = (e & f) ^ (~e & g)
+        t1 = h + s1 + ch + int(K[t]) + w[t]
+        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        h, g, f, e, d, c, b, a = g, f, e, (d + t1) & _MASK, c, b, a, (t1 + s0 + maj) & _MASK
+    return (torch.stack([a, b, c, d, e, f, g, h], dim=-1) + state) & _MASK
+
+
+def _uint32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).view(torch.uint32)
+
+
+def compress_plain(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``compress`` (PyTorch ops, where the tensors lie):
+    state (..., 8), block (..., 16) -> (..., 8) torch.uint32."""
+    _same_batch(state, block, ("state", "block"))
+    return _uint32(_compress_int64(_int64_words(state, "state", 8), _int64_words(block, "block", 16)))
+
+
+def two_to_one_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``two_to_one``: the IV compressed with left ||
+    right, then with the padding block -> (..., 8) torch.uint32."""
+    _same_batch(left, right, ("left", "right"))
+    block = torch.cat([_int64_words(left, "left", 8), _int64_words(right, "right", 8)], dim=-1)
+    lead = block.shape[:-1]
+    iv = torch.from_numpy(IV.astype(np.int64)).to(block.device).expand(*lead, 8)
+    pad = torch.from_numpy(PAD_BLOCK_64B.astype(np.int64)).to(block.device).expand(*lead, 16)
+    return _uint32(_compress_int64(_compress_int64(iv, block), pad))
+
+
+def compress(state, block) -> torch.Tensor:
+    """Batched compression: state (..., 8), block (..., 16) u32 words -> (..., 8)
+    torch.uint32.  A CUDA tensor launches ``csrc/sha256.cu`` (contiguous,
+    16-byte aligned rows, or it raises); a CPU tensor or numpy input runs
+    ``compress_plain`` on the CPU."""
+    state, block = _as_words(state), _as_words(block)
+    if kernels.on_card(state):
+        return kernels.sha256_compress(state, block)
+    return compress_plain(state, block)
+
+
+def two_to_one(left, right) -> torch.Tensor:
+    """SHA-256 of the 64-byte concatenation of two 32-byte hashes: (..., 8) +
+    (..., 8) u32 words -> (..., 8) torch.uint32, on the card or on the CPU as
+    ``compress``."""
+    left, right = _as_words(left), _as_words(right)
+    if kernels.on_card(left):
+        return kernels.sha256_two_to_one(left, right)
+    return two_to_one_plain(left, right)
 
 
 # ---------------------------------------------------------------------------

@@ -571,6 +571,57 @@ def test_prove_stream_on_the_card_equals_sequential_proves(dev):
 
 
 # ---------------------------------------------------------------------------
+# The device SHA-256 (csrc/sha256.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, (1 << 20) + 1])
+def test_sha256_kernels_match_plain(dev, n):
+    """compress and two_to_one on the card against their plain versions on
+    the card, edge words in the first rows; one launch a call; torch.int32
+    words are read as u32."""
+    import chip_smoke
+    from eth_lc_plonky2_tpu_torch.ops import sha256 as sha
+
+    rng = np.random.default_rng(n)
+    state, block = chip_smoke.sha256_words(rng, (n, 8), dev), chip_smoke.sha256_words(rng, (n, 16), dev)
+    left, right = chip_smoke.sha256_words(rng, (n, 8), dev), chip_smoke.sha256_words(rng, (n, 8), dev)
+    for run, plain, a, b in ((sha.compress, sha.compress_plain, state, block),
+                             (sha.two_to_one, sha.two_to_one_plain, left, right)):
+        want = plain(a, b).view(torch.int32)
+        before = kernels.launches["sha256"]
+        got = run(a, b)
+        assert kernels.launches["sha256"] == before + 1
+        assert got.dtype == torch.uint32 and got.device.type == dev
+        assert torch.equal(got.view(torch.int32), want)
+        assert torch.equal(run(a.view(torch.int32), b.view(torch.int32)).view(torch.int32), want)
+        assert kernels.launches["sha256"] == before + 2
+
+
+def test_sha256_committee_root_and_refusals_on_the_card(dev):
+    """The sync committee root of 512 seeded keys by two_to_one on the card is
+    eth/ssz's (12 launches); a CUDA tensor the kernel cannot read raises, it
+    never falls back to the plain version."""
+    import chip_smoke
+    from eth_lc_plonky2_tpu_torch.eth import ssz
+    from eth_lc_plonky2_tpu_torch.ops import sha256 as sha
+
+    rng = np.random.default_rng(512)
+    keys, aggregate = [rng.bytes(48) for _ in range(512)], rng.bytes(48)
+    before = kernels.launches["sha256"]
+    assert chip_smoke.sha256_committee_root(keys, aggregate, dev) == ssz.sync_committee_root(
+        keys, aggregate)
+    assert kernels.launches["sha256"] == before + 12
+    words = torch.zeros(4 * 16 + 1, dtype=torch.int32, device=dev)
+    aligned, off = words[:32].view(4, 8), words[1:33].view(4, 8)
+    for a, b in ((off, aligned), (aligned, words[:64].view(4, 16)[:, ::2]), (aligned, aligned.cpu()),
+                 (aligned, aligned.to(torch.int64)), (aligned, aligned[:3])):
+        with pytest.raises(ValueError):
+            sha.two_to_one(a, b)
+    assert kernels.launches["sha256"] == before + 12
+
+
+# ---------------------------------------------------------------------------
 # The NTT past 2^22, the kernels' window form, one rank over NCCL
 # ---------------------------------------------------------------------------
 
@@ -606,7 +657,7 @@ def test_window_form_kernels_match_plain(dev, size, n_lde):
         chip_smoke.GATE_SIZES, chip_smoke.LOG_N = saved
     assert kernels.launches["gates"] == before["gates"] + 3 * size
     assert kernels.launches["field"] >= before["field"] + size
-    assert chk.err == {"ntt": 0.0, "poseidon": 0.0, "field": 0.0, "gates": 0.0}
+    assert chk.err == {"ntt": 0.0, "poseidon": 0.0, "field": 0.0, "gates": 0.0, "sha256": 0.0}
 
 
 def test_one_nccl_rank_proves_the_dryrun_reference(dev, tmp_path):

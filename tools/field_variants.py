@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time edited copies of a CUDA source against the checkout's own, in turns, on one GPU.
 
-    python3 tools/field_variants.py VARIANTS.py [--source field.cu|gates.cu] [--rounds 2]
+    python3 tools/field_variants.py VARIANTS.py [--source field.cu|gates.cu|sha256.cu] [--rounds 2]
 
 ``VARIANTS.py`` defines ``VARIANTS = {name: [(old, new), ...]}``: each
 variant is ``csrc/<source>`` (``field.cu`` unless ``--source`` says
@@ -17,7 +17,9 @@ four batches at 2^18, ``chip_smoke.open_all``), G (2^21, 12 specs,
 ``chip_smoke.perm_terms``) and permutation rows ((80, 2^18), two challenges,
 ``chip_smoke.perm_rows``) are timed (``--what`` picks some); for
 ``gates.cu`` the generic gates' share ((184, 2^21) with 12 public inputs,
-``chip_smoke.generic_terms``).  Each is checked word for word against the
+``chip_smoke.generic_terms``); for ``sha256.cu`` compress and two_to_one
+at 2^20 seeded messages (``chip_smoke.sha256_words``; each library gets its
+own __constant__ table).  Each is checked word for word against the
 base's (an edit that changes the arithmetic shows as False) and timed by its
 kernels' device time (``chip_smoke.device_ms``), ``--rounds`` rounds of all
 variants; one JSON line a variant, with ptxas's registers, stack and spills
@@ -41,18 +43,20 @@ sys.path.insert(0, HERE)
 # the kernels each source's variants are timed by (ptxas lines kept), and the
 # C entry points their libraries must bind
 TIMED = {"field": ("fri_g_kernel", "field_open", "perm_quotient_kernel", "perm_z_kernel"),
-         "gates": ("generic_gate_quotient_kernel",)}
+         "gates": ("generic_gate_quotient_kernel",),
+         "sha256": ("sha256_compress_kernel", "sha256_two_to_one_kernel")}
 ENTRIES = {"field": ("elp_fri_g", "elp_field_open", "elp_field_open_table", "elp_perm_quotient",
                      "elp_perm_z"),
-           "gates": ("elp_generic_gate_quotient",)}
+           "gates": ("elp_generic_gate_quotient",),
+           "sha256": ("elp_sha256_set_constants", "elp_sha256_compress", "elp_sha256_two_to_one")}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", help="a Python file defining VARIANTS (and optionally PY)")
-    ap.add_argument("--source", default="field.cu", choices=("field.cu", "gates.cu"))
+    ap.add_argument("--source", default="field.cu", choices=("field.cu", "gates.cu", "sha256.cu"))
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--what", default="open,g,perm,rows,generic",
+    ap.add_argument("--what", default="open,g,perm,rows,generic,compress,two_to_one",
                     help="comma-separated measurements to time (field.cu: open, g, perm, rows)")
     args = ap.parse_args()
     import numpy as np
@@ -112,9 +116,19 @@ def main() -> int:
                  "g": (lambda: cs.g_terms(g), ("fri_g_kernel",)),
                  "perm": (lambda: cs.perm_terms(perm), ("perm_quotient_kernel",)),
                  "rows": (lambda: cs.perm_rows(rows), cs.PERM_ROWS_KERNELS)}
-    else:
+    elif stem == "gates":
         gen = cs.generic_inputs(rng, 1 << n_lde)
         timed = {"generic": (lambda: cs.generic_terms(gen), ("generic_gate_quotient_kernel",))}
+    else:
+        from eth_lc_plonky2_tpu_torch.ops import sha256 as sha
+
+        n = cs.SHA256_NS[-1]
+        state, block, left, right = (cs.sha256_words(rng, (n, w), "cuda") for w in (8, 16, 8, 8))
+        # read as int32, which torch.equal takes on the card
+        timed = {"compress": (lambda: sha.compress(state, block).view(torch.int32),
+                              ("sha256_compress_kernel",)),
+                 "two_to_one": (lambda: sha.two_to_one(left, right).view(torch.int32),
+                                ("sha256_two_to_one_kernel",))}
     timed = {k: v for k, v in timed.items() if k in what}
     original = kernels._libraries
 
@@ -139,7 +153,7 @@ def main() -> int:
     for name in libs:
         for w, (fn, _) in timed.items():
             res[name][f"{w}_equal"] = same(run(name, fn), want[w])
-    source = "gates" if stem == "gates" else "field"
+    source = stem
     for _ in range(args.rounds):
         for name in libs:
             for w, (fn, names) in timed.items():
