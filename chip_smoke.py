@@ -105,7 +105,12 @@ Phases (any mismatch or exception exits non-zero without the ok line):
      of the pair; the bundle's config and circuit sections must equal
      lc512_bls_bundle.json's (its vk is compared and the outcome logged),
      tools/verify_standalone.py must accept it and reject a tampered copy;
-     then a warm-up, three timed proves whose median is full512_prove_wall_s,
+     then a warm-up, three timed proves whose median is full512_prove_wall_s
+     (the last without a profiler of its own, under ELP_PROFILE=1 and
+     ELP_PHASE_LOG=1: its ELP_PROFILE record, captured and logged on a line
+     of its own, must have the JAX package's keys, the witness_upload phase
+     and the sync wait, be the profiler's last_profile, and its proof and
+     launches must be the other timed proves'),
      a traced prove as in phase 6, and two forged witnesses rejected; last,
      prove_stream over three more synthetic pairs (seeds 1 to 3, their inner
      dummy proofs made on the card first; the worker thread makes the outer
@@ -1300,11 +1305,16 @@ def launch_plan(data, pow_witness: int, field: int, gates: int) -> dict:
     return {"ntt": plan_ntt, "poseidon": plan_sponge, "field": field, "gates": gates, "sha256": 0}
 
 
+SYNC_WAIT = "_sync_wait"  # the profiler's waits at the phase marks: a share of the phases, not one
+
+
 def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_plan: int,
-                  gates_plan: int, timed: int = 3) -> dict:
+                  gates_plan: int, timed: int = 3, switch: bool = False) -> dict:
     """A warm-up, ``timed`` proves with the phase marks, a steady prove whose
     launches must be the plan's, and a scheduled trace split by kernel name
-    whose launches must be the wrappers' counts."""
+    whose launches must be the wrappers' counts.  With ``switch`` the last
+    timed prove takes its profiler from ELP_PROFILE instead
+    (``switched_prove``), and its record must agree with the others'."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from eth_lc_plonky2_tpu_torch.ops import kernels
@@ -1312,15 +1322,23 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
     from eth_lc_plonky2_tpu_torch.prover.profiler import Profiler
 
     prove.prove(pd, witness)  # warm-up: every table is cached now
-    runs, phases, proofs = [], [], []
-    for _ in range(timed):
-        prof = Profiler(enabled=True)
+    runs, phases, proofs, counted = [], [], [], []
+    for k in range(timed):
+        before = dict(kernels.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        proofs.append(prove.prove(pd, witness, prof=prof))
+        if switch and k == timed - 1:
+            proof, record = switched_prove(pd, witness, tag)
+            times = record["phases"]
+        else:
+            prof = Profiler(enabled=True)
+            proof = prove.prove(pd, witness, prof=prof)
+            times = prof.times
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
-        phases.append(prof.times)
+        proofs.append(proof)
+        phases.append(times)
+        counted.append({key: v - before[key] for key, v in kernels.launches.items()})
     prove_ms = statistics.median(runs) * 1e3
     log(f"{tag} prove: median {prove_ms:.2f} ms of {len(runs)} "
         f"({', '.join(f'{r * 1e3:.2f}' for r in runs)}), each phase ending in a synchronize "
@@ -1329,9 +1347,18 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
     for p in proofs:
         if (where := first_difference(proof_dict(p), want)):
             fail(f"two proofs of one witness differ at {where}")
-    phase_ms = {name: statistics.median(ph[name] for ph in phases) * 1e3 for name in phases[0]}
+    if any(c != counted[0] for c in counted):
+        fail(f"{tag} the timed proves launched {counted}: not the same")
+    if switch:
+        log(f"{tag} the prove under ELP_PROFILE=1 ELP_PHASE_LOG=1: its proof and its launches "
+            f"{counted[-1]} are the other timed proves' [{card}]")
+    phase_ms = {name: statistics.median(ph[name] for ph in phases) * 1e3
+                for name in phases[0] if name != SYNC_WAIT}
     for name, ms in sorted(phase_ms.items(), key=lambda kv: -kv[1]):
         log(f"{tag} phase {name}: {ms:.3f} ms (median of {len(phases)}) [{card}]")
+    wait_ms = statistics.median(ph[SYNC_WAIT] for ph in phases) * 1e3
+    log(f"{tag} wait {SYNC_WAIT}: {wait_ms:.3f} ms (median of {len(phases)}), the time spent in "
+        f"the phase marks' synchronize, a share of the phases above, not a phase [{card}]")
 
     # a steady-state prove with the count of launches, and the peak memory;
     # the permutation rows' own launches are counted around their call
@@ -1414,6 +1441,62 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
         f"the field kernels by name {fused} as planned (the permutation rows: "
         f"{perm_launches[0]} launches, none of field_binary_kernel or field_inv_kernel)")
     return {"prove_ms": prove_ms, "phase_ms": phase_ms, "by_name": by_name}
+
+
+PHASE_LOG = re.compile(r"\[prove \+ *\d+\.\ds\] phase (\w+)")
+
+
+def switched_prove(pd, witness, tag: str) -> tuple:
+    """One prove without a ``prof``, under ELP_PROFILE=1 and ELP_PHASE_LOG=1
+    (the environment is restored after it): its stdout and stderr are
+    captured, so that its ELP_PROFILE line is never this script's last.  The
+    record must have the JAX package's keys, the port's witness_upload phase
+    and the sync wait, phases that add up to at most its total (up to its
+    rounding), the phase log's lines for every phase, and be the profiler's
+    ``last_profile``.  Returns (the proof, the record)."""
+    import contextlib
+    import io
+
+    from eth_lc_plonky2_tpu_torch.prover import profiler, prove
+
+    saved = {k: os.environ.get(k) for k in ("ELP_PROFILE", "ELP_PHASE_LOG")}
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        os.environ.update({"ELP_PROFILE": "1", "ELP_PHASE_LOG": "1"})
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            proof = prove.prove(pd, witness)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = [line for line in out.getvalue().splitlines() if line.startswith("ELP_PROFILE ")]
+    if len(lines) != 1:
+        fail(f"{tag} a prove under ELP_PROFILE=1 printed {len(lines)} ELP_PROFILE lines, not one")
+    record = json.loads(lines[0][len("ELP_PROFILE "):])
+    if set(record) != {"total_s", "phases", "counts"} or record["counts"] != {}:
+        fail(f"{tag} the ELP_PROFILE record has keys {sorted(record)} and counts "
+             f"{record.get('counts')}")
+    phases = record["phases"]
+    if not {"witness_upload", SYNC_WAIT} <= set(phases):
+        fail(f"{tag} the ELP_PROFILE record's phases {sorted(phases)} lack witness_upload or "
+             f"{SYNC_WAIT}")
+    summed_s = sum(v for k, v in phases.items() if k != SYNC_WAIT)
+    rounding_s = 5e-4 + 5e-5 * len(phases)  # total_s to 3 places, each phase to 4
+    if summed_s > record["total_s"] + rounding_s:
+        fail(f"{tag} the phases add up to {summed_s} s, more than the total {record['total_s']} s")
+    if profiler.last_profile != record:
+        fail(f"{tag} profiler.last_profile is not the printed record")
+    logged = [PHASE_LOG.fullmatch(line) for line in err.getvalue().splitlines()]
+    names = [m.group(1) for m in logged if m]
+    if None in logged or names[-1:] != ["None"] or set(names[:-1]) != set(phases) - {SYNC_WAIT}:
+        fail(f"{tag} ELP_PHASE_LOG printed {err.getvalue()!r}")
+    log(f"{tag} ELP_PROFILE record of a timed prove (prof=None, ELP_PROFILE=1 ELP_PHASE_LOG=1): "
+        f"{json.dumps(record)}; {len(names)} ELP_PHASE_LOG lines, the last "
+        f"{err.getvalue().splitlines()[-1]!r}; the phases without {SYNC_WAIT} add up to "
+        f"{summed_s:.4f} s of {record['total_s']} s")
+    return proof, record
 
 
 def fused_launch_plan(pd) -> dict:
@@ -2861,7 +2944,8 @@ def phase8(torch, card: str, seed: int, cache_dir: str) -> dict:
         f"{len(pd.pre_values)} preprocessed polys, "
         f"{len(prove.opening_point_specs(data))} opening points, gates {report['gate_counts']}")
     check_inner_proof(torch, keep["bls_inners"][0], syn.witness_kwargs, card)
-    res = profile_prove(torch, "[8]", pd, witness, proof, card, LC_STEADY_FIELD_LAUNCHES, 3)
+    res = profile_prove(torch, "[8]", pd, witness, proof, card, LC_STEADY_FIELD_LAUNCHES, 3,
+                        switch=True)
     check_forged_rejected(data, vk, pd, witness, "[8] the flagship")
     log(f"[8] full512_prove_wall_s {res['prove_ms'] / 1e3:.5f} (median of 3 steady proves) "
         f"[{card}]")
@@ -3468,7 +3552,9 @@ def sharded_flagship(torch, mesh, cache_dir: str, seed: int, tag: str) -> dict:
     verify_s = time.perf_counter() - t1
     return {"first": json.dumps(proof_dict(first)), "proof": json.dumps(proof_dict(proof)),
             "launches": launched, "first_s": first_s, "wall_s": wall_s, "verify_s": verify_s,
-            "setup_s": setup_s, "peak_gb": peak_gb, "phases": dict(prof.times),
+            "setup_s": setup_s, "peak_gb": peak_gb,
+            "phases": {k: v for k, v in prof.times.items() if k != SYNC_WAIT},
+            "sync_wait_s": prof.times[SYNC_WAIT],
             "rows": (keep["data"].num_rows_used, keep["data"].log_n)}
 
 
@@ -3554,6 +3640,7 @@ def phase10(torch, chk: Checker, rng, card: str, seed: int, flagship: dict) -> d
         "setup_s": [ranks[r]["flagship"]["setup_s"] for r in sorted(ranks)],
         "peak_gb": [ranks[r]["flagship"]["peak_gb"] for r in sorted(ranks)],
         "phases_s": [ranks[r]["flagship"]["phases"] for r in sorted(ranks)],
+        "sync_wait_s": [ranks[r]["flagship"]["sync_wait_s"] for r in sorted(ranks)],
         "ranks_s": ranks_s, "big_ntt": big}}))
     return {"big_ntt": big, "walls": walls}
 

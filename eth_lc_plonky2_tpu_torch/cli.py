@@ -20,12 +20,15 @@ and all absorbed by the outer circuit.
 
 The proofs run on the card (`--device cuda`, the default); `--device cpu`
 runs the plain PyTorch versions of every kernel.  Verification runs on the
-host.
+host.  ELP_PROFILE=1 prints each proof's phase times as one ``ELP_PROFILE``
+JSON line on stdout, and ELP_PHASE_LOG=1 as well each phase's start on stderr
+(prover/profiler.py).
 
 Usage:
   python -m eth_lc_plonky2_tpu_torch.cli --synthetic 512 --bls dummy
   python -m eth_lc_plonky2_tpu_torch.cli --synthetic 512 --bls aggregate:slices=8
   python -m eth_lc_plonky2_tpu_torch.cli --synthetic 8 --bls dummy --device cpu
+  ELP_PROFILE=1 ELP_PHASE_LOG=1 python -m eth_lc_plonky2_tpu_torch.cli --synthetic 512 --bls dummy
   python -m eth_lc_plonky2_tpu_torch.cli --cur-update PATH --new-update PATH
 """
 

@@ -279,7 +279,9 @@ def prove_sharded(pd: pr.ProverData, witness: Witness, mesh: Mesh,
     the same ``pd`` and ``witness``; every rank returns the proof
     ``prove(pd, witness)`` makes on one device.  ``pd`` is a one-device
     ``ProverData`` (sharded here) or this rank's shard from
-    ``shard_prover_data``, which a rank keeps for its next proofs."""
+    ``shard_prover_data``, which a rank keeps for its next proofs.  ``prof``
+    as in ``prove``: without one, ELP_PROFILE has each rank print its own
+    record."""
     if pd.dev.get("shard") is None:
         pd = shard_prover_data(pd, mesh)
     return pr.prove_with(ShardedPhases(pd, mesh), witness, prof)

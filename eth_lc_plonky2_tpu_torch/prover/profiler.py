@@ -1,18 +1,35 @@
 """Per-phase prover profiling.
 
-Port of ``eth_lc_plonky2_tpu/prover/profiler.py``: hand ``prove`` a
-``Profiler(enabled=True)`` and ``prove()`` and ``fri_prove`` record the wall
-clock of each phase in its ``times``, ending every phase in
-``torch.cuda.synchronize()`` where there is a card, so that work still queued
-on the device is not counted with the next phase.  Disabled, a phase mark
-costs one attribute test.
+Port of ``eth_lc_plonky2_tpu/prover/profiler.py``.  Enable with
+ELP_PROFILE=1 (or hand ``prove`` a ``Profiler(enabled=True)``): ``prove()``
+and ``fri_prove`` then record the wall clock of each phase in ``times``,
+ending every phase in ``torch.cuda.synchronize()`` where there is a card, so
+that work still queued on the device is not counted with the next phase; the
+time spent in those waits is also summed under ``_sync_wait`` (a share of the
+phases, not a phase).  ``finish()`` returns the record, keeps it in
+``last_profile`` and, when ELP_PROFILE is set, prints it as one
+``ELP_PROFILE <json>`` line on stdout; ELP_PHASE_LOG=1 as well prints each
+phase's start on stderr.
+
+The phases are the JAX package's and one more, ``witness_upload`` (the witness
+matrix's copy to the device), which the JAX package counts in
+``witness_matrix``.  Disabled, a phase mark costs one attribute test.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import sys
 import time
 
 import torch
+
+last_profile: dict | None = None
+
+
+def _switch(name: str) -> bool:
+    return os.environ.get(name, "") not in ("", "0")
 
 
 class Profiler:
@@ -21,21 +38,51 @@ class Profiler:
     def __init__(self, enabled: bool):
         self.enabled = enabled
         self.times: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+        self._t0 = time.perf_counter()
         self._start = None
         self._name = None
+
+    @classmethod
+    def current(cls) -> "Profiler":
+        """A profiler that is enabled when ELP_PROFILE is set (and not "0")."""
+        return cls(enabled=_switch("ELP_PROFILE"))
 
     def phase(self, name: str | None):
         """End the previous phase (waiting for the device) and start ``name``."""
         if not self.enabled:
             return
+        now_sync = time.perf_counter()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         now = time.perf_counter()
         if self._name is not None:
             self.times[self._name] = self.times.get(self._name, 0.0) + (now - self._start)
+            self.times["_sync_wait"] = self.times.get("_sync_wait", 0.0) + (now - now_sync)
+        if _switch("ELP_PHASE_LOG"):
+            print(f"[prove +{now - self._t0:7.1f}s] phase {name}", file=sys.stderr, flush=True)
         self._name = name
         self._start = now
 
-    def finish(self):
-        """End the last phase."""
+    def count(self, name: str, inc: int = 1):
+        if self.enabled:
+            self.counts[name] = self.counts.get(name, 0) + inc
+
+    def finish(self) -> dict | None:
+        """End the last phase and return the record: the total, the phases by
+        time (longest first) and the counts."""
+        global last_profile
+        if not self.enabled:
+            return None
         self.phase(None)
+        self._name = None
+        total = time.perf_counter() - self._t0
+        out = {
+            "total_s": round(total, 3),
+            "phases": {k: round(v, 4) for k, v in sorted(self.times.items(), key=lambda kv: -kv[1])},
+            "counts": self.counts,
+        }
+        last_profile = out
+        if _switch("ELP_PROFILE"):
+            print("ELP_PROFILE " + json.dumps(out), flush=True)
+        return out

@@ -722,7 +722,8 @@ def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Pro
     """One proof of ``pd``'s circuit for ``witness``, on ``pd``'s device.
 
     ``pd`` comes from this module's ``preprocess``.  ``prof`` records the
-    phases' times when enabled (default: a disabled one).
+    phases' times when enabled (default: ``Profiler.current()``, enabled by
+    ELP_PROFILE).
     """
     return prove_with(Phases(pd), witness, prof)
 
@@ -734,7 +735,7 @@ def prove_with(ph: Phases, witness: Witness, prof: Profiler | None = None) -> Pr
     data = pd.data
     cfg = data.config
     if prof is None:
-        prof = Profiler(enabled=False)
+        prof = Profiler.current()
     prof.phase("witness_matrix")
 
     # 0. witness matrix + public input values (host -> device ONCE)
