@@ -1306,6 +1306,9 @@ def launch_plan(data, pow_witness: int, field: int, gates: int) -> dict:
 
 
 SYNC_WAIT = "_sync_wait"  # the profiler's waits at the phase marks: a share of the phases, not one
+# the prover's spans: like SYNC_WAIT, every "_" key of the record is a share of the phases
+SPAN_COUNTS = {"transcript", "transcript_permutations", "device_read"}
+SPAN_TIMES = {"_transcript", "_device_read"}
 
 
 def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_plan: int,
@@ -1353,12 +1356,13 @@ def profile_prove(torch, tag: str, pd, witness, first_proof, card: str, field_pl
         log(f"{tag} the prove under ELP_PROFILE=1 ELP_PHASE_LOG=1: its proof and its launches "
             f"{counted[-1]} are the other timed proves' [{card}]")
     phase_ms = {name: statistics.median(ph[name] for ph in phases) * 1e3
-                for name in phases[0] if name != SYNC_WAIT}
+                for name in phases[0] if not name.startswith("_")}
     for name, ms in sorted(phase_ms.items(), key=lambda kv: -kv[1]):
         log(f"{tag} phase {name}: {ms:.3f} ms (median of {len(phases)}) [{card}]")
-    wait_ms = statistics.median(ph[SYNC_WAIT] for ph in phases) * 1e3
-    log(f"{tag} wait {SYNC_WAIT}: {wait_ms:.3f} ms (median of {len(phases)}), the time spent in "
-        f"the phase marks' synchronize, a share of the phases above, not a phase [{card}]")
+    for name in sorted(k for k in phases[0] if k.startswith("_")):
+        ms = statistics.median(ph[name] for ph in phases) * 1e3
+        log(f"{tag} share {name}: {ms:.3f} ms (median of {len(phases)}), a share of the phases "
+            f"above, not a phase [{card}]")
 
     # a steady-state prove with the count of launches, and the peak memory;
     # the permutation rows' own launches are counted around their call
@@ -1450,8 +1454,9 @@ def switched_prove(pd, witness, tag: str) -> tuple:
     """One prove without a ``prof``, under ELP_PROFILE=1 and ELP_PHASE_LOG=1
     (the environment is restored after it): its stdout and stderr are
     captured, so that its ELP_PROFILE line is never this script's last.  The
-    record must have the JAX package's keys, the port's witness_upload phase
-    and the sync wait, phases that add up to at most its total (up to its
+    record must have the JAX package's keys, the port's witness_upload phase,
+    the sync wait and the prover's spans, exactly the spans' counts, phases
+    (every key but the "_" shares) that add up to at most its total (up to its
     rounding), the phase log's lines for every phase, and be the profiler's
     ``last_profile``.  Returns (the proof, the record)."""
     import contextlib
@@ -1475,14 +1480,16 @@ def switched_prove(pd, witness, tag: str) -> tuple:
     if len(lines) != 1:
         fail(f"{tag} a prove under ELP_PROFILE=1 printed {len(lines)} ELP_PROFILE lines, not one")
     record = json.loads(lines[0][len("ELP_PROFILE "):])
-    if set(record) != {"total_s", "phases", "counts"} or record["counts"] != {}:
+    if (set(record) != {"total_s", "phases", "counts"} or set(record["counts"]) != SPAN_COUNTS
+            or min(record["counts"].values()) < 1):
         fail(f"{tag} the ELP_PROFILE record has keys {sorted(record)} and counts "
              f"{record.get('counts')}")
     phases = record["phases"]
-    if not {"witness_upload", SYNC_WAIT} <= set(phases):
-        fail(f"{tag} the ELP_PROFILE record's phases {sorted(phases)} lack witness_upload or "
-             f"{SYNC_WAIT}")
-    summed_s = sum(v for k, v in phases.items() if k != SYNC_WAIT)
+    if not {"witness_upload", SYNC_WAIT} | SPAN_TIMES <= set(phases):
+        fail(f"{tag} the ELP_PROFILE record's phases {sorted(phases)} lack witness_upload, "
+             f"{SYNC_WAIT} or {sorted(SPAN_TIMES)}")
+    shares = {k for k in phases if k.startswith("_")}
+    summed_s = sum(v for k, v in phases.items() if k not in shares)
     rounding_s = 5e-4 + 5e-5 * len(phases)  # total_s to 3 places, each phase to 4
     if summed_s > record["total_s"] + rounding_s:
         fail(f"{tag} the phases add up to {summed_s} s, more than the total {record['total_s']} s")
@@ -1490,11 +1497,11 @@ def switched_prove(pd, witness, tag: str) -> tuple:
         fail(f"{tag} profiler.last_profile is not the printed record")
     logged = [PHASE_LOG.fullmatch(line) for line in err.getvalue().splitlines()]
     names = [m.group(1) for m in logged if m]
-    if None in logged or names[-1:] != ["None"] or set(names[:-1]) != set(phases) - {SYNC_WAIT}:
+    if None in logged or names[-1:] != ["None"] or set(names[:-1]) != set(phases) - shares:
         fail(f"{tag} ELP_PHASE_LOG printed {err.getvalue()!r}")
     log(f"{tag} ELP_PROFILE record of a timed prove (prof=None, ELP_PROFILE=1 ELP_PHASE_LOG=1): "
         f"{json.dumps(record)}; {len(names)} ELP_PHASE_LOG lines, the last "
-        f"{err.getvalue().splitlines()[-1]!r}; the phases without {SYNC_WAIT} add up to "
+        f"{err.getvalue().splitlines()[-1]!r}; the phases without {sorted(shares)} add up to "
         f"{summed_s:.4f} s of {record['total_s']} s")
     return proof, record
 
@@ -3553,7 +3560,7 @@ def sharded_flagship(torch, mesh, cache_dir: str, seed: int, tag: str) -> dict:
     return {"first": json.dumps(proof_dict(first)), "proof": json.dumps(proof_dict(proof)),
             "launches": launched, "first_s": first_s, "wall_s": wall_s, "verify_s": verify_s,
             "setup_s": setup_s, "peak_gb": peak_gb,
-            "phases": {k: v for k, v in prof.times.items() if k != SYNC_WAIT},
+            "phases": {k: v for k, v in prof.times.items() if not k.startswith("_")},
             "sync_wait_s": prof.times[SYNC_WAIT],
             "rows": (keep["data"].num_rows_used, keep["data"].log_n)}
 

@@ -246,7 +246,9 @@ def fri_prove(pd, batches, openings, point_specs, zeta, fri_alpha, ch: Challenge
     while size > stop_size:
         tree = _layer_tree(evals, layer_cap_height(size // 2))
         trees.append(tree)
-        ch.observe_cap(tree.cap)  # [device sync: cap transfer]
+        with prof.span("device_read"):
+            cap = tree.cap  # [device sync: cap transfer]
+        ch.observe_cap(cap)
         beta = ch.challenge_ext()
         h = size // 2
         w = gl.primitive_root_of_unity(size.bit_length() - 1)
@@ -260,7 +262,9 @@ def fri_prove(pd, batches, openings, point_specs, zeta, fri_alpha, ch: Challenge
     # --- final polynomial ---
     prof.phase("fri_final_poly")
     final_len = size >> fri_cfg.rate_bits
-    coeffs = gl.to_u64(nttm.coset_intt(torch.stack(evals), 0, shift))  # [device sync]
+    coeffs = nttm.coset_intt(torch.stack(evals), 0, shift)
+    with prof.span("device_read"):
+        coeffs = gl.to_u64(coeffs)  # [device sync]
     if coeffs[:, final_len:].any():
         raise AssertionError(
             "FRI final polynomial exceeds expected degree — constraint system bug")
@@ -286,8 +290,9 @@ def fri_prove(pd, batches, openings, point_specs, zeta, fri_alpha, ch: Challenge
         sz //= 2
         cur = cur % sz
         dev_layers.append(gather_rows_and_paths(tree, cur))
-    host_batch = {t: (gl.to_u64(v[0]), gl.to_u64(v[1])) for t, v in dev_batch.items()}
-    host_layers = [(gl.to_u64(v[0]), gl.to_u64(v[1])) for v in dev_layers]
+    with prof.span("device_read"):
+        host_batch = {t: (gl.to_u64(v[0]), gl.to_u64(v[1])) for t, v in dev_batch.items()}
+        host_layers = [(gl.to_u64(v[0]), gl.to_u64(v[1])) for v in dev_layers]
 
     query_proofs = []
     for qi in range(num_q):
@@ -336,8 +341,9 @@ def grind(ch: Challenger, pow_bits: int, device) -> int:
         # witnesses fit 32 bits in practice (expected tries ~2^pow_bits)
         ws = torch.arange(start, start + batch, dtype=torch.int64, device=device)
         found, idx = _grind_core(c_f, ws, thr_hi)
-        if bool(found):
-            return start + int(idx)
+        with ch.prof.span("device_read"):
+            if bool(found):  # [device sync]
+                return start + int(idx)
         start += batch
         if start >= (1 << 32):
             raise RuntimeError("PoW witness exceeded 32 bits")

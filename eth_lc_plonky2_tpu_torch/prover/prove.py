@@ -731,11 +731,18 @@ def prove(pd: ProverData, witness: Witness, prof: Profiler | None = None) -> Pro
 def prove_with(ph: Phases, witness: Witness, prof: Profiler | None = None) -> Proof:
     """The transcript's order of phases, each phase's device side run by
     ``ph``: the one-device ``prove`` and the sharded prover run this."""
+    if prof is None:
+        prof = Profiler.current()
+    try:
+        return _prove_phases(ph, witness, prof)
+    finally:
+        prof.close()  # the trace's open span, on an exception too
+
+
+def _prove_phases(ph: Phases, witness: Witness, prof: Profiler) -> Proof:
     pd = ph.pd
     data = pd.data
     cfg = data.config
-    if prof is None:
-        prof = Profiler.current()
     prof.phase("witness_matrix")
 
     # 0. witness matrix + public input values (host -> device ONCE)
@@ -746,14 +753,16 @@ def prove_with(ph: Phases, witness: Witness, prof: Profiler | None = None) -> Pr
     prof.phase("witness_upload")
     ph.upload(wires_u64)
 
-    ch = Challenger()
+    ch = Challenger(prof)
     ch.observe_cap(pd.pre_batch.cap)
     ch.observe_many([int(v) for v in pi_values])
 
     # 1. commit wires
     prof.phase("commit_wires")
     wires_batch = ph.commit_wires()
-    ch.observe_cap(wires_batch.cap)  # [device sync: cap transfer]
+    with prof.span("device_read"):
+        cap = wires_batch.cap  # [device sync: cap transfer]
+    ch.observe_cap(cap)
 
     # 2. permutation challenges + Z/partials, one batch of rows a challenge set
     prof.phase("perm_polys")
@@ -764,7 +773,9 @@ def prove_with(ph: Phases, witness: Witness, prof: Profiler | None = None) -> Pr
     zs_vals = ph.permutation(betas, gammas)
     prof.phase("commit_zs")
     zs_batch = ph.commit_values(zs_vals)
-    ch.observe_cap(zs_batch.cap)  # [device sync]
+    with prof.span("device_read"):
+        cap = zs_batch.cap  # [device sync]
+    ch.observe_cap(cap)
 
     # 3. quotient
     prof.phase("quotient")
@@ -772,7 +783,9 @@ def prove_with(ph: Phases, witness: Witness, prof: Profiler | None = None) -> Pr
     chunk_coeffs = ph.quotient(wires_batch, zs_batch, pi_values, betas, gammas, alphas)
     prof.phase("commit_quotient")
     quotient_batch = ph.commit_coeffs(chunk_coeffs)
-    ch.observe_cap(quotient_batch.cap)  # [device sync]
+    with prof.span("device_read"):
+        cap = quotient_batch.cap  # [device sync]
+    ch.observe_cap(cap)
 
     # 4. opening point + openings (one batched evaluation of all batches)
     prof.phase("openings")
@@ -792,8 +805,9 @@ def prove_with(ph: Phases, witness: Witness, prof: Profiler | None = None) -> Pr
     open_dev = ph.open({tag: (batches[tag], [point_at(o) for o in offs])
                         for tag, offs in tag_offsets.items()})
     openings = {}
-    for tag, offs in tag_offsets.items():  # [device sync: the opening values]
-        re_u, im_u = ph.to_host(batches[tag], open_dev[tag])
+    for tag, offs in tag_offsets.items():
+        with prof.span("device_read"):
+            re_u, im_u = ph.to_host(batches[tag], open_dev[tag])  # [device sync]
         for j, off in enumerate(offs):
             openings[(tag, off)] = np.stack([re_u[j], im_u[j]], axis=1)
 

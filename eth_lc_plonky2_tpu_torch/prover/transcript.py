@@ -10,18 +10,24 @@ rule is this framework's own fixed spec:
   * squeeze: while input pending (or no outputs), absorb chunks of 8
     by overwriting state[0..len(chunk)], permute, set outputs =
     state[0..8] consumed left-to-right.
+
+Given an enabled ``Profiler``, each duplex is a ``transcript`` span and its
+permutations are counted under ``transcript_permutations``; the prover's
+device reads reach the same profiler through ``prof``.
 """
 
 from __future__ import annotations
 
 from ..ops import poseidon as pos
 from ..ops import goldilocks as gl
+from .profiler import Profiler
 
 P = gl.P
 
 
 class Challenger:
-    def __init__(self):
+    def __init__(self, prof: Profiler | None = None):
+        self.prof = prof if prof is not None else Profiler(enabled=False)
         self.state = [0] * pos.WIDTH
         self.input_buffer: list[int] = []
         self.output_buffer: list[int] = []
@@ -51,15 +57,19 @@ class Challenger:
     # -- squeeze ---------------------------------------------------------
 
     def _duplex(self):
-        if self.input_buffer:
-            for start in range(0, len(self.input_buffer), pos.SPONGE_RATE):
-                chunk = self.input_buffer[start : start + pos.SPONGE_RATE]
-                self.state[: len(chunk)] = chunk
+        with self.prof.span("transcript"):
+            n = len(self.input_buffer)
+            if n:
+                for start in range(0, n, pos.SPONGE_RATE):
+                    chunk = self.input_buffer[start : start + pos.SPONGE_RATE]
+                    self.state[: len(chunk)] = chunk
+                    self.state = pos.permute_host(self.state)
+                self.input_buffer.clear()
+            else:
                 self.state = pos.permute_host(self.state)
-            self.input_buffer.clear()
-        else:
-            self.state = pos.permute_host(self.state)
-        self.output_buffer = list(self.state[: pos.SPONGE_RATE])
+            self.output_buffer = list(self.state[: pos.SPONGE_RATE])
+            # one permutation a chunk of the input, or one with no input
+            self.prof.count("transcript_permutations", -(-n // pos.SPONGE_RATE) or 1)
 
     def challenge(self) -> int:
         if self.input_buffer or not self.output_buffer:

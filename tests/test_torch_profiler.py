@@ -7,7 +7,13 @@ prints the phases' starts on stderr in the JAX package's format and order;
 switched off, nothing is printed and ``last_profile`` stays.  No proof
 changes: each equals, byte for byte, the proof made with the switch off.
 ``Profiler.count`` and ``finish`` are fed the same calls in both classes,
-and ``prove_sharded`` prints one record on a one-rank gloo group."""
+and ``prove_sharded`` prints one record on a one-rank gloo group.
+
+The port's record also holds its spans inside the prover, which the JAX
+package has not: ``_transcript`` and ``_device_read`` in the phases, and the
+counts ``transcript``, ``transcript_permutations`` and ``device_read``, each
+checked against the prove's own calls; the trace's ``phase:`` spans tile the
+prove without overlapping, and a disabled profiler records nothing."""
 
 import json
 import re
@@ -16,6 +22,7 @@ import pytest
 import torch
 
 from eth_lc_plonky2_tpu.prover import profiler as jprofiler
+from eth_lc_plonky2_tpu_torch.ops import poseidon as pos
 from eth_lc_plonky2_tpu_torch.parallel import distributed as dist
 from eth_lc_plonky2_tpu_torch.parallel import prover as pprover
 from eth_lc_plonky2_tpu_torch.prover import profiler
@@ -26,6 +33,8 @@ torch.set_num_threads(1)
 SWITCHES = ("ELP_PROFILE", "ELP_PHASE_LOG")
 KEYS = {"total_s", "phases", "counts"}
 LOG_LINE = re.compile(r"\[prove \+ *\d+\.\ds\] phase (\w+)")
+SPANS = {"_transcript", "_device_read"}  # the port's spans, in the record's phases
+COUNTS = {"transcript", "transcript_permutations", "device_read"}
 
 
 def _circuit(pkg):
@@ -66,6 +75,17 @@ def both():
     return out
 
 
+def _device_reads(pd, text: str) -> int:
+    """The prove's blocking reads of device data, from its proof's JSON: the
+    three commitments' caps, the openings of each batch, each FRI layer's cap,
+    the final polynomial, each batch of the grind, the query rows and paths."""
+    fri = json.loads(text)["fri"]
+    grind_batch = 1 << min(20, pd.data.config.fri.proof_of_work_bits + 3)
+    tags = {tag for tag, _ in PORT.pr.opening_point_specs(pd.data)}
+    return (3 + len(tags) + len(fri["layer_caps"]) + 1 + int(fri["pow_witness"], 16) // grind_batch
+            + 1 + 1)
+
+
 def _records(out: str) -> list:
     return [json.loads(line[len("ELP_PROFILE "):]) for line in out.splitlines()
             if line.startswith("ELP_PROFILE ")]
@@ -92,13 +112,18 @@ def test_switch_on_prints_one_record_like_the_jax_packages(both, monkeypatch, ca
         assert text == both[name][3], name  # the proof is the one made with the switch off
         assert err == "", name
         (rec[name],) = _records(out)
-        assert set(rec[name]) == KEYS and rec[name]["counts"] == {}, name
+        assert set(rec[name]) == KEYS, name
         times = list(rec[name]["phases"].values())
         assert times == sorted(times, reverse=True), name
         assert "_sync_wait" in rec[name]["phases"], name
         assert mod.last_profile == rec[name], name
-    assert "witness_upload" not in rec["jax"]["phases"]
-    assert set(rec["port"]["phases"]) == set(rec["jax"]["phases"]) | {"witness_upload"}
+    assert rec["jax"]["counts"] == {}
+    _, pd, _, _ = both["port"]
+    counts = rec["port"]["counts"]
+    assert set(counts) == COUNTS and counts["device_read"] == _device_reads(pd, got["port"][0])
+    assert counts["transcript_permutations"] >= counts["transcript"] > 0
+    assert "witness_upload" not in rec["jax"]["phases"] and not SPANS & set(rec["jax"]["phases"])
+    assert set(rec["port"]["phases"]) == set(rec["jax"]["phases"]) | {"witness_upload"} | SPANS
 
 
 @pytest.mark.parametrize("value", [None, "0"])
@@ -193,3 +218,65 @@ def test_prove_sharded_prints_one_record_on_one_gloo_rank(both, monkeypatch, cap
     assert _text(PORT, proof) == want
     assert set(rec) == KEYS and set(rec["phases"]) == set(one["phases"])
     assert profiler.last_profile == rec
+
+
+def _traced_prove(pd, w, prof):
+    """The proof's JSON and the ``phase:`` events, by start (ns), of one prove
+    under a CPU ``torch.profiler`` trace.  The trace's raw events are read:
+    ``events()`` takes some 40 s to build the tree of a CPU prove's ops."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as trace:
+        text = _text(PORT, PORT.pr.prove(pd, w, prof=prof))
+    events = sorted((e.start_ns(), e.start_ns() + e.duration_ns(),
+                     e.name()[len(profiler.TRACE_PREFIX):])
+                    for e in trace.profiler.kineto_results.events()
+                    if e.name().startswith(profiler.TRACE_PREFIX))
+    return text, events
+
+
+@pytest.mark.parametrize("case", ["permutations", "device_reads", "same_proof", "trace_tiles",
+                                  "disabled_traces_nothing", "raise_closes_the_trace"])
+def test_spans_inside_the_prover(both, monkeypatch, case):
+    monkeypatch.delenv("ELP_PHASE_LOG", raising=False)
+    _, pd, w, want = both["port"]
+    prof = profiler.Profiler(enabled=case != "disabled_traces_nothing")
+    calls = []
+    permute_host = pos.permute_host
+
+    def counted(state):
+        calls.append(1)
+        if case == "raise_closes_the_trace" and len(calls) == 20:
+            raise RuntimeError("a permutation fails")
+        return permute_host(state)
+
+    monkeypatch.setattr(pos, "permute_host", counted)
+    if case == "raise_closes_the_trace":
+        with pytest.raises(RuntimeError, match="a permutation fails"):
+            PORT.pr.prove(pd, w, prof=prof)
+        assert prof._traced is None and prof._spans == []
+        assert prof.counts["transcript"] > 0 and "_transcript" in prof.times
+        return
+    if case in ("trace_tiles", "disabled_traces_nothing"):
+        text, events = _traced_prove(pd, w, prof)
+    else:
+        text = _text(PORT, PORT.pr.prove(pd, w, prof=prof))
+    assert text == want  # byte for byte the proof made with the profiler off
+    if case == "disabled_traces_nothing":
+        assert events == [] and prof.times == {} and prof.counts == {}
+        assert prof.span("transcript") is prof.span("device_read")  # one shared no-op context
+        return
+    times, counts = prof.times, prof.counts
+    assert set(counts) == COUNTS and SPANS <= set(times)
+    if case == "permutations":
+        assert counts["transcript_permutations"] == len(calls) > counts["transcript"]
+    elif case == "device_reads":
+        assert counts["device_read"] == _device_reads(pd, text)
+    elif case == "same_proof":
+        phases = sum(v for k, v in times.items() if not k.startswith("_"))
+        assert times["_transcript"] + times["_device_read"] + times["_sync_wait"] <= phases
+    else:  # the spans never overlap, and tile the prove from its first mark to finish()
+        assert events[0][2] == "witness_matrix" and events[-1][2] == "fri_queries"
+        assert {"transcript", "device_read"} <= {name for _, _, name in events}
+        assert all(b <= a2 for (_, b, _), (a2, _, _) in zip(events, events[1:]))
+        covered = sum(b - a for a, b, _ in events)
+        assert covered >= 0.99 * (events[-1][1] - events[0][0])
+        assert sum(name == "transcript" for _, _, name in events) == counts["transcript"]
